@@ -1,0 +1,100 @@
+"""Build and load the hand-written Hopper kernels (csrc/*.cu).
+
+The sources compile with nvcc into one shared library with a plain C
+interface, loaded with ctypes. The library is built at first use into
+`build/kernels/<hash>/` at the repository root, keyed by a hash of the
+sources and flags, so an edited kernel rebuilds and an unchanged one is
+reused. Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent.parent / 'csrc'
+BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
+LIB_NAME = 'libcodeformer_kernels.so'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures of the entry points (csrc/*.cu, extern "C")
+SIGNATURES = {
+    'cf_conv3x3_dots': [_P] * 9 + [_I] * 11 + [_P],
+    'cf_downsample_dots': [_P] * 4 + [_I] * 6 + [_P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+build_info: dict = {}
+
+
+def _sources():
+    return sorted(p for p in CSRC.iterdir() if p.suffix in ('.cu', '.cuh'))
+
+
+def _nvcc() -> str:
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    cand = Path(os.environ.get('CUDA_HOME', '/usr/local/cuda')) / 'bin' / 'nvcc'
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError('nvcc not found: the CUDA kernels need the CUDA '
+                       'toolkit (set CUDA_HOME or put nvcc on PATH)')
+
+
+def _digest() -> str:
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists.
+    Returns its path; `build_info` records seconds and the compiler log."""
+    out_dir = BUILD_ROOT / _digest()
+    lib_path = out_dir / LIB_NAME
+    if lib_path.exists():
+        build_info.update(path=str(lib_path), seconds=0.0, cached=True,
+                          log='')
+        return lib_path
+    nvcc = _nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in _sources() if p.suffix == '.cu']
+    fd, tmp = tempfile.mkstemp(suffix='.so', dir=out_dir)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, '-I', str(CSRC), '-o', tmp, *cu]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
+                           f'{" ".join(cmd)}\n{proc.stdout}\n{proc.stderr}')
+    os.replace(tmp, lib_path)   # atomic: a reader never sees a partial file
+    build_info.update(path=str(lib_path), seconds=seconds, cached=False,
+                      log=proc.stdout + proc.stderr)
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib

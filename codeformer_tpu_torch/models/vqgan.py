@@ -1,0 +1,170 @@
+"""VQGAN backbone in PyTorch (counterpart of codeformer_tpu/models/vqgan.py).
+
+The block order, and so every state-dict key, is the reference's
+(vqgan_arch.py:229-323), so released checkpoints load unchanged. Tap
+indices are computed at construction with the JAX package's rules.
+Waiting for a later slice: VectorQuantizer's nearest-code forward
+(the TPU kernel K3), GumbelQuantizer and VQGANDiscriminator.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+
+from codeformer_tpu_torch.nn.blocks import (AttnBlock, Conv2d, Downsample,
+                                            GroupNorm32, ResBlock, Upsample,
+                                            decoder_tail)
+from codeformer_tpu_torch.ops.vq import codebook_lookup
+from codeformer_tpu_torch.utils.registry import ARCH_REGISTRY
+
+
+class VectorQuantizer(nn.Module):
+    """The codebook (vqgan_arch.py:24-84): `embedding.weight` (K, D)."""
+
+    def __init__(self, codebook_size: int, emb_dim: int):
+        super().__init__()
+        self.embedding = nn.Embedding(codebook_size, emb_dim)
+        nn.init.uniform_(self.embedding.weight, -1.0 / codebook_size,
+                         1.0 / codebook_size)
+
+    def get_codebook_feat(self, indices: torch.Tensor,
+                          shape: Optional[Sequence[int]] = None,
+                          dtype=None) -> torch.Tensor:
+        """indices (B*T,) or (B, T) -> codebook rows; with an NHWC `shape`
+        (B, h, w, D), an NCHW map in channels_last memory (as
+        vqgan_arch.py:72-84)."""
+        z_q = codebook_lookup(indices.reshape(-1), self.embedding.weight,
+                              dtype)
+        if shape is not None:
+            z_q = z_q.reshape(shape).permute(0, 3, 1, 2)
+        return z_q
+
+
+def _build_encoder_blocks(nf, emb_dim, ch_mult, num_res_blocks, resolution,
+                          attn_resolutions):
+    """Encoder blocks + {feature size: last-ResBlock index} taps, in the
+    reference order (vqgan_arch.py:241-266)."""
+    blocks = [Conv2d(3, nf, 3, padding=1)]
+    taps: Dict[str, int] = {}
+    curr_res = resolution
+    in_ch_mult = (1,) + tuple(ch_mult)
+    block_in = nf
+    for i in range(len(ch_mult)):
+        block_in = nf * in_ch_mult[i]
+        block_out = nf * ch_mult[i]
+        for _ in range(num_res_blocks):
+            blocks.append(ResBlock(block_in, block_out))
+            block_in = block_out
+            taps[str(curr_res)] = len(blocks) - 1
+            if curr_res in attn_resolutions:
+                blocks.append(AttnBlock(block_in))
+        if i != len(ch_mult) - 1:
+            blocks.append(Downsample(block_in))
+            curr_res //= 2
+    blocks.append(ResBlock(block_in, block_in))
+    blocks.append(AttnBlock(block_in))
+    blocks.append(ResBlock(block_in, block_in))
+    blocks.append(GroupNorm32(block_in))
+    blocks.append(Conv2d(block_in, emb_dim, 3, padding=1))
+    return blocks, taps
+
+
+def _build_generator_blocks(nf, emb_dim, ch_mult, num_res_blocks, resolution,
+                            attn_resolutions, out_channels):
+    """Generator blocks + fuse taps (vqgan_arch.py:290-316): the first
+    ResBlock of each stage, or the last one at attention resolutions
+    (the reference's fuse table, codeformer_arch.py:206)."""
+    num_resolutions = len(ch_mult)
+    block_in = nf * ch_mult[-1]
+    curr_res = resolution // 2 ** (num_resolutions - 1)
+    blocks = [Conv2d(emb_dim, block_in, 3, padding=1),
+              ResBlock(block_in, block_in), AttnBlock(block_in),
+              ResBlock(block_in, block_in)]
+    taps: Dict[str, int] = {}
+    for i in reversed(range(num_resolutions)):
+        block_out = nf * ch_mult[i]
+        first_in_stage = True
+        for _ in range(num_res_blocks):
+            blocks.append(ResBlock(block_in, block_out))
+            block_in = block_out
+            if first_in_stage or curr_res in attn_resolutions:
+                taps[str(curr_res)] = len(blocks) - 1
+                first_in_stage = False
+            if curr_res in attn_resolutions:
+                blocks.append(AttnBlock(block_in))
+        if i != 0:
+            blocks.append(Upsample(block_in))
+            curr_res *= 2
+    blocks.append(GroupNorm32(block_in))
+    blocks.append(Conv2d(block_in, out_channels, 3, padding=1))
+    return blocks, taps
+
+
+class Encoder(nn.Module):
+    """Image (B, 3, H, W) -> latents (B, emb_dim, h, w), plus the outputs
+    of the tapped blocks by feature size (vqgan_arch.py:229-273)."""
+
+    def __init__(self, nf=64, emb_dim=256, ch_mult=(1, 2, 2, 4, 4, 8),
+                 num_res_blocks=2, resolution=512, attn_resolutions=(16,)):
+        super().__init__()
+        blocks, self.tap_by_size = _build_encoder_blocks(
+            nf, emb_dim, tuple(ch_mult), num_res_blocks, resolution,
+            tuple(attn_resolutions))
+        self.blocks = nn.ModuleList(blocks)
+
+    def forward(self, x: torch.Tensor, tap_indices: Sequence[int] = ()
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        feats = {}
+        taps = set(tap_indices)
+        for i, blk in enumerate(self.blocks):
+            x = blk(x)
+            if i in taps:
+                feats[str(x.shape[2])] = x
+        return x, feats
+
+
+class Generator(nn.Module):
+    """Latents -> image (vqgan_arch.py:276-323). `fuse_fns` maps a block
+    index to a callable applied to that block's output (CodeFormer's
+    SFT fusion). The final GroupNorm + conv_out run as one K1 call."""
+
+    def __init__(self, nf=64, emb_dim=256, ch_mult=(1, 2, 2, 4, 4, 8),
+                 num_res_blocks=2, resolution=512, attn_resolutions=(16,),
+                 out_channels=3):
+        super().__init__()
+        blocks, self.tap_by_size = _build_generator_blocks(
+            nf, emb_dim, tuple(ch_mult), num_res_blocks, resolution,
+            tuple(attn_resolutions), out_channels)
+        self.blocks = nn.ModuleList(blocks)
+
+    def forward(self, x: torch.Tensor,
+                fuse_fns: Optional[Dict[int, Callable]] = None
+                ) -> torch.Tensor:
+        fuse_fns = fuse_fns or {}
+        n = len(self.blocks)
+        for i in range(n - 2):
+            x = self.blocks[i](x)
+            if i in fuse_fns:
+                x = fuse_fns[i](x)
+        return decoder_tail(self.blocks[n - 2], self.blocks[n - 1], x)
+
+
+@ARCH_REGISTRY.register()
+class VQAutoEncoder(nn.Module):
+    """The VQGAN backbone: encoder, codebook, generator
+    (vqgan_arch.py:326-389), with the 'nearest' quantizer's codebook; its
+    nearest-code forward and the Gumbel quantizer wait for the training
+    slice."""
+
+    def __init__(self, img_size=512, nf=64, ch_mult=(1, 2, 2, 4, 4, 8),
+                 res_blocks=2, attn_resolutions=(16,), codebook_size=1024,
+                 emb_dim=256):
+        super().__init__()
+        self.ch_mult, self.emb_dim = tuple(ch_mult), emb_dim
+        self.encoder = Encoder(nf, emb_dim, ch_mult, res_blocks, img_size,
+                               attn_resolutions)
+        self.quantize = VectorQuantizer(codebook_size, emb_dim)
+        self.generator = Generator(nf, emb_dim, ch_mult, res_blocks,
+                                   img_size, attn_resolutions)

@@ -1,0 +1,204 @@
+"""VQGAN building blocks in PyTorch (counterpart of codeformer_tpu/nn/blocks.py).
+
+Tensors are NCHW in torch.channels_last memory, so `x.permute(0, 2, 3, 1)`
+is a free contiguous NHWC view for the kernels of ops/conv3x3.py.
+Precision policy as in the JAX package: parameters fp32, activations in
+the input's dtype (bf16 when serving), fp32 statistics in GroupNorm and
+AdaIN. Parameter names are the reference `.pth` names.
+
+Every ResBlock conv runs through K1 (`conv3x3_dots`, GroupNorm-apply and
+SiLU folded in) and every Downsample through K2 (`downsample_dots`); the
+decoder tail GroupNorm -> conv_out is one K1 call without activation.
+Attention, Upsample, the SFT convs and the encoder's edges are plain
+PyTorch, as they were plain XLA in JAX.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from codeformer_tpu_torch.ops import conv3x3 as cv
+
+CL = torch.channels_last
+
+
+def nhwc(x: torch.Tensor) -> torch.Tensor:
+    """NCHW tensor -> contiguous NHWC view (a copy only if x is not
+    channels_last already)."""
+    return x.contiguous(memory_format=CL).permute(0, 2, 3, 1)
+
+
+def nchw(y: torch.Tensor) -> torch.Tensor:
+    """Contiguous NHWC -> NCHW view in channels_last memory."""
+    return y.permute(0, 3, 1, 2)
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d that computes in the input's dtype (fp32 parameters are
+    cast on use, as flax's `dtype=`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class GroupNorm32(nn.GroupNorm):
+    """GroupNorm(32, eps=1e-6) (reference vqgan_arch.py:14-15) with fp32
+    statistics, output in the input's dtype."""
+
+    def __init__(self, num_channels: int):
+        super().__init__(32, num_channels, eps=1e-6)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
+                         self.eps)
+        return y.to(x.dtype)
+
+
+def calc_mean_std(feat: torch.Tensor, eps: float = 1e-5):
+    """Per-sample, per-channel spatial mean and std of an NCHW tensor,
+    with the unbiased variance (codeformer_arch.py:12-26). fp32,
+    shapes (B, C, 1, 1)."""
+    f = feat.float()
+    mean = f.mean((2, 3), keepdim=True)
+    var = f.var((2, 3), keepdim=True, unbiased=True)
+    return mean, (var + eps).sqrt()
+
+
+def adaptive_instance_normalization(content_feat: torch.Tensor,
+                                    style_feat: torch.Tensor) -> torch.Tensor:
+    """AdaIN (codeformer_arch.py:29-43): content re-coloured with the
+    style's channel statistics; fp32 inside, content dtype out."""
+    style_mean, style_std = calc_mean_std(style_feat)
+    content_mean, content_std = calc_mean_std(content_feat)
+    out = (content_feat.float() - content_mean) / content_std
+    return (out * style_std + style_mean).to(content_feat.dtype)
+
+
+class ResBlock(nn.Module):
+    """GroupNorm -> SiLU -> 3x3 conv, twice, plus the (projected) skip
+    (vqgan_arch.py:141-164), as two K1 calls:
+
+      1. entry stats (fp32 sums) -> gn_affine -> K1(silu) = y1 + its stats
+      2. gn_affine(y1 stats) -> K1(silu, skip = x_in or x_in @ conv_out)
+
+    The projected skip multiplies the RAW block input; conv_out's bias is
+    folded into conv2's.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int | None = None):
+        super().__init__()
+        out_ch = out_channels or in_channels
+        self.in_channels, self.out_channels = in_channels, out_ch
+        self.norm1 = GroupNorm32(in_channels)
+        self.conv1 = Conv2d(in_channels, out_ch, 3, padding=1)
+        self.norm2 = GroupNorm32(out_ch)
+        self.conv2 = Conv2d(out_ch, out_ch, 3, padding=1)
+        if in_channels != out_ch:
+            self.conv_out = Conv2d(in_channels, out_ch, 1)
+
+    def forward(self, x_in: torch.Tensor) -> torch.Tensor:
+        x = nhwc(x_in)
+        hw = x.shape[1] * x.shape[2]
+        a1, b1 = cv.gn_affine(cv.channel_stats(x), self.norm1.weight,
+                              self.norm1.bias, hw)
+        y1, st1 = cv.conv3x3_dots(x, a1, b1, 'silu', self.conv1.weight,
+                                  self.conv1.bias)
+        a2, b2 = cv.gn_affine(st1, self.norm2.weight, self.norm2.bias, hw)
+        if self.in_channels != self.out_channels:
+            y, _ = cv.conv3x3_dots(y1, a2, b2, 'silu', self.conv2.weight,
+                                   self.conv2.bias + self.conv_out.bias,
+                                   skip=x, w1x1=self.conv_out.weight)
+        else:
+            y, _ = cv.conv3x3_dots(y1, a2, b2, 'silu', self.conv2.weight,
+                                   self.conv2.bias, skip=x)
+        return nchw(y)
+
+
+def decoder_tail(norm: GroupNorm32, conv: Conv2d,
+                 x: torch.Tensor) -> torch.Tensor:
+    """Generator tail GroupNorm -> conv_out as ONE K1 call with no
+    activation (reference vqgan_arch.py:313-314: no swish before
+    conv_out)."""
+    xh = nhwc(x)
+    a, b = cv.gn_affine(cv.channel_stats(xh), norm.weight, norm.bias,
+                        xh.shape[1] * xh.shape[2])
+    y, _ = cv.conv3x3_dots(xh, a, b, 'none', conv.weight, conv.bias)
+    return nchw(y)
+
+
+class AttnBlock(nn.Module):
+    """Single-head spatial self-attention (vqgan_arch.py:167-226):
+    GroupNorm, 1x1 q/k/v, softmax(q k^T / sqrt(C)) v, proj_out, residual.
+    q k^T and the softmax in fp32; plain matmuls."""
+
+    def __init__(self, in_channels: int):
+        super().__init__()
+        c = in_channels
+        self.norm = GroupNorm32(c)
+        self.q = Conv2d(c, c, 1)
+        self.k = Conv2d(c, c, 1)
+        self.v = Conv2d(c, c, 1)
+        self.proj_out = Conv2d(c, c, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        h_ = self.norm(x)
+        q = self.q(h_).flatten(2).transpose(1, 2)        # (B, HW, C)
+        k = self.k(h_).flatten(2)                        # (B, C, HW)
+        v = self.v(h_).flatten(2).transpose(1, 2)
+        attn = torch.matmul(q.float(), k.float()) * c ** -0.5
+        attn = attn.softmax(-1).to(v.dtype)
+        out = torch.matmul(attn, v).transpose(1, 2).reshape(b, c, h, w)
+        return x + self.proj_out(out.contiguous(memory_format=CL))
+
+
+class Downsample(nn.Module):
+    """Stride-2 3x3 conv with the reference's (0,1,0,1) padding
+    (vqgan_arch.py:117-126), as K2."""
+
+    def __init__(self, in_channels: int):
+        super().__init__()
+        self.conv = Conv2d(in_channels, in_channels, 3, stride=2, padding=0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return nchw(cv.downsample_dots(nhwc(x), self.conv.weight,
+                                       self.conv.bias))
+
+
+class Upsample(nn.Module):
+    """Nearest x2 upsample, then a 3x3 conv (vqgan_arch.py:129-138). The
+    JAX package evaluates the same function phase-collapsed."""
+
+    def __init__(self, in_channels: int):
+        super().__init__()
+        self.conv = Conv2d(in_channels, in_channels, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.interpolate(x, scale_factor=2.0, mode='nearest'))
+
+
+class FuseSftBlock(nn.Module):
+    """Controllable feature transformation (codeformer_arch.py:136-157):
+    out = dec + w * (dec * scale(enc') + shift(enc')),
+    enc' = ResBlock(cat(enc, dec))."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        c = out_channels
+        self.encode_enc = ResBlock(2 * in_channels, c)
+        self.scale = nn.Sequential(Conv2d(c, c, 3, padding=1),
+                                   nn.LeakyReLU(0.2),
+                                   Conv2d(c, c, 3, padding=1))
+        self.shift = nn.Sequential(Conv2d(c, c, 3, padding=1),
+                                   nn.LeakyReLU(0.2),
+                                   Conv2d(c, c, 3, padding=1))
+
+    def forward(self, enc_feat: torch.Tensor, dec_feat: torch.Tensor,
+                w=1.0) -> torch.Tensor:
+        enc = self.encode_enc(torch.cat([enc_feat, dec_feat], dim=1))
+        scale = self.scale(enc)
+        shift = self.shift(enc)
+        w = torch.as_tensor(w, dtype=dec_feat.dtype, device=dec_feat.device)
+        return dec_feat + w * (dec_feat * scale + shift)
