@@ -2,24 +2,36 @@
 """On-card smoke run of the PyTorch port (codeformer_tpu_torch).
 
     python3 chip_smoke.py            # one GPU; a few minutes on an H100
-    python3 chip_smoke.py --profile  # plus a torch.profiler breakdown
+    python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of a
+                                     # serving forward and a training step
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. card and versions (needs a CUDA card of compute capability 9.0);
   2. build the hand-written kernels from codeformer_tpu_torch/csrc/;
-  3. each kernel against its plain PyTorch version at the main path's
-     shapes (B=2, bf16 inputs; reference in fp32 with TF32 off), its
+  3. K1/K2 against their plain PyTorch versions at the serving path's
+     shapes (B=2, bf16 inputs; reference in fp32 with TF32 off), their
      GroupNorm partials against torch.sum, planted faults that the
      bounds must reject, and kernel vs plain times;
-  4. the full-width CodeFormerRestorer on the card with seeded random
-     weights: a few requests, exact kernel launch counts, a reference
-     forward with both ops patched to their plain versions (and with
-     planted faults, which must fall outside the bounds), and faces/s of
-     the kernel path and of the plain path over multi-second windows.
+  4. K3 (nearest code) against its plain version at the training path's
+     token counts on three codebooks (exact lowest index on duplicated
+     rows), planted faults that must fail, kernel vs plain times;
+  5. serving: the full-width CodeFormerRestorer on the card with seeded
+     random weights: a few requests, exact kernel launch counts, a
+     reference forward with both ops patched to their plain versions
+     (and with planted faults, which must fall outside the bounds), and
+     faces/s of the kernel path and of the plain path over multi-second
+     windows;
+  6. training: stage II (CodeFormerIdxModel) at the full width of
+     options/CodeFormer_stage2.yml, bf16, B=4: 8 steps with exact launch
+     counts (K1/K2/K3 in the frozen HQ encode only), a falling loss,
+     gradients at the encoder, frozen modules unchanged; idx_gt against
+     the plain-op encode (and a planted fault); training faces/s of the
+     kernel and plain paths; peak memory.
 The last line is the JSON result; the line before it lists the kernels.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -174,6 +186,128 @@ def k2_fault(x, weight, bias):
 
 
 K1_FAULTS = ('bf16 prologue', 'halo act(b)')
+
+# K3 (nearest code): tokens at the stage-II shape (B*256 for B = 1, 4,
+# 16) and a generate_latent_gt-sized run; D and K of every shipped config
+K3_TOKENS = (256, 1024, 4096, 16384)
+K3_DIM, K3_CODES = 256, 1024
+K3_PATH_TOKENS = 1024     # stage II at batch_size_per_gpu 4
+# Kernel and plain version sum the same fp32 products in other orders, so
+# they may pick different codes only where two distances are within fp32
+# rounding. Every disagreement must pick a code whose exact (fp64)
+# squared distance is within this relative margin of the exact minimum.
+K3_MARGIN = 1e-5
+K3_FAULTS = ('ties to the highest index', 'e_sq dropped')
+
+
+def k3_fault(kind: str):
+    """A deliberately wrong plain K3 with nearest_code_indices' signature,
+    as a control the K3 checks must catch."""
+    from codeformer_tpu_torch.ops import vq
+
+    def run(z, e):
+        with vq._fp32_matmul():
+            dot = z @ e.t()
+        if kind == 'ties to the highest index':
+            d = e.square().sum(1)[None] - 2.0 * dot
+            return e.shape[0] - 1 - d.flip(1).argmin(1)
+        if kind == 'e_sq dropped':
+            return (-2.0 * dot).argmin(1)
+        raise ValueError(kind)
+    return run
+
+
+def k3_codebooks(g):
+    """{name: (K, D) fp32}: the init scale (uniform +-1/K, the random-init
+    codebook of the training path), a unit-scale one, and one whose 1024
+    rows are 256 distinct rows each repeated 4 times at scattered places
+    (exact ties)."""
+    k, d = K3_CODES, K3_DIM
+    base = torch.randn(k // 4, d, generator=g, device='cuda')
+    dup_of = torch.randperm(k, generator=g, device='cuda') % (k // 4)
+    return {'init scale': (torch.rand(k, d, generator=g, device='cuda')
+                           * 2 - 1) / k,
+            'unit scale': torch.randn(k, d, generator=g, device='cuda'),
+            'duplicated rows': base[dup_of].contiguous()}, dup_of
+
+
+def k3_verdict(got, ref, z, e, dup_of=None) -> dict:
+    """Hold indices `got` against the plain version's `ref`: agreement,
+    the worst relative fp64 gap of a disagreement (must be <= K3_MARGIN),
+    the largest absolute fp64 distance gap, and, on a codebook with
+    duplicated rows, whether every pick is the lowest index of its row."""
+    z64, e64 = z.double(), e.double()
+    dist = (z64.square().sum(1, keepdim=True) + e64.square().sum(1)[None]
+            - 2.0 * z64 @ e64.t())
+    dmin = dist.min(1).values
+    d_got = dist.gather(1, got[:, None])[:, 0]
+    d_ref = dist.gather(1, ref[:, None])[:, 0]
+    off = got != ref
+    gap = (d_got - dmin) / dmin.abs().clamp_min(1e-30)
+    r = dict(agree=float((~off).float().mean()),
+             worst_gap=float(gap[off].max()) if bool(off.any()) else 0.0,
+             max_abs=float((d_got - d_ref).abs().max()), lowest=True)
+    if dup_of is not None:
+        first = torch.full((int(dup_of.max()) + 1,), e.shape[0],
+                           device=e.device, dtype=torch.int64)
+        first.scatter_reduce_(0, dup_of, torch.arange(
+            e.shape[0], device=e.device), reduce='amin')
+        r['lowest'] = bool((got == first[dup_of[got]]).all())
+    r['ok'] = r['worst_gap'] <= K3_MARGIN and r['lowest']
+    return r
+
+
+def phase_k3():
+    """K3 against its plain version (fp32, TF32 off) at the path's token
+    counts on three codebooks; planted faults that must fail; kernel vs
+    plain times (CUDA events, median of 20 after 3 warm-ups)."""
+    from codeformer_tpu_torch.ops import vq
+    g = torch.Generator(device='cuda').manual_seed(3)
+    books, dup_of = k3_codebooks(g)
+    print(f'K3 checks: D={K3_DIM}, K={K3_CODES}, z ~ N(0, 1) fp32; ref = '
+          f'plain version (fp32, TF32 off); a disagreement must be within '
+          f'{K3_MARGIN} of the exact (fp64) minimum distance; on duplicated '
+          f'rows every pick must be the lowest index', flush=True)
+    rows = []
+    caught = {k: set() for k in K3_FAULTS}
+    for n_tok in K3_TOKENS:
+        z = torch.randn(n_tok, K3_DIM, generator=g, device='cuda')
+        for name, e in books.items():
+            dup = dup_of if name == 'duplicated rows' else None
+            got = vq.nearest_code_indices(z, e)
+            torch.cuda.synchronize()
+            ref = vq._nearest_code_ref(z, e)
+            r = k3_verdict(got, ref, z, e, dup)
+            faults = {k: k3_verdict(k3_fault(k)(z, e), ref, z, e, dup)['ok']
+                      for k in K3_FAULTS}
+            line = (f'  K3 T={n_tok:5d} {name:15s} agreement '
+                    f'{r["agree"]:.6f}, worst disagreement gap '
+                    f'{r["worst_gap"]:.3g} (<= {K3_MARGIN}), max abs '
+                    f'distance gap {r["max_abs"]:.3g}, lowest index on ties '
+                    f'{r["lowest"]}: {"ok" if r["ok"] else "FAIL"}')
+            if name == 'init scale':
+                ms = time_ms(lambda: vq.nearest_code_indices(z, e))
+                pms = time_ms(lambda: vq._nearest_code_ref(z, e))
+                line += f'  kernel {ms:.4f} ms  plain {pms:.4f} ms'
+                rows.append(dict(tokens=n_tok, max_abs_err=r['max_abs'],
+                                 ms=ms, plain_ms=pms))
+            print(line + '; planted faults: ' + ', '.join(
+                f'{k} {"passes" if v else "fails"}'
+                for k, v in faults.items()), flush=True)
+            if not r['ok']:
+                raise SystemExit(f'chip_smoke: K3 T={n_tok} {name} disagrees '
+                                 f'with its plain version')
+            for k, v in faults.items():
+                if not v:
+                    caught[k].add(n_tok)
+    for k in K3_FAULTS:
+        if caught[k] != set(K3_TOKENS):
+            raise SystemExit(f'chip_smoke: the K3 checks let the planted '
+                             f'fault "{k}" pass at T = '
+                             f'{sorted(set(K3_TOKENS) - caught[k])}')
+    print('  K3 planted faults fail the checks at every T, as they must',
+          flush=True)
+    return rows
 
 
 def phase_card():
@@ -538,10 +672,27 @@ def phase_rates(restorer, rng):
               f'{med["kernel"] / med["plain"]:.3f}', flush=True)
 
 
+def print_profile(label: str, prof, iters: int, wall_ms: float) -> None:
+    """Device time by kernel from a torch.profiler run over `iters`
+    repetitions: busy share against the host wall time and the top 20."""
+    # device-side events only (kernels, copies, sets): a CPU op's or an
+    # autograd node's device time is the sum of its children's kernels
+    rows = [(e.key, e.device_time_total / iters / 1e3, e.count // iters)
+            for e in prof.key_averages() if e.device_time_total > 0
+            and e.device_type != torch.autograd.DeviceType.CPU]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    print(f'profile, {label}: wall {wall_ms:.2f} ms (profiler on), device '
+          f'kernels {busy:.2f} ms, busy share {busy / wall_ms:.3f}, '
+          f'{sum(r[2] for r in rows)} device events a repetition')
+    for key, ms, n in rows[:20]:
+        print(f'  {ms:8.3f} ms {100 * ms / busy:5.1f}% x{n:4d}  {key[:100]}')
+    sys.stdout.flush()
+
+
 def phase_profile(restorer, bsz: int = 8, iters: int = 3):
     """Device time of one forward by kernel (torch.profiler), kernel path
     and plain path."""
-    import contextlib
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(1)
     xb = torch.from_numpy(np.stack(_faces(rng, bsz, restorer.face_size))) \
@@ -558,18 +709,299 @@ def phase_profile(restorer, bsz: int = 8, iters: int = 3):
                     restorer.restore_device(xb)
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) / iters * 1e3
-        rows = [(e.key, e.device_time_total / iters / 1e3, e.count // iters)
-                for e in prof.key_averages() if e.device_time_total > 0
-                and not e.key.startswith(('aten::', 'cuda'))]
-        rows.sort(key=lambda r: -r[1])
-        busy = sum(r[1] for r in rows)
-        print(f'profile, {label} path, B={bsz}: wall {wall:.2f} ms a forward '
-              f'(profiler on), device kernels {busy:.2f} ms, busy share '
-              f'{busy / wall:.3f}')
-        for key, ms, n in rows[:20]:
-            print(f'  {ms:8.3f} ms {100 * ms / busy:5.1f}% x{n:4d}  '
-                  f'{key[:100]}')
-        sys.stdout.flush()
+        print_profile(f'{label} path, B={bsz} forward', prof, iters, wall)
+
+
+def phase_train_profile(trainer, iters: int = 3):
+    """Device time of one stage-II training step by kernel
+    (torch.profiler), kernel path and plain path."""
+    from torch.profiler import ProfilerActivity, profile
+    step = 1000
+    for label, ctx in (('kernel', contextlib.nullcontext()),
+                       ('plain', plain_train_ops())):
+        with ctx:
+            step += 1
+            trainer.optimize_parameters(step)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    step += 1
+                    trainer.optimize_parameters(step)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) / iters * 1e3
+        print_profile(f'{label} path, stage-II step B={TRAIN_BATCH}', prof,
+                      iters, wall)
+
+
+# stage-II training at full width (options/CodeFormer_stage2.yml)
+TRAIN_BATCH = 4           # batch_size_per_gpu of the config
+TRAIN_STEPS = 8
+ENCODE_LAUNCHES = {'conv3x3_dots': 28, 'downsample_dots': 5,
+                   'nearest_code': 1}   # one frozen HQ encode, per microbatch
+# idx_gt of the kernel path against the same encode with K1/K2/K3 on
+# their plain versions (fp32 sums, TF32 off): random-init codebooks give
+# near-flat code scores, so bf16 rounding flips a share of the picks.
+# Read 0.9873 on an H100 (PERF.md, Findings): the floor leaves about
+# four times that margin. A K2 with symmetric padding reads 0.0039; a
+# halo of act(b) in K1 (0.9795) hides in the rounding noise here, and the
+# per-call checks of the serving phase catch it.
+IDX_AGREEMENT_FLOOR = 0.95
+
+
+def stage2_options() -> dict:
+    """The networks and train block of options/CodeFormer_stage2.yml as a
+    dict (the card's machine has no yaml), bf16, one card, seeded random
+    weights (no vqgan_path or pretrained file). Left out: the yml's
+    val/logger blocks and its net_d_* keys, which stage II does not read."""
+    return {
+        'name': 'chip_smoke_stage2', 'model_type': 'CodeFormerIdxModel',
+        'manual_seed': 0, 'mixed_precision': 'bf16',
+        'network_g': {'type': 'CodeFormer', 'dim_embd': 512, 'n_head': 8,
+                      'n_layers': 9, 'codebook_size': 1024,
+                      'connect_list': ['32', '64', '128', '256'],
+                      'fix_modules': ['quantize', 'generator']},
+        'network_vqgan': {'type': 'VQAutoEncoder', 'img_size': 512,
+                          'nf': 64, 'ch_mult': [1, 2, 2, 4, 4, 8],
+                          'quantizer': 'nearest', 'codebook_size': 1024},
+        'path': {},
+        'train': {'use_hq_feat_loss': True, 'feat_loss_weight': 1.0,
+                  'cross_entropy_loss': True, 'entropy_loss_weight': 0.5,
+                  'fidelity_weight': 0,
+                  'optim_g': {'type': 'Adam', 'lr': 1e-4, 'weight_decay': 0,
+                              'betas': [0.9, 0.99]},
+                  'scheduler': {'type': 'MultiStepLR',
+                                'milestones': [400000, 450000],
+                                'gamma': 0.5},
+                  'total_iter': 500000, 'warmup_iter': -1,
+                  'ema_decay': 0.995}}
+
+
+def stage2_batch(rng, n: int, size: int = 512) -> dict:
+    """A loader-shaped batch made on the card: gt = seeded faces in
+    [-1, 1], in = gt downsampled x8, upsampled back and given seeded
+    noise; both NHWC fp32, as the FFHQ loader gives them."""
+    import torch.nn.functional as F
+    faces = np.stack(_faces(rng, n, size))[..., ::-1].copy()
+    gt = torch.from_numpy(faces).cuda().float().div(127.5).sub(1.0)
+    x = gt.permute(0, 3, 1, 2)
+    lq = F.interpolate(F.interpolate(x, scale_factor=1 / 8, mode='bilinear',
+                                     antialias=True),
+                       size=(size, size), mode='bilinear')
+    g = torch.Generator(device='cuda').manual_seed(int(rng.integers(1 << 30)))
+    lq = lq + 0.05 * torch.randn(lq.shape, generator=g, device='cuda')
+    return {'in': lq.clamp(-1, 1).permute(0, 2, 3, 1).contiguous(),
+            'gt': gt.contiguous()}
+
+
+def all_counts() -> dict:
+    from codeformer_tpu_torch.ops import conv3x3 as cv
+    from codeformer_tpu_torch.ops import vq
+    return {**cv.launch_counts(), **vq.launch_counts()}
+
+
+def reset_all_counts() -> None:
+    from codeformer_tpu_torch.ops import conv3x3 as cv
+    from codeformer_tpu_torch.ops import vq
+    cv.reset_launch_counts()
+    vq.reset_launch_counts()
+
+
+@contextlib.contextmanager
+def plain_train_ops():
+    """K1/K2 on their plain versions in bf16 (cuDNN) and K3 on its plain
+    version: the training step as plain PyTorch, for timing."""
+    from codeformer_tpu_torch.ops import vq
+    with plain_ops(), mock.patch.object(vq, 'nearest_code_indices',
+                                        vq._nearest_code_ref):
+        yield
+
+
+def phase_train():
+    """Stage-II training at full width: TRAIN_STEPS steps on one fixed
+    batch through CodeFormerIdxModel.optimize_parameters, with exact
+    launch counts per step, the checks of PERF.md, idx_gt against the
+    plain-op encode (and a planted fault), faces/s of the kernel and the
+    plain path, peak memory. Returns the launch counts of the steps and
+    the trainer."""
+    from codeformer_tpu_torch.nn.blocks import ResBlock
+    from codeformer_tpu_torch.ops import conv3x3 as cv
+    from codeformer_tpu_torch.ops import vq
+    from codeformer_tpu_torch.train.trainers import build_model
+    t0 = time.perf_counter()
+    trainer = build_model(stage2_options())
+    net = trainer.net_g
+    n_hq = sum(isinstance(m, ResBlock) and m.use_kernels
+               for m in trainer.hq_vqgan.encoder.modules())
+    n_g = sum(isinstance(m, ResBlock) and m.use_kernels
+              for m in net.modules())
+    print(f'stage II trainer: CodeFormer dim_embd 512, 9 layers, 1024 codes, '
+          f'connect 32/64/128/256, nf 64, ch_mult 1,2,2,4,4,8; frozen HQ '
+          f'VQGAN; bf16 activations, fp32 params; AdamW 1e-4 (0.9, 0.99), '
+          f'MultiStepLR, EMA 0.995; B={TRAIN_BATCH}; built in '
+          f'{time.perf_counter() - t0:.1f} s. ResBlocks on K1: HQ encoder '
+          f'{n_hq}, net_g {n_g} (textbook, autograd)', flush=True)
+    rng = np.random.default_rng(5)
+    batch = stage2_batch(rng, TRAIN_BATCH)
+    trainer.feed_data(batch)
+    frozen = {k: v.clone() for k, v in net.state_dict().items()
+              if k.split('.')[0] in ('quantize', 'generator')}
+    encode_counts = []
+    idx_gt = trainer._idx_gt
+
+    def counted_idx_gt(mb):
+        before = all_counts()
+        out = idx_gt(mb)
+        after = all_counts()
+        encode_counts.append({k: after[k] - before[k] for k in after})
+        return out
+    trainer._idx_gt = counted_idx_gt
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    totals, losses = {}, []
+    for step in range(1, TRAIN_STEPS + 1):
+        before = all_counts()
+        trainer.optimize_parameters(step)
+        torch.cuda.synchronize()
+        after = all_counts()
+        step_counts = {k: after[k] - before[k] for k in after}
+        log = trainer.log_dict
+        losses.append(log)
+        print(f'  step {step}: ' + ', '.join(f'{k} {v:.5f}'
+                                            for k, v in log.items())
+              + f'; launches {step_counts}', flush=True)
+        if step_counts != ENCODE_LAUNCHES or encode_counts[-1] != \
+                ENCODE_LAUNCHES:
+            raise SystemExit(f'chip_smoke: step {step} launched '
+                             f'{step_counts} ({encode_counts[-1]} in the '
+                             f'frozen encode), expected {ENCODE_LAUNCHES} '
+                             f'all in the encode and none in net_g')
+        if not all(np.isfinite(v) for v in log.values()):
+            raise SystemExit(f'chip_smoke: non-finite loss at step {step}')
+    counts = all_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    trainer._idx_gt = idx_gt
+    grad = net.encoder.blocks[1].conv1.weight.grad
+    first, last = losses[0]['l_g_total'], losses[-1]['l_g_total']
+    moved = [k for k, v in frozen.items()
+             if not torch.equal(v, net.state_dict()[k])]
+    print(f'  l_g_total {first:.5f} -> {last:.5f}; first encoder ResBlock '
+          f'conv1 grad '
+          + ('None' if grad is None
+             else f'RMS {float(grad.pow(2).mean().sqrt()):.3g}')
+          + f'; frozen tensors moved: {len(moved)} of {len(frozen)}; peak '
+          f'memory {peak:.2f} GiB; launches over {TRAIN_STEPS} steps '
+          f'{counts}', flush=True)
+    if not last < first:
+        raise SystemExit('chip_smoke: the training loss did not fall')
+    if grad is None or float(grad.abs().max()) == 0.0:
+        raise SystemExit('chip_smoke: no gradient reaches the encoder')
+    if moved:
+        raise SystemExit(f'chip_smoke: frozen modules moved: {moved[:3]}')
+
+    # idx_gt of the kernel path against the plain-op encode (fp32 sums,
+    # TF32 off), and planted faults
+    mb = trainer.batch
+
+    def idx_with(k1, k2, k3):
+        with torch.no_grad(), mock.patch.multiple(
+                cv, conv3x3_dots=k1, downsample_dots=k2), \
+                mock.patch.object(vq, 'nearest_code_indices', k3):
+            return trainer._idx_gt(mb)
+    with torch.no_grad():
+        idx_k = trainer._idx_gt(mb)
+    idx_r = idx_with(cv.conv3x3_dots_ref, cv.downsample_dots_ref,
+                     vq._nearest_code_ref)
+    agree = float((idx_k == idx_r).float().mean())
+    faults = {
+        'K2 symmetric pad': idx_with(cv.conv3x3_dots_ref, k2_fault,
+                                     vq._nearest_code_ref),
+        'K1 halo act(b)': idx_with(k1_fault('halo act(b)'),
+                                   cv.downsample_dots_ref,
+                                   vq._nearest_code_ref)}
+    fault_agree = {k: float((v == idx_r).float().mean())
+                   for k, v in faults.items()}
+    print(f'  idx_gt vs the plain-op encode: agreement {agree:.4f} (>= '
+          f'{IDX_AGREEMENT_FLOOR}); planted faults: ' + ', '.join(
+              f'{k} {v:.4f}' for k, v in fault_agree.items()), flush=True)
+    if agree < IDX_AGREEMENT_FLOOR:
+        raise SystemExit('chip_smoke: idx_gt of the kernel path disagrees '
+                         'with the plain-op encode')
+    if fault_agree['K2 symmetric pad'] >= IDX_AGREEMENT_FLOOR:
+        raise SystemExit('chip_smoke: the idx_gt bound lets the planted '
+                         'fault K2 symmetric pad pass')
+    phase_train_rates(trainer)
+    return counts, trainer
+
+
+def _train_rate(trainer, step0: int) -> tuple:
+    """(faces/s over one window of at least RATE_WINDOW_S, share of the
+    step in the frozen encode, steps taken); host clock ending in a
+    synchronize, encode share from CUDA events."""
+    idx_gt = trainer._idx_gt
+    spans = []
+
+    def timed(mb):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = idx_gt(mb)
+        b.record()
+        spans.append((a, b))
+        return out
+    step = step0
+    for _ in range(2):
+        step += 1
+        trainer.optimize_parameters(step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step += 1
+    trainer.optimize_parameters(step)
+    torch.cuda.synchronize()
+    iters = max(2, int(RATE_WINDOW_S / (time.perf_counter() - t0)) + 1)
+    trainer._idx_gt = timed
+    try:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step += 1
+            trainer.optimize_parameters(step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        trainer._idx_gt = idx_gt
+    enc_ms = sum(a.elapsed_time(b) for a, b in spans)
+    return TRAIN_BATCH * iters / wall, enc_ms / (wall * 1e3), step
+
+
+def phase_train_rates(trainer):
+    """Training faces/s, kernel path and plain path in alternating
+    windows; median [min, max]; the frozen encode's share of the step."""
+    print(f'  training faces/s (B={TRAIN_BATCH}, full step: HQ encode + '
+          f'net_g forward/backward + AdamW + EMA), TF32 off: '
+          f'{RATE_REPEATS} windows of >= {RATE_WINDOW_S} s per path, '
+          f'alternating; median [min, max]', flush=True)
+    got = {'kernel': [], 'plain': []}
+    share = {'kernel': [], 'plain': []}
+    step = 100
+    for rep in range(RATE_REPEATS):
+        for path in (('kernel', 'plain') if rep % 2 == 0
+                     else ('plain', 'kernel')):
+            if path == 'plain':
+                with plain_train_ops():
+                    rate, sh, step = _train_rate(trainer, step)
+            else:
+                rate, sh, step = _train_rate(trainer, step)
+            got[path].append(rate)
+            share[path].append(sh)
+    med = {k: statistics.median(v) for k, v in got.items()}
+    print(f'  training faces/s at B={TRAIN_BATCH}: kernel {med["kernel"]:.2f} '
+          f'[{min(got["kernel"]):.2f}, {max(got["kernel"]):.2f}]  plain '
+          f'{med["plain"]:.2f} [{min(got["plain"]):.2f}, '
+          f'{max(got["plain"]):.2f}]  ratio '
+          f'{med["kernel"] / med["plain"]:.3f}; frozen-encode share of the '
+          f'step: kernel {statistics.median(share["kernel"]):.3f}, plain '
+          f'{statistics.median(share["plain"]):.3f}', flush=True)
 
 
 def main():
@@ -577,23 +1009,40 @@ def main():
     sys.path.insert(0, ROOT)
     phase_build()
     results = phase_kernels()
-    counts, restorer = phase_slice()
+    k3_rows = phase_k3()
+    serve_counts, restorer = phase_slice()
     if '--profile' in sys.argv[1:]:
         phase_profile(restorer)
+    del restorer
+    torch.cuda.empty_cache()
+    train_counts, trainer = phase_train()
+    if '--profile' in sys.argv[1:]:
+        phase_train_profile(trainer)
+    print(f'main-path launches: serving {serve_counts}; stage-II training '
+          f'{train_counts}')
     src = {'conv3x3_dots': ('codeformer_tpu_torch/csrc/conv3x3_dots.cu',
                             'codeformer_tpu/ops/colpack_conv.py:376'),
            'downsample_dots': ('codeformer_tpu_torch/csrc/downsample_dots.cu',
-                               'codeformer_tpu/ops/colpack_conv.py:586')}
+                               'codeformer_tpu/ops/colpack_conv.py:586'),
+           'nearest_code': ('codeformer_tpu_torch/csrc/nearest_code.cu',
+                            'codeformer_tpu/ops/vq.py:40')}
+    results['nearest_code'] = [r for r in k3_rows
+                               if r['tokens'] == K3_PATH_TOKENS] + k3_rows
     kernels = []
     for name, rows in results.items():
-        head = rows[0]        # the 512^2 shape, the path's largest
+        head = rows[0]   # K1/K2: the 512^2 shape; K3: the path's T
         kernels.append({'name': name, 'route': 'cuda',
                         'source': src[name][0], 'replaces': src[name][1],
-                        'launches': counts[name],
+                        'launches': serve_counts.get(name, 0)
+                        + train_counts[name],
                         'max_abs_err': max(r['max_abs_err'] for r in rows),
                         'ms': head['ms'], 'plain_ms': head['plain_ms']})
     if not all(k['launches'] > 0 for k in kernels):
         raise SystemExit('chip_smoke: a kernel of the path never launched')
+    if train_counts['nearest_code'] == 0 or not all(
+            serve_counts[k] > 0 for k in ('conv3x3_dots', 'downsample_dots')):
+        raise SystemExit('chip_smoke: a kernel never launched on its path')
+    print(card_line())
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Build and load the hand-written Hopper kernels (csrc/*.cu).
 
-The sources compile with nvcc into one shared library with a plain C
-interface, loaded with ctypes. The library is built at first use into
+Each source compiles with its own nvcc process, all started together,
+and the objects link into one shared library with a plain C interface,
+loaded with ctypes. The library is built at first use into
 `build/kernels/<hash>/` at the repository root, keyed by a hash of the
 sources and flags, so an edited kernel rebuilds and an unchanged one is
 reused. Nothing here runs at import time.
@@ -22,7 +23,7 @@ CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 LIB_NAME = 'libcodeformer_kernels.so'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -30,6 +31,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     'cf_conv3x3_dots': [_P] * 9 + [_I] * 11 + [_P],
     'cf_downsample_dots': [_P] * 4 + [_I] * 6 + [_P],
+    'cf_nearest_code': [_P] * 5 + [_I] * 4 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -70,20 +72,42 @@ def build() -> Path:
         return lib_path
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == '.cu']
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, '-I', str(CSRC), '-o', tmp, *cu]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
-                           f'{" ".join(cmd)}\n{proc.stdout}\n{proc.stderr}')
-    os.replace(tmp, lib_path)   # atomic: a reader never sees a partial file
-    build_info.update(path=str(lib_path), seconds=seconds, cached=False,
-                      log=proc.stdout + proc.stderr)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+        objs, procs = [], []
+        try:
+            for src in (p for p in _sources() if p.suffix == '.cu'):
+                obj = str(Path(tmp_dir) / f'{src.stem}.o')
+                cmd = [nvcc, *NVCC_FLAGS, '-I', str(CSRC), '-c', '-o', obj,
+                       str(src)]
+                procs.append((cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+                objs.append(obj)
+            logs = [(cmd, proc.communicate(timeout=900)[0], proc.returncode)
+                    for cmd, proc in procs]
+        finally:
+            for _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for cmd, out, rc in logs:
+            if rc != 0:
+                raise RuntimeError(f'nvcc failed ({rc}):\n{" ".join(cmd)}\n'
+                                   f'{out}')
+        tmp_lib = str(Path(tmp_dir) / LIB_NAME)
+        cmd = [nvcc, *NVCC_FLAGS[:2], '-shared', '-o', tmp_lib, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc link failed ({proc.returncode}):\n'
+                               f'{" ".join(cmd)}\n{proc.stdout}\n'
+                               f'{proc.stderr}')
+        # atomic: a reader never sees a partial file
+        os.replace(tmp_lib, lib_path)
+    build_info.update(path=str(lib_path), seconds=time.perf_counter() - t0,
+                      cached=False,
+                      log=''.join(out for _, out, _ in logs))
     return lib_path
 
 

@@ -5,8 +5,8 @@ VQGAN backbone + transformer code predictor + SFT fusion
 Layouts: the image and feature maps are NCHW (channels_last memory), the
 256-token path is batch-major (B, S, E). Code selection is the argmax of
 the logits (the reference's softmax -> top-1 picks the same code).
-Inference only so far: `detach_16` and the staged-split methods of the
-JAX model wait for the training slice.
+Stage-II training runs `forward(..., code_only=True)`; `detach_16` and
+the staged-split methods of the JAX model wait for stage III.
 """
 from __future__ import annotations
 

@@ -3,8 +3,9 @@
 The block order, and so every state-dict key, is the reference's
 (vqgan_arch.py:229-323), so released checkpoints load unchanged. Tap
 indices are computed at construction with the JAX package's rules.
-Waiting for a later slice: VectorQuantizer's nearest-code forward
-(the TPU kernel K3), GumbelQuantizer and VQGANDiscriminator.
+VectorQuantizer's forward runs the nearest-code search K3
+(ops/vq.py). Waiting for a later slice: GumbelQuantizer and
+VQGANDiscriminator (stage I).
 """
 from __future__ import annotations
 
@@ -16,18 +17,54 @@ import torch.nn as nn
 from codeformer_tpu_torch.nn.blocks import (AttnBlock, Conv2d, Downsample,
                                             GroupNorm32, ResBlock, Upsample,
                                             decoder_tail)
-from codeformer_tpu_torch.ops.vq import codebook_lookup
+from codeformer_tpu_torch.ops import vq
 from codeformer_tpu_torch.utils.registry import ARCH_REGISTRY
 
 
 class VectorQuantizer(nn.Module):
-    """The codebook (vqgan_arch.py:24-84): `embedding.weight` (K, D)."""
+    """Nearest-neighbour codebook (vqgan_arch.py:24-84):
+    `embedding.weight` (K, D), commitment loss, straight-through."""
 
-    def __init__(self, codebook_size: int, emb_dim: int):
+    def __init__(self, codebook_size: int, emb_dim: int, beta: float = 0.25):
         super().__init__()
+        self.codebook_size, self.emb_dim, self.beta = (codebook_size,
+                                                       emb_dim, beta)
         self.embedding = nn.Embedding(codebook_size, emb_dim)
         nn.init.uniform_(self.embedding.weight, -1.0 / codebook_size,
                          1.0 / codebook_size)
+
+    def forward(self, z: torch.Tensor):
+        """z: (B, D, h, w) latents. Returns (z_q, loss, stats) as the JAX
+        VectorQuantizer (codeformer_tpu/models/vqgan.py:46-79): distances,
+        loss and statistics in fp32; z_q straight-through (its gradient
+        w.r.t. z is the identity), in z's dtype; loss = mse(sg[z_q], z) +
+        beta * mse(z_q, sg[z]); stats perplexity, min_encoding_indices
+        (B*h*w,) in row-major (h, w) order, mean_distance (the mean of the
+        full (tokens, codes) squared-distance matrix, vqgan_arch.py:42)."""
+        b, d, h, w = z.shape
+        z32 = z.float()
+        z_flat = z32.permute(0, 2, 3, 1).reshape(-1, d)
+        codebook = self.embedding.weight
+        indices = vq.nearest_code_indices(z_flat.detach().contiguous(),
+                                          codebook.detach().contiguous())
+        z_q = vq.codebook_lookup(indices, codebook, torch.float32)
+        z_q = z_q.reshape(b, h, w, d).permute(0, 3, 1, 2)
+        loss = (torch.mean((z_q.detach() - z32) ** 2)
+                + self.beta * torch.mean((z_q - z32.detach()) ** 2))
+        z_q = z32 + (z_q - z32).detach()
+        e_mean = torch.bincount(indices, minlength=self.codebook_size) \
+            .float() / indices.numel()
+        perplexity = torch.exp(-torch.sum(e_mean * torch.log(e_mean + 1e-10)))
+        # mean_j,t (z_t . e_j) = (sum_t z_t) . (sum_j e_j) / (T K): the
+        # mean of the matrix without forming it
+        e32 = codebook.float()
+        mean_distance = (z_flat.square().sum(1).mean()
+                         + e32.square().sum(1).mean()
+                         - 2.0 * (z_flat.sum(0) @ e32.sum(0))
+                         / (z_flat.shape[0] * e32.shape[0]))
+        stats = {'perplexity': perplexity, 'min_encoding_indices': indices,
+                 'mean_distance': mean_distance}
+        return z_q.to(z.dtype), loss, stats
 
     def get_codebook_feat(self, indices: torch.Tensor,
                           shape: Optional[Sequence[int]] = None,
@@ -35,8 +72,8 @@ class VectorQuantizer(nn.Module):
         """indices (B*T,) or (B, T) -> codebook rows; with an NHWC `shape`
         (B, h, w, D), an NCHW map in channels_last memory (as
         vqgan_arch.py:72-84)."""
-        z_q = codebook_lookup(indices.reshape(-1), self.embedding.weight,
-                              dtype)
+        z_q = vq.codebook_lookup(indices.reshape(-1), self.embedding.weight,
+                                 dtype)
         if shape is not None:
             z_q = z_q.reshape(shape).permute(0, 3, 1, 2)
         return z_q
@@ -128,12 +165,14 @@ class Encoder(nn.Module):
 class Generator(nn.Module):
     """Latents -> image (vqgan_arch.py:276-323). `fuse_fns` maps a block
     index to a callable applied to that block's output (CodeFormer's
-    SFT fusion). The final GroupNorm + conv_out run as one K1 call."""
+    SFT fusion). With `use_kernels` the final GroupNorm + conv_out run as
+    one K1 call."""
 
     def __init__(self, nf=64, emb_dim=256, ch_mult=(1, 2, 2, 4, 4, 8),
                  num_res_blocks=2, resolution=512, attn_resolutions=(16,),
                  out_channels=3):
         super().__init__()
+        self.use_kernels = True
         blocks, self.tap_by_size = _build_generator_blocks(
             nf, emb_dim, tuple(ch_mult), num_res_blocks, resolution,
             tuple(attn_resolutions), out_channels)
@@ -148,20 +187,25 @@ class Generator(nn.Module):
             x = self.blocks[i](x)
             if i in fuse_fns:
                 x = fuse_fns[i](x)
-        return decoder_tail(self.blocks[n - 2], self.blocks[n - 1], x)
+        return decoder_tail(self.blocks[n - 2], self.blocks[n - 1], x,
+                            self.use_kernels)
 
 
 @ARCH_REGISTRY.register()
 class VQAutoEncoder(nn.Module):
     """The VQGAN backbone: encoder, codebook, generator
-    (vqgan_arch.py:326-389), with the 'nearest' quantizer's codebook; its
-    nearest-code forward and the Gumbel quantizer wait for the training
-    slice."""
+    (vqgan_arch.py:326-389), with the 'nearest' quantizer. Its
+    encode -> quantize -> decode forward and the Gumbel quantizer wait for
+    stage I (ROADMAP.md Queue 1 item 3)."""
 
     def __init__(self, img_size=512, nf=64, ch_mult=(1, 2, 2, 4, 4, 8),
                  res_blocks=2, attn_resolutions=(16,), codebook_size=1024,
-                 emb_dim=256):
+                 emb_dim=256, quantizer: str = 'nearest'):
         super().__init__()
+        if quantizer != 'nearest':
+            raise NotImplementedError(
+                f'quantizer {quantizer!r} is not ported yet (GumbelQuantizer, '
+                f'ROADMAP.md Queue 1 item 3)')
         self.ch_mult, self.emb_dim = tuple(ch_mult), emb_dim
         self.encoder = Encoder(nf, emb_dim, ch_mult, res_blocks, img_size,
                                attn_resolutions)

@@ -6,9 +6,14 @@ Precision policy as in the JAX package: parameters fp32, activations in
 the input's dtype (bf16 when serving), fp32 statistics in GroupNorm and
 AdaIN. Parameter names are the reference `.pth` names.
 
-Every ResBlock conv runs through K1 (`conv3x3_dots`, GroupNorm-apply and
-SiLU folded in) and every Downsample through K2 (`downsample_dots`); the
+With `use_kernels` on (the default, and the restorer's setting) every
+ResBlock conv runs through K1 (`conv3x3_dots`, GroupNorm-apply and SiLU
+folded in) and every Downsample through K2 (`downsample_dots`); the
 decoder tail GroupNorm -> conv_out is one K1 call without activation.
+The kernels are forward-only, so training switches a model to the
+textbook form with `set_kernels(model, False)`: plain GroupNorm, SiLU and
+convs that autograd records (the JAX package trains through plain XLA
+convs the same way, train/train.py `set_colpack_mode('off')`).
 Attention, Upsample, the SFT convs and the encoder's edges are plain
 PyTorch, as they were plain XLA in JAX.
 """
@@ -76,19 +81,31 @@ def adaptive_instance_normalization(content_feat: torch.Tensor,
     return (out * style_std + style_mean).to(content_feat.dtype)
 
 
+def set_kernels(model: nn.Module, on: bool) -> nn.Module:
+    """Set `use_kernels` on every module of `model` that has the switch
+    (ResBlock, Downsample, Generator's tail): True runs K1/K2 (forward
+    only), False the textbook form autograd can record. Returns model."""
+    for mod in model.modules():
+        if hasattr(mod, 'use_kernels'):
+            mod.use_kernels = bool(on)
+    return model
+
+
 class ResBlock(nn.Module):
     """GroupNorm -> SiLU -> 3x3 conv, twice, plus the (projected) skip
-    (vqgan_arch.py:141-164), as two K1 calls:
+    (vqgan_arch.py:141-164). With `use_kernels`, two K1 calls:
 
       1. entry stats (fp32 sums) -> gn_affine -> K1(silu) = y1 + its stats
       2. gn_affine(y1 stats) -> K1(silu, skip = x_in or x_in @ conv_out)
 
     The projected skip multiplies the RAW block input; conv_out's bias is
-    folded into conv2's.
+    folded into conv2's. Without, the textbook form of JAX
+    ResBlock._forward (codeformer_tpu/nn/blocks.py:127-137).
     """
 
     def __init__(self, in_channels: int, out_channels: int | None = None):
         super().__init__()
+        self.use_kernels = True
         out_ch = out_channels or in_channels
         self.in_channels, self.out_channels = in_channels, out_ch
         self.norm1 = GroupNorm32(in_channels)
@@ -99,6 +116,12 @@ class ResBlock(nn.Module):
             self.conv_out = Conv2d(in_channels, out_ch, 1)
 
     def forward(self, x_in: torch.Tensor) -> torch.Tensor:
+        if not self.use_kernels:
+            h = self.conv1(F.silu(self.norm1(x_in)))
+            h = self.conv2(F.silu(self.norm2(h)))
+            if self.in_channels != self.out_channels:
+                x_in = self.conv_out(x_in)
+            return h + x_in
         x = nhwc(x_in)
         hw = x.shape[1] * x.shape[2]
         a1, b1 = cv.gn_affine(cv.channel_stats(x), self.norm1.weight,
@@ -116,11 +139,13 @@ class ResBlock(nn.Module):
         return nchw(y)
 
 
-def decoder_tail(norm: GroupNorm32, conv: Conv2d,
-                 x: torch.Tensor) -> torch.Tensor:
-    """Generator tail GroupNorm -> conv_out as ONE K1 call with no
-    activation (reference vqgan_arch.py:313-314: no swish before
-    conv_out)."""
+def decoder_tail(norm: GroupNorm32, conv: Conv2d, x: torch.Tensor,
+                 use_kernels: bool = True) -> torch.Tensor:
+    """Generator tail GroupNorm -> conv_out (reference
+    vqgan_arch.py:313-314: no swish before conv_out), as ONE K1 call with
+    no activation, or plainly without `use_kernels`."""
+    if not use_kernels:
+        return conv(norm(x))
     xh = nhwc(x)
     a, b = cv.gn_affine(cv.channel_stats(xh), norm.weight, norm.bias,
                         xh.shape[1] * xh.shape[2])
@@ -156,13 +181,17 @@ class AttnBlock(nn.Module):
 
 class Downsample(nn.Module):
     """Stride-2 3x3 conv with the reference's (0,1,0,1) padding
-    (vqgan_arch.py:117-126), as K2."""
+    (vqgan_arch.py:117-126), as K2 or, without `use_kernels`, a plain pad
+    and conv."""
 
     def __init__(self, in_channels: int):
         super().__init__()
+        self.use_kernels = True
         self.conv = Conv2d(in_channels, in_channels, 3, stride=2, padding=0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.use_kernels:
+            return self.conv(F.pad(x, (0, 1, 0, 1)))
         return nchw(cv.downsample_dots(nhwc(x), self.conv.weight,
                                        self.conv.bias))
 

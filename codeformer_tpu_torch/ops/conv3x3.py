@@ -12,7 +12,11 @@ packing (which only fills the TPU's 128-lane matrix unit):
 Dispatch: a tensor on the CPU goes to the plain PyTorch version
 (`*_ref`); a CUDA tensor launches the hand-written kernel
 (csrc/conv3x3_dots.cu, csrc/downsample_dots.cu) or raises. There is no
-fallback from the kernel to the plain version.
+fallback from the kernel to the plain version. The kernels are
+forward-only, as the TPU kernels were (no VJP): their outputs carry no
+autograd history, so the CUDA branch refuses to run where autograd would
+record through it. Training runs the blocks' textbook form
+(nn/blocks.py `set_kernels`).
 """
 from __future__ import annotations
 
@@ -167,6 +171,19 @@ def _check_params(x: torch.Tensor, *params) -> None:
                              f'{x.device}')
 
 
+def _refuse_autograd(name: str, *tensors) -> None:
+    """Raise where autograd would record through a kernel: its output has
+    no history, so every parameter upstream would silently get no
+    gradient."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f'{name}: the kernel is forward-only and an input or weight '
+            f'requires grad; run under torch.no_grad() or switch the '
+            f'module to its textbook form (nn.blocks.set_kernels(model, '
+            f'False))')
+
+
 def _device_and_stream(x: torch.Tensor):
     if x.device.type != 'cuda':
         raise RuntimeError(f'no kernel for device {x.device}')
@@ -182,6 +199,7 @@ def conv3x3_dots(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     are per kernel block: (B, stats_tiles(H, W), 2, Cout)."""
     if x.device.type == 'cpu':
         return conv3x3_dots_ref(x, a, b, act, weight, bias, skip, w1x1)
+    _refuse_autograd('conv3x3_dots', x, a, b, weight, bias, skip, w1x1)
     from codeformer_tpu_torch.kernels.build import library
     if act not in ACTS:
         raise ValueError(f'act must be one of {ACTS}, got {act!r}')
@@ -244,6 +262,7 @@ def downsample_dots(x: torch.Tensor, weight: torch.Tensor,
     """K2: (B, H, W, C) -> (B, H/2, W/2, C), as downsample_dots_ref."""
     if x.device.type == 'cpu':
         return downsample_dots_ref(x, weight, bias)
+    _refuse_autograd('downsample_dots', x, weight, bias)
     from codeformer_tpu_torch.kernels.build import library
     bsz, h, w, c = x.shape
     if weight.shape != (c, c, 3, 3):

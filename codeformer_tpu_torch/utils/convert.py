@@ -8,6 +8,7 @@ flax names of the torch Sequential heads back to their indices
 (`idx_pred_norm` -> `idx_pred_layer.0`, `scale_0` -> `scale.0`). The
 port's modules use the reference `.pth` names, so the result loads with
 `load_state_dict` and a released `.pth` needs no conversion at all.
+`load_flax_trainer` carries a JAX trainer's weights into a port trainer.
 """
 from __future__ import annotations
 
@@ -64,7 +65,8 @@ def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             arr = arr.T              # (E, 3E) -> (3E, E)
             key = f'{mod}.in_proj_weight'
         elif leaf_name in _EMBEDDINGS:
-            key = f'{mod}.{leaf_name}.weight'
+            key = f'{mod}.{leaf_name}.weight' if mod else \
+                f'{leaf_name}.weight'
         else:                        # bias, in_proj_bias, position_emb
             key = f'{mod}.{leaf_name}' if mod else leaf_name
         sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
@@ -73,6 +75,19 @@ def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         sd[f'{_module_path(path[:-1])}.{name}'] = torch.from_numpy(
             np.array(leaf, dtype=np.float32))
     return sd
+
+
+def load_flax_trainer(trainer, params_g: Mapping[str, Any],
+                      vqgan_params: Mapping[str, Any] | None = None) -> None:
+    """A JAX trainer's `params_g` (and `vqgan_params`, the frozen HQ
+    VQGAN's) -> the port trainer's `net_g` (and `hq_vqgan`), strictly, on
+    the trainer's device; the EMA restarts from the loaded params, as JAX
+    starts params_g_ema from params_g."""
+    trainer.net_g.load_state_dict(flax_to_state_dict({'params': params_g}))
+    if vqgan_params is not None:
+        trainer.hq_vqgan.load_state_dict(
+            flax_to_state_dict({'params': vqgan_params}))
+    trainer.reset_ema()
 
 
 def load_pth(path: str) -> Dict[str, torch.Tensor]:

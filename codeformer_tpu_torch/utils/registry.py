@@ -40,5 +40,6 @@ class Registry:
 
 
 ARCH_REGISTRY = Registry('arch')
+MODEL_REGISTRY = Registry('model')   # trainers, by `model_type:`
 
-__all__ = ['Registry', 'ARCH_REGISTRY']
+__all__ = ['Registry', 'ARCH_REGISTRY', 'MODEL_REGISTRY']

@@ -233,3 +233,128 @@ def test_tap_tables_match_jax():
                             '32': 14, '16': 18}
     assert pgen == jgen
     assert len(penc_blocks) == len(pgen_blocks) == 25
+
+
+# ------------------------------------------ kernel switch and autograd
+@pytest.mark.parametrize('op', ['conv3x3_dots', 'downsample_dots'])
+def test_kernel_refuses_autograd_before_building(monkeypatch, op):
+    """The K1/K2 outputs carry no autograd history: where autograd would
+    record (grad enabled, an input or weight requiring grad) the CUDA
+    branch raises before anything is built; under no_grad it passes the
+    guard and stops at the device check (meta tensors), still without
+    building."""
+    from codeformer_tpu_torch.kernels import build
+    from codeformer_tpu_torch.ops import conv3x3 as cv
+
+    class Built(Exception):
+        pass
+
+    def no_build():
+        raise Built
+    monkeypatch.setattr(build, 'library', no_build)
+    m = dict(device='meta')
+    x = torch.empty(1, 8, 16, 64, dtype=torch.bfloat16, **m)
+    w = torch.empty(64, 64, 3, 3, **m).requires_grad_(True)
+    bias = torch.empty(64, **m)
+    if op == 'conv3x3_dots':
+        ab = torch.empty(1, 64, **m)
+        call = lambda: cv.conv3x3_dots(x, ab, ab, 'silu', w, bias)  # noqa: E731
+    else:
+        call = lambda: cv.downsample_dots(x, w, bias)  # noqa: E731
+    with pytest.raises(RuntimeError, match='forward-only'):
+        call()
+    with torch.no_grad(), pytest.raises(RuntimeError,
+                                        match='no kernel for device meta'):
+        call()
+
+
+def _blocks_pair(make):
+    torch.manual_seed(0)
+    mod = make()
+    with torch.no_grad():
+        for n, p in mod.named_parameters():
+            if 'norm' in n:
+                p.add_(0.1 * torch.randn_like(p))
+    return mod
+
+
+@pytest.mark.parametrize('kind', ['res64', 'res128_64', 'down', 'tail'])
+def test_textbook_form_matches_fused_form(kind):
+    """use_kernels False (plain GroupNorm, SiLU, convs) against the fused
+    K1/K2 form (here their plain versions) at fp32: rel RMS <= 1e-5."""
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (2, 64 if kind != 'res128_64' else 128, 16, 16)).astype(np.float32))
+    x = x.contiguous(memory_format=torch.channels_last)
+    if kind == 'tail':
+        norm, conv = pb.GroupNorm32(64), pb.Conv2d(64, 3, 3, padding=1)
+        _blocks_pair(lambda: torch.nn.ModuleList([norm, conv]))
+
+        def run(on):
+            return pb.decoder_tail(norm, conv, x, use_kernels=on)
+    else:
+        mod = _blocks_pair({'res64': lambda: pb.ResBlock(64, 64),
+                            'res128_64': lambda: pb.ResBlock(128, 64),
+                            'down': lambda: pb.Downsample(64)}[kind])
+
+        def run(on):
+            pb.set_kernels(mod, on)
+            return mod(x)
+    with torch.no_grad():
+        fused, plain = run(True), run(False)
+    assert fused.shape == plain.shape
+    rel = float((fused - plain).pow(2).mean().sqrt()
+                / plain.pow(2).mean().sqrt())
+    assert rel <= 1e-5, rel
+
+
+def test_set_kernels_reaches_every_switch():
+    from codeformer_tpu_torch.models import CodeFormer
+    m = CodeFormer(img_size=64, nf=32, ch_mult=(1, 2, 4), codebook_size=32,
+                   emb_dim=16, dim_embd=32, n_head=4, n_layers=1,
+                   connect_list=('32',))
+    switches = [mod for mod in m.modules() if hasattr(mod, 'use_kernels')]
+    kinds = {type(mod).__name__ for mod in switches}
+    assert kinds == {'ResBlock', 'Downsample', 'Generator'}
+    assert all(mod.use_kernels for mod in switches)
+    assert pb.set_kernels(m, False) is m
+    assert not any(mod.use_kernels for mod in switches)
+
+
+def test_textbook_encoder_grads_match_jax():
+    """With use_kernels False a backward through a tiny encoder gives
+    every conv weight a non-None, nonzero grad, equal to jax.grad of the
+    same loss through the JAX encoder on the same params (rel RMS
+    <= 1e-4; fp32, colpack off)."""
+    from codeformer_tpu.models.vqgan import Encoder as JEncoder
+    from codeformer_tpu_torch.models.vqgan import Encoder
+    cfg = dict(nf=32, emb_dim=16, ch_mult=(1, 2, 4), num_res_blocks=2,
+               resolution=64, attn_resolutions=(16,))
+    rng = np.random.default_rng(10)
+    x = rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
+    r = rng.standard_normal((2, 16, 16, 16)).astype(np.float32)
+    jm = JEncoder(**cfg)
+    v = jm.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    v = jax.tree_util.tree_map_with_path(
+        lambda p, l: l + 0.1 * jnp.cos(jnp.arange(l.size).reshape(l.shape))
+        if str(getattr(p[-1], 'key', '')) in ('scale', 'bias') else l, v)
+
+    def loss(params):
+        y, _ = jm.apply({'params': params}, jnp.asarray(x))
+        return jnp.sum(y * jnp.asarray(r))
+    gj = flax_to_state_dict({'params': jax.grad(loss)(v['params'])})
+
+    pm = _load(Encoder(**cfg), v)
+    pb.set_kernels(pm, False)
+    y, _ = pm(_nchw(x))
+    (y * _nchw(r)).sum().backward()
+    n_conv = 0
+    for name, p in pm.named_parameters():
+        if p.dim() != 4:
+            continue
+        n_conv += 1
+        assert p.grad is not None and float(p.grad.abs().max()) > 0, name
+        want = gj[name]
+        rel = float((p.grad - want).pow(2).mean().sqrt()
+                    / want.pow(2).mean().sqrt())
+        assert rel <= 1e-4, (name, rel)
+    assert n_conv >= 20

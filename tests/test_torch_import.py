@@ -1,6 +1,7 @@
 """The port imports torch and numpy only: never jax or flax (the card's
-machine has neither), nothing of the JAX package, and neither cv2 nor
-triton at import time."""
+machine has neither), nothing of the JAX package, and neither cv2, yaml
+nor triton at import time (the training entry point imports yaml and the
+JAX package's data modules inside its functions)."""
 import os
 import subprocess
 import sys
@@ -18,18 +19,19 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')
 for name in names:
     importlib.import_module(name)
 print(len(names))
-print(sorted(m for m in ('jax', 'flax', 'cv2', 'triton', 'PIL',
-                         'codeformer_tpu') if m in sys.modules))
+print(sorted(m for m in ('jax', 'flax', 'cv2', 'triton', 'PIL', 'yaml',
+                         'optax', 'codeformer_tpu') if m in sys.modules))
 '''
 
 
 def test_port_imports_no_jax_flax_cv2_triton():
+    """Every module of the port, the training package included."""
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONSTARTUP'}
     out = subprocess.run([sys.executable, '-c', _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules, loaded = out.stdout.strip().splitlines()[-2:]
-    assert int(n_modules) >= 18
+    assert int(n_modules) >= 25
     assert loaded == '[]', f'port imported {loaded}'
 
 
@@ -53,7 +55,7 @@ def test_kernel_sources_and_signatures():
 
     from codeformer_tpu_torch.kernels import build
     names = {p.name for p in build._sources()}
-    assert {'conv3x3_dots.cu', 'downsample_dots.cu',
+    assert {'conv3x3_dots.cu', 'downsample_dots.cu', 'nearest_code.cu',
             'conv_tile.cuh'} <= names
     src = '\n'.join(p.read_text() for p in build._sources())
     for entry, argtypes in build.SIGNATURES.items():
@@ -64,6 +66,15 @@ def test_kernel_sources_and_signatures():
                  for p in params]
         assert all('*' in p or p.startswith('int ') for p in params), params
         assert kinds == argtypes, entry
+
+
+def test_model_registry_holds_the_ported_trainers():
+    from codeformer_tpu_torch.train.trainers import (CodeFormerIdxModel,
+                                                     build_model)
+    from codeformer_tpu_torch.utils.registry import MODEL_REGISTRY
+    assert MODEL_REGISTRY.get('CodeFormerIdxModel') is CodeFormerIdxModel
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        build_model({'model_type': 'CodeFormerJointModel'})
 
 
 def test_registry_holds_the_port_archs():
