@@ -15,6 +15,13 @@ Phases, in order; any failure raises and the script exits non-zero:
   4. K3 (nearest code) against its plain version at the training path's
      token counts on three codebooks (exact lowest index on duplicated
      rows), planted faults that must fail, kernel vs plain times;
+  4b. the ops layer: K4 (fused_leaky_relu forward and backward) and the
+     bare conv conv3x3_bias (the counterpart of K1', K5, K6) against
+     their plain versions, planted faults that must fail, gradients and
+     gradients of gradients through the K4 kernels against the plain
+     path, kernel, plain and library-call times; then the ops path (conv3x3_bias ->
+     fused_leaky_relu forward and backward at 16 x 512^2 x 64 bf16) with
+     exact launch counts;
   5. serving: the full-width CodeFormerRestorer on the card with seeded
      random weights: a few requests, exact kernel launch counts, a
      reference forward with both ops patched to their plain versions
@@ -27,7 +34,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      gradients at the encoder, frozen modules unchanged; idx_gt against
      the plain-op encode (and a planted fault); training faces/s of the
      kernel and plain paths; peak memory.
-The last line is the JSON result; the line before it lists the kernels.
+The last line is the JSON result; the line before it lists the kernels,
+each with its launches on the main paths, its time, its plain version's,
+the least time the card could take for the same work (bound_ms) and,
+where one PyTorch call computes the same function, that call's time.
 """
 from __future__ import annotations
 
@@ -290,7 +300,10 @@ def phase_k3():
                 pms = time_ms(lambda: vq._nearest_code_ref(z, e))
                 line += f'  kernel {ms:.4f} ms  plain {pms:.4f} ms'
                 rows.append(dict(tokens=n_tok, max_abs_err=r['max_abs'],
-                                 ms=ms, plain_ms=pms))
+                                 ms=ms, plain_ms=pms, library_ms=None,
+                                 **bound(2 * n_tok * K3_CODES * K3_DIM,
+                                         4 * (n_tok + K3_CODES) * K3_DIM
+                                         + 4 * n_tok, FP32_FLOPS)))
             print(line + '; planted faults: ' + ', '.join(
                 f'{k} {"passes" if v else "fails"}'
                 for k, v in faults.items()), flush=True)
@@ -308,6 +321,345 @@ def phase_k3():
     print('  K3 planted faults fail the checks at every T, as they must',
           flush=True)
     return rows
+
+
+# Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet,
+# dense): the least time for a kernel's work is the larger of its bytes
+# (each input read once, each output written once) over HBM bandwidth and
+# its operations over the peak rate of their type.
+HBM_BYTES_S = 3.35e12
+BF16_TC_FLOPS = 989e12    # tensor cores, bf16
+FP32_FLOPS = 67e12        # fp32 outside the tensor cores
+
+
+def bound(flops: float, nbytes: float, peak: float) -> dict:
+    """{'bound_ms', 'bound_by'}: max(bytes / HBM, flops / peak) in ms."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / peak * 1e3
+    return {'bound_ms': max(t_bytes, t_ops),
+            'bound_by': 'bytes' if t_bytes >= t_ops else 'operations'}
+
+
+def k1_bound(b, h, cin, cout, skip, cs) -> dict:
+    """K1 at B x h^2: x, skip and y once in bf16, the weights, a, b and
+    the stats partials once; the 3x3 (and 1x1) products on the tensor
+    cores."""
+    pix = b * h * h
+    flops = 2 * pix * 9 * cin * cout
+    nbytes = 2 * pix * (cin + cout) + 2 * 9 * cin * cout + 8 * b * cin \
+        + 4 * cout + 8 * b * cout * (-(-h // 8)) * (-(-h // 16))
+    if skip == 'identity':
+        nbytes += 2 * pix * cout
+    elif skip == 'proj':
+        nbytes += 2 * pix * cs + 2 * cs * cout
+        flops += 2 * pix * cs * cout
+    return bound(flops, nbytes, BF16_TC_FLOPS)
+
+
+# the ops layer (the counterpart of the reference's basicsr/ops): K4 and
+# the bare 3x3 conv that stands for K1', K5 and K6. The path drives one
+# StyleGAN2-style layer at K6's bench shape (scripts/bench_imgpair.py):
+# conv3x3_bias, then fused_leaky_relu forward and backward on its output.
+OPS_PATH_SHAPE = (16, 512, 512, 64)
+# K4: the path's shape, a memory-bound size a quarter of it, a numel
+# that is no multiple of the vector width with C = 3, and C = 513 (more
+# vector classes than a block has threads); each in bf16 and fp32
+K4_SHAPES = (OPS_PATH_SHAPE, (16, 256, 256, 64), (3, 37, 41, 3),
+             (2, 33, 35, 513))
+# dbias against the exact (fp64) sum of the rounded dx, relative to the
+# sum of |dx| of the channel: the kernel's and torch's fp32 sums both read
+# 1e-8 or less on an H100 (PERF.md, Findings)
+DBIAS_BOUND = 1e-5
+CONV_BIAS_CASES = [  # (B, H=W, Cin, Cout)
+    (16, 512, 64, 64),    # K6's bench shape (the path's)
+    (2, 512, 64, 64),     # K5's thin layers
+    (2, 256, 64, 64),
+    (2, 256, 128, 128),   # K1'
+    (3, 128, 64, 64),     # an odd batch
+    (2, 512, 64, 3),      # Cout = 3
+]
+OPS_ITERS = 10            # timing iterations of the ops phase
+
+
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at |v| (8 significant bits), as fp32."""
+    e = torch.floor(torch.log2(v.float().abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def fwd_agrees(got: torch.Tensor, ref: torch.Tensor) -> bool:
+    """fp32: bitwise equal; bf16: within one bf16 ulp."""
+    if got.dtype != torch.bfloat16:
+        return bool(torch.equal(got, ref))
+    return bool(((got.float() - ref.float()).abs()
+                 <= bf16_ulp(ref)).all())
+
+
+def dbias_err(db: torch.Tensor, dx: torch.Tensor) -> float:
+    """max over channels of |db - exact| / sum |dx|, exact = the fp64 sum
+    of the rounded dx."""
+    d64 = dx.double().reshape(-1, dx.shape[-1])
+    exact = d64.sum(0)
+    return float(((db.double() - exact).abs()
+                  / d64.abs().sum(0).clamp_min(1e-30)).max())
+
+
+def k4_fault_fwd(x, bias, slope=0.2, scale=2 ** 0.5):
+    """Planted fault: the branch taken from x, not from x + bias."""
+    y = x.float() + bias.to(x.dtype).float()
+    return (torch.where(x >= 0, y, y * slope) * scale).to(x.dtype)
+
+
+def k4_fault_dbias(dx: torch.Tensor) -> torch.Tensor:
+    """Planted fault: dbias without the elements after the last whole
+    chunk of C vectors (the kernel's scalar tail)."""
+    c = dx.shape[-1]
+    chunk = c * (16 // dx.element_size())
+    flat = dx.reshape(-1)
+    keep = flat.numel() // chunk * chunk
+    return flat[:keep].float().reshape(-1, c).sum(0)
+
+
+def k4_double_backward(fa, x, b, go, ggx, ggb):
+    """(out, dx, dbias, d<ggx, dx> + <ggb, dbias> / d go) of
+    fused_leaky_relu at (x, b) for the output gradient go."""
+    x, b, go = (t.clone().requires_grad_() for t in (x, b, go))
+    out = fa.fused_leaky_relu(x, b)
+    dx, db = torch.autograd.grad(out, (x, b), go, create_graph=True)
+    (dgo,) = torch.autograd.grad((dx * ggx).sum() + (db * ggb).sum(), go)
+    return out.detach(), dx.detach(), db.detach(), dgo
+
+
+def phase_k4():
+    """K4 forward and backward against their plain versions at K4_SHAPES,
+    bf16 and fp32; planted faults; gradients and gradients of gradients
+    through the kernels against the plain path; kernel vs plain times (CUDA events, median of
+    OPS_ITERS)."""
+    from codeformer_tpu_torch.ops import fused_act as fa
+    g = torch.Generator(device='cuda').manual_seed(4)
+    print(f'K4 checks: forward bitwise (fp32) / within 1 bf16 ulp (bf16) '
+          f'of the plain version, dx exact, dbias within {DBIAS_BOUND} of '
+          f'the fp64 sum (relative to sum |dx|)', flush=True)
+    rows = []
+    for shape in K4_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn(shape, generator=g, device='cuda').to(dt)
+            bias = torch.randn(shape[-1], generator=g, device='cuda')
+            gr = torch.randn(shape, generator=g, device='cuda').to(dt)
+            out = fa.fused_lrelu_fwd(x, bias, 0.2, 2 ** 0.5)
+            dx, db = fa.fused_lrelu_bwd(gr, out, 0.2, 2 ** 0.5)
+            torch.cuda.synchronize()
+            ref = fa.fused_leaky_relu_ref(x, bias)
+            dx_r, db_r = fa.fused_leaky_relu_bwd_ref(gr, out)
+            fwd_ok = fwd_agrees(out, ref)
+            dx_ok = bool(torch.equal(dx, dx_r))
+            db_e, db_re = dbias_err(db, dx_r), dbias_err(db_r, dx_r)
+            err = float((out.float() - ref.float()).abs().max())
+            ok = fwd_ok and dx_ok and db_e <= DBIAS_BOUND
+            numel = x.numel()
+            tail = numel % (shape[-1] * 16 // x.element_size())
+            faults = {'mask from x': fwd_agrees(out, k4_fault_fwd(x, bias))}
+            if tail:
+                faults['dbias without the tail'] = dbias_err(
+                    k4_fault_dbias(dx_r), dx_r) <= DBIAS_BOUND
+            ms = time_ms(lambda: fa.fused_lrelu_fwd(x, bias, 0.2, 2 ** 0.5),
+                         iters=OPS_ITERS)
+            pms = time_ms(lambda: fa.fused_leaky_relu_ref(x, bias),
+                          iters=OPS_ITERS)
+            bms = time_ms(lambda: fa.fused_lrelu_bwd(gr, out, 0.2, 2 ** 0.5),
+                          iters=OPS_ITERS)
+            bpms = time_ms(lambda: fa.fused_leaky_relu_bwd_ref(gr, out),
+                           iters=OPS_ITERS)
+            es = x.element_size()
+            fwd_lim = bound(4 * numel, 2 * numel * es + 4 * shape[-1],
+                            FP32_FLOPS)
+            bwd_lim = bound(3 * numel, 3 * numel * es + 4 * shape[-1],
+                            FP32_FLOPS)
+            name = f'K4 {tuple(shape)} {str(dt)[6:]}'
+            print(f'  {name:34s} fwd max_abs {err:.3g} '
+                  f'{"ok" if fwd_ok else "FAIL"}, dx '
+                  f'{"exact" if dx_ok else "DIFFERS"}, dbias rel '
+                  f'{db_e:.3g} (plain {db_re:.3g}; <= {DBIAS_BOUND}); tail '
+                  f'{tail}; fwd kernel {ms:.4f} ms plain {pms:.4f} ms '
+                  f'bound {fwd_lim["bound_ms"]:.4f} ms, bwd kernel '
+                  f'{bms:.4f} ms plain {bpms:.4f} ms bound '
+                  f'{bwd_lim["bound_ms"]:.4f} ms  '
+                  f'{"ok" if ok else "FAIL"}; planted faults: '
+                  + ', '.join(f'{k} {"passes" if v else "fails"}'
+                              for k, v in faults.items()), flush=True)
+            if not ok:
+                raise SystemExit(f'chip_smoke: {name} disagrees with its '
+                                 f'plain version')
+            if any(faults.values()):
+                raise SystemExit(f'chip_smoke: {name}: a planted fault '
+                                 f'passes the checks')
+            rows.append(dict(
+                shape=name, max_abs_err=err, ms=ms, plain_ms=pms,
+                bwd_max_abs_err=float((db - db_r).abs().max()), bwd_ms=bms,
+                bwd_plain_ms=bpms, fwd_bound=fwd_lim, bwd_bound=bwd_lim))
+            del x, gr, out, dx, ref, dx_r
+    # gradients and gradients of gradients through the autograd Functions
+    # on the kernels, fp32, against the same Functions on CPU copies (the
+    # plain versions, whose fp64 gradcheck and gradgradcheck run in
+    # tests/test_torch_fused_act.py): forward, dx and d(grad) bitwise,
+    # dbias within DBIAS_BOUND
+    for shape in ((2, 5, 7, 3), (2, 513)):
+        x = torch.randn(shape, generator=g, device='cuda')
+        b = torch.randn(shape[-1], generator=g, device='cuda')
+        go, ggx = (torch.randn(shape, generator=g, device='cuda')
+                   for _ in range(2))
+        ggb = torch.randn(shape[-1], generator=g, device='cuda')
+        before = fa.launch_counts()
+        got = k4_double_backward(fa, x, b, go, ggx, ggb)
+        n = {k: v - before[k] for k, v in fa.launch_counts().items()}
+        want = [t.to('cuda') for t in k4_double_backward(
+            fa, *(t.cpu() for t in (x, b, go, ggx, ggb)))]
+        same = [bool(torch.equal(got[i], want[i])) for i in (0, 1, 3)]
+        db_e = dbias_err(got[2], got[1])
+        ok = all(same) and db_e <= DBIAS_BOUND and all(n.values())
+        print(f'  K4 fp32 {shape} autograd vs plain: out, dx, d(grad) '
+              f'{"bitwise" if all(same) else "DIFFER " + str(same)}, dbias '
+              f'rel {db_e:.3g}; through the kernels '
+              f'({n["fused_lrelu_fwd"]} forward, {n["fused_lrelu_bwd"]} '
+              f'backward launches)', flush=True)
+        if not ok:
+            raise SystemExit('chip_smoke: K4 autograd disagrees with the '
+                             'plain path')
+    torch.cuda.empty_cache()
+    return rows
+
+
+def conv_bias_fault(kind: str, x, weight, bias):
+    """Planted faults of the bare conv: 'halo row shifted', every kernel
+    tile of TILE_H output rows reads its top halo row one row too low
+    (the tile's own first row); 'bias dropped'."""
+    import torch.nn.functional as F
+    from codeformer_tpu_torch.ops import conv3x3 as cv
+    if kind == 'bias dropped':
+        return cv.conv3x3_bias_ref(x, weight, torch.zeros_like(bias))
+    if kind != 'halo row shifted':
+        raise ValueError(kind)
+    xp = F.pad(x.float().permute(0, 3, 1, 2), (1, 1, 1, 1))
+    wf, bf = weight.to(x.dtype).float(), bias.float()
+    tiles = []
+    for y0 in range(0, x.shape[1], cv.TILE_H):
+        win = xp[:, :, y0:y0 + cv.TILE_H + 2].clone()
+        if y0 > 0:
+            win[:, :, 0] = win[:, :, 1]
+        tiles.append(F.conv2d(win, wf, bf))
+    return torch.cat(tiles, 2).permute(0, 2, 3, 1).to(x.dtype)
+
+
+CONV_BIAS_FAULTS = ('halo row shifted', 'bias dropped')
+
+
+def phase_conv_bias():
+    """conv3x3_bias against its plain version (fp32 sums, TF32 off) at
+    CONV_BIAS_CASES; planted faults; kernel, plain (bf16, cuDNN) and
+    library-call (one F.conv2d, bf16, channels_last) times."""
+    import torch.nn.functional as F
+    from codeformer_tpu_torch.ops import conv3x3 as cv
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device='cuda').manual_seed(6)
+    print(f'conv3x3_bias checks: bf16 in/out; ref = plain version in fp32, '
+          f'TF32 off; rel RMS <= {REL_RMS_BOUND}; library = '
+          f'F.conv2d(NCHW channels_last view, padding=1) in bf16', flush=True)
+    rows = []
+    for bsz, h, cin, cout in CONV_BIAS_CASES:
+        x = torch.randn(bsz, h, h, cin, generator=g, device='cuda') \
+            .to(torch.bfloat16)
+        wt = torch.randn(cout, cin, 3, 3, generator=g, device='cuda') \
+            * (9 * cin) ** -0.5
+        bias = torch.randn(cout, generator=g, device='cuda') * 0.1
+        y = cv.conv3x3_bias(x, wt, bias)
+        torch.cuda.synchronize()
+        yr = cv.conv3x3_bias_ref(x, wt, bias)
+        err = float((y.float() - yr.float()).abs().max())
+        rr = rel_rms(y, yr)
+        faults = {k: rel_rms(y, conv_bias_fault(k, x, wt, bias))
+                  for k in CONV_BIAS_FAULTS}
+        xc = x.permute(0, 3, 1, 2)            # NCHW view, channels_last
+        wb, bb = wt.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last), bias.to(torch.bfloat16)
+        ms = time_ms(lambda: cv.conv3x3_bias(x, wt, bias), iters=OPS_ITERS)
+        pms = time_ms(lambda: cv.conv3x3_bias_ref(
+            x, wt, bias, compute_dtype=torch.bfloat16), iters=OPS_ITERS)
+        lms = time_ms(lambda: F.conv2d(xc, wb, bb, padding=1),
+                      iters=OPS_ITERS)
+        pix = bsz * h * h
+        lim = bound(2 * pix * 9 * cin * cout,
+                    2 * pix * (cin + cout) + 18 * cin * cout + 4 * cout,
+                    BF16_TC_FLOPS)
+        name = f'conv3x3_bias B={bsz} {h}^2 {cin}->{cout}'
+        ok = rr <= REL_RMS_BOUND and y.shape == (bsz, h, h, cout)
+        caught = all(v > REL_RMS_BOUND for v in faults.values())
+        print(f'  {name:36s} max_abs {err:.4g} rel_rms {rr:.3g} (<= '
+              f'{REL_RMS_BOUND})  kernel {ms:.4f} ms  plain {pms:.4f} ms  '
+              f'library {lms:.4f} ms  bound {lim["bound_ms"]:.4f} ms '
+              f'({lim["bound_by"]})  {"ok" if ok else "FAIL"}; planted '
+              f'faults: ' + ', '.join(f'{k} {v:.3g}' for k, v in
+                                      faults.items())
+              + f' {"FAIL as they must" if caught else "PASS (bound too loose)"}',
+              flush=True)
+        if not ok:
+            raise SystemExit(f'chip_smoke: {name} disagrees with its plain '
+                             f'version')
+        if not caught:
+            raise SystemExit(f'chip_smoke: {name}: a planted fault passes '
+                             f'the bound')
+        rows.append(dict(shape=name, max_abs_err=err, rel_rms=rr, ms=ms,
+                         plain_ms=pms, library_ms=lms, **lim))
+        del x, y, yr, xc
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_ops_path() -> dict:
+    """The ops layer's main path, with every count set to 0 just before
+    it and read just after: conv3x3_bias at OPS_PATH_SHAPE, then
+    fused_leaky_relu forward and backward on its output through autograd.
+    Then each result against its plain version on the same inputs."""
+    from codeformer_tpu_torch.ops import conv3x3 as cv
+    from codeformer_tpu_torch.ops import fused_act as fa
+    from codeformer_tpu_torch.ops import conv3x3_bias, fused_leaky_relu
+    g = torch.Generator(device='cuda').manual_seed(7)
+    bsz, h, w, c = OPS_PATH_SHAPE
+    x = torch.randn(bsz, h, w, c, generator=g, device='cuda') \
+        .to(torch.bfloat16)
+    wt = torch.randn(c, c, 3, 3, generator=g, device='cuda') * (9 * c) ** -0.5
+    b_conv = torch.randn(c, generator=g, device='cuda') * 0.1
+    b_act = (torch.randn(c, generator=g, device='cuda') * 0.1) \
+        .requires_grad_()
+    up = torch.randn(OPS_PATH_SHAPE, generator=g, device='cuda') \
+        .to(torch.bfloat16)
+    reset_all_counts()
+    y = conv3x3_bias(x, wt, b_conv).requires_grad_()
+    out = fused_leaky_relu(y, b_act)
+    out.backward(up)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    # the plain versions on the same inputs
+    yr = cv.conv3x3_bias_ref(x, wt, b_conv)
+    out_r = fa.fused_leaky_relu_ref(y.detach(), b_act.detach())
+    dx_r, db_r = fa.fused_leaky_relu_bwd_ref(up, out.detach())
+    r = dict(conv=rel_rms(y.detach(), yr),
+             fwd=fwd_agrees(out.detach(), out_r),
+             dx=bool(torch.equal(y.grad, dx_r)),
+             db=dbias_err(b_act.grad, dx_r))
+    print(f'ops path: conv3x3_bias -> fused_leaky_relu fwd + bwd at '
+          f'{OPS_PATH_SHAPE} bf16: launches {counts}; conv rel_rms '
+          f'{r["conv"]:.3g}, forward {"ok" if r["fwd"] else "FAIL"}, dx '
+          f'{"exact" if r["dx"] else "DIFFERS"}, dbias rel {r["db"]:.3g}',
+          flush=True)
+    if not (r['conv'] <= REL_RMS_BOUND and r['fwd'] and r['dx']
+            and r['db'] <= DBIAS_BOUND):
+        raise SystemExit('chip_smoke: the ops path disagrees with its plain '
+                         'versions')
+    if not all(torch.isfinite(t).all() for t in (out, y.grad, b_act.grad)):
+        raise SystemExit('chip_smoke: non-finite values on the ops path')
+    del x, y, out, up, yr, out_r, dx_r
+    torch.cuda.empty_cache()
+    return counts
 
 
 def phase_card():
@@ -363,6 +715,7 @@ def _k1_inputs(g, h, cin, cout, skip, cs):
 
 
 def phase_kernels():
+    import torch.nn.functional as F
     from codeformer_tpu_torch.ops import conv3x3 as cv
     torch.backends.cudnn.allow_tf32 = False          # the fp32 reference
     torch.backends.cuda.matmul.allow_tf32 = False    # must be true fp32
@@ -407,7 +760,8 @@ def phase_kernels():
                              f'the bound')
         results.setdefault('conv3x3_dots', []).append(
             dict(shape=name, max_abs_err=err, rel_rms=rr, ms=ms,
-                 plain_ms=pms))
+                 plain_ms=pms, library_ms=None,
+                 **k1_bound(BATCH, h, cin, cout, skip, cs)))
     for h, c in K2_CASES:
         x = (torch.randn(BATCH, h, h, c, generator=g, device='cuda')
              .to(torch.bfloat16))
@@ -422,12 +776,20 @@ def phase_kernels():
         ms = time_ms(lambda: cv.downsample_dots(x, wt, bias))
         pms = time_ms(lambda: cv.downsample_dots_ref(
             x, wt, bias, compute_dtype=torch.bfloat16))
+        # the library yardstick: F.pad + one F.conv2d, bf16, channels_last
+        xc = x.permute(0, 3, 1, 2)
+        wb = wt.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        bb = bias.to(torch.bfloat16)
+        lms = time_ms(lambda: F.conv2d(F.pad(xc, (0, 1, 0, 1)), wb, bb,
+                                       stride=2))
         name = f'K2 {h}^2 -> {h // 2}^2 C={c}'
         ok = rr <= REL_RMS_BOUND and y.shape == (BATCH, h // 2, h // 2, c)
         fault = rel_rms(y, k2_fault(x, wt, bias))
         print(f'  {name:38s} max_abs {err:.4g} rel_rms {rr:.3g} '
               f'(<= {REL_RMS_BOUND})  kernel {ms:.4f} ms  plain '
-              f'{pms:.4f} ms  {"ok" if ok else "FAIL"}; planted fault: '
+              f'{pms:.4f} ms  library {lms:.4f} ms  '
+              f'{"ok" if ok else "FAIL"}; planted fault: '
               f'symmetric pad {fault:.3g} '
               f'{"FAIL as it must" if fault > REL_RMS_BOUND else "PASS"}',
               flush=True)
@@ -437,9 +799,13 @@ def phase_kernels():
         if fault <= REL_RMS_BOUND:
             raise SystemExit(f'chip_smoke: {name}: a planted fault passes '
                              f'the bound')
+        pix = BATCH * (h // 2) ** 2
         results.setdefault('downsample_dots', []).append(
             dict(shape=name, max_abs_err=err, rel_rms=rr, ms=ms,
-                 plain_ms=pms))
+                 plain_ms=pms, library_ms=lms, **bound(
+                     2 * pix * 9 * c * c,
+                     2 * BATCH * h * h * c + 2 * pix * c + 18 * c * c
+                     + 4 * c, BF16_TC_FLOPS)))
     return results
 
 
@@ -503,7 +869,8 @@ def phase_slice():
         out = restorer.restore_batch(faces, w=w)
         torch.cuda.synchronize()
         counts = cv.launch_counts()
-        want = {'conv3x3_dots': 2 * n_res + 1, 'downsample_dots': n_down}
+        want = {'conv3x3_dots': 2 * n_res + 1, 'downsample_dots': n_down,
+                'conv3x3_bias': 0}
         print(f'  request: {n} face(s) w={w}: launches {counts} '
               f'(expected {want})', flush=True)
         if counts != want:
@@ -739,7 +1106,9 @@ def phase_train_profile(trainer, iters: int = 3):
 TRAIN_BATCH = 4           # batch_size_per_gpu of the config
 TRAIN_STEPS = 8
 ENCODE_LAUNCHES = {'conv3x3_dots': 28, 'downsample_dots': 5,
-                   'nearest_code': 1}   # one frozen HQ encode, per microbatch
+                   'nearest_code': 1,   # one frozen HQ encode, per microbatch
+                   'conv3x3_bias': 0, 'fused_lrelu_fwd': 0,
+                   'fused_lrelu_bwd': 0}
 # idx_gt of the kernel path against the same encode with K1/K2/K3 on
 # their plain versions (fp32 sums, TF32 off): random-init codebooks give
 # near-flat code scores, so bf16 rounding flips a share of the picks.
@@ -757,7 +1126,7 @@ def stage2_options() -> dict:
     val/logger blocks and its net_d_* keys, which stage II does not read."""
     return {
         'name': 'chip_smoke_stage2', 'model_type': 'CodeFormerIdxModel',
-        'manual_seed': 0, 'mixed_precision': 'bf16',
+        'manual_seed': 0, 'mixed_precision': 'bf16', 'device': 'cuda',
         'network_g': {'type': 'CodeFormer', 'dim_embd': 512, 'n_head': 8,
                       'n_layers': 9, 'codebook_size': 1024,
                       'connect_list': ['32', '64', '128', '256'],
@@ -795,17 +1164,20 @@ def stage2_batch(rng, n: int, size: int = 512) -> dict:
             'gt': gt.contiguous()}
 
 
-def all_counts() -> dict:
+def _op_modules():
     from codeformer_tpu_torch.ops import conv3x3 as cv
+    from codeformer_tpu_torch.ops import fused_act as fa
     from codeformer_tpu_torch.ops import vq
-    return {**cv.launch_counts(), **vq.launch_counts()}
+    return cv, vq, fa
+
+
+def all_counts() -> dict:
+    return {k: v for m in _op_modules() for k, v in m.launch_counts().items()}
 
 
 def reset_all_counts() -> None:
-    from codeformer_tpu_torch.ops import conv3x3 as cv
-    from codeformer_tpu_torch.ops import vq
-    cv.reset_launch_counts()
-    vq.reset_launch_counts()
+    for m in _op_modules():
+        m.reset_launch_counts()
 
 
 @contextlib.contextmanager
@@ -1004,12 +1376,39 @@ def phase_train_rates(trainer):
           f'{statistics.median(share["plain"]):.3f}', flush=True)
 
 
+def phase_ops():
+    """The ops layer: K4 and the bare conv against their plain versions,
+    then its main path with exact launch counts."""
+    k4_rows = phase_k4()
+    conv_rows = phase_conv_bias()
+    return k4_rows, conv_rows, phase_ops_path()
+
+
+KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
+    'conv3x3_dots': ('codeformer_tpu_torch/csrc/conv3x3_dots.cu',
+                     'codeformer_tpu/ops/colpack_conv.py:376'),
+    'downsample_dots': ('codeformer_tpu_torch/csrc/downsample_dots.cu',
+                        'codeformer_tpu/ops/colpack_conv.py:586'),
+    'nearest_code': ('codeformer_tpu_torch/csrc/nearest_code.cu',
+                     'codeformer_tpu/ops/vq.py:40'),
+    'fused_lrelu_fwd': ('codeformer_tpu_torch/csrc/fused_act.cu',
+                        'codeformer_tpu/ops/fused_act.py:37'),
+    'fused_lrelu_bwd': ('codeformer_tpu_torch/csrc/fused_act.cu',
+                        'codeformer_tpu/ops/fused_act.py:66'),
+    'conv3x3_bias': ('codeformer_tpu_torch/csrc/conv3x3_dots.cu',
+                     'codeformer_tpu/ops/colpack_conv.py:137; '
+                     'codeformer_tpu/ops/pallas_conv.py:101; '
+                     'codeformer_tpu/ops/imgpair_conv.py:117 (:158)'),
+}
+
+
 def main():
     phase_card()
     sys.path.insert(0, ROOT)
     phase_build()
     results = phase_kernels()
     k3_rows = phase_k3()
+    k4_rows, conv_rows, ops_counts = phase_ops()
     serve_counts, restorer = phase_slice()
     if '--profile' in sys.argv[1:]:
         phase_profile(restorer)
@@ -1019,28 +1418,36 @@ def main():
     if '--profile' in sys.argv[1:]:
         phase_train_profile(trainer)
     print(f'main-path launches: serving {serve_counts}; stage-II training '
-          f'{train_counts}')
-    src = {'conv3x3_dots': ('codeformer_tpu_torch/csrc/conv3x3_dots.cu',
-                            'codeformer_tpu/ops/colpack_conv.py:376'),
-           'downsample_dots': ('codeformer_tpu_torch/csrc/downsample_dots.cu',
-                               'codeformer_tpu/ops/colpack_conv.py:586'),
-           'nearest_code': ('codeformer_tpu_torch/csrc/nearest_code.cu',
-                            'codeformer_tpu/ops/vq.py:40')}
+          f'{train_counts}; ops path {ops_counts}')
+    # head row of each kernel: K1/K2 the 512^2 shape, K3 the path's T,
+    # K4 and the bare conv the ops path's shape
     results['nearest_code'] = [r for r in k3_rows
                                if r['tokens'] == K3_PATH_TOKENS] + k3_rows
+    results['fused_lrelu_fwd'] = [
+        dict(r, library_ms=None, **r['fwd_bound']) for r in k4_rows]
+    results['fused_lrelu_bwd'] = [
+        dict(r, max_abs_err=r['bwd_max_abs_err'], ms=r['bwd_ms'],
+             plain_ms=r['bwd_plain_ms'], library_ms=None, **r['bwd_bound'])
+        for r in k4_rows]
+    results['conv3x3_bias'] = conv_rows
     kernels = []
     for name, rows in results.items():
-        head = rows[0]   # K1/K2: the 512^2 shape; K3: the path's T
-        kernels.append({'name': name, 'route': 'cuda',
-                        'source': src[name][0], 'replaces': src[name][1],
-                        'launches': serve_counts.get(name, 0)
-                        + train_counts[name],
-                        'max_abs_err': max(r['max_abs_err'] for r in rows),
-                        'ms': head['ms'], 'plain_ms': head['plain_ms']})
+        head = rows[0]
+        kernels.append({
+            'name': name, 'route': 'cuda', 'source': KERNEL_SOURCES[name][0],
+            'replaces': KERNEL_SOURCES[name][1],
+            'launches': sum(c.get(name, 0) for c in
+                            (serve_counts, train_counts, ops_counts)),
+            'max_abs_err': max(r['max_abs_err'] for r in rows),
+            'ms': head['ms'], 'plain_ms': head['plain_ms'],
+            'bound_ms': head['bound_ms'], 'bound_by': head['bound_by'],
+            'library_ms': head['library_ms']})
     if not all(k['launches'] > 0 for k in kernels):
         raise SystemExit('chip_smoke: a kernel of the path never launched')
     if train_counts['nearest_code'] == 0 or not all(
-            serve_counts[k] > 0 for k in ('conv3x3_dots', 'downsample_dots')):
+            serve_counts[k] > 0 for k in ('conv3x3_dots', 'downsample_dots')) \
+            or not all(ops_counts[k] > 0 for k in (
+                'conv3x3_bias', 'fused_lrelu_fwd', 'fused_lrelu_bwd')):
         raise SystemExit('chip_smoke: a kernel never launched on its path')
     print(card_line())
     print(json.dumps({'kernels': kernels}))

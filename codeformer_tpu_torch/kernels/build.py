@@ -27,11 +27,17 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_D = ctypes.c_double
 # C signatures of the entry points (csrc/*.cu, extern "C")
 SIGNATURES = {
     'cf_conv3x3_dots': [_P] * 9 + [_I] * 11 + [_P],
+    'cf_conv3x3_bias': [_P] * 4 + [_I] * 8 + [_P],
     'cf_downsample_dots': [_P] * 4 + [_I] * 6 + [_P],
     'cf_nearest_code': [_P] * 5 + [_I] * 4 + [_P],
+    'cf_fused_lrelu_fwd': [_P] * 3 + [_I, _L, _I, _D, _D, _I, _P],
+    'cf_fused_lrelu_bwd': [_P] * 4 + [_I, _L, _I, _I, _D, _D, _I, _P],
+    'cf_fused_lrelu_bwd_rows': [_I, _L, _I, _I],
 }
 
 _lib: Optional[ctypes.CDLL] = None

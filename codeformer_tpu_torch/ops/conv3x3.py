@@ -1,4 +1,5 @@
-"""The ResBlock conv (K1) and the stride-2 Downsample (K2), NHWC.
+"""The ResBlock conv (K1), the stride-2 Downsample (K2) and the bare 3x3
+conv, NHWC.
 
 Counterpart of codeformer_tpu/ops/colpack_conv.py without the column
 packing (which only fills the TPU's 128-lane matrix unit):
@@ -6,17 +7,22 @@ packing (which only fills the TPU's 128-lane matrix unit):
   conv3x3_dots    y = conv3x3_SAME(act(a*x + b)) + bias [+ skip | + skip@W1]
                   plus per-tile [sum, sumsq] of the rounded y
   downsample_dots pad (0,1,0,1), 3x3 stride-2 conv + bias, C -> C
+  conv3x3_bias    y = conv3x3_SAME(x) + bias: the one function that the
+                  TPU kernels conv3x3_colpack (K1'), conv3x3_pallas (K5)
+                  and conv3x3_imgpair / conv3x3_pair (K6) compute in
+                  three packings
   channel_stats   the stats of a stage entry (colpack_stats)
   gn_affine       GroupNorm(32, eps 1e-6) folded into a per-channel a, b
 
 Dispatch: a tensor on the CPU goes to the plain PyTorch version
 (`*_ref`); a CUDA tensor launches the hand-written kernel
-(csrc/conv3x3_dots.cu, csrc/downsample_dots.cu) or raises. There is no
-fallback from the kernel to the plain version. The kernels are
-forward-only, as the TPU kernels were (no VJP): their outputs carry no
-autograd history, so the CUDA branch refuses to run where autograd would
-record through it. Training runs the blocks' textbook form
-(nn/blocks.py `set_kernels`).
+(csrc/conv3x3_dots.cu, csrc/downsample_dots.cu; conv3x3_bias is
+conv3x3_dots.cu compiled with no prologue, skip or statistics) or
+raises. There is no fallback from the kernel to the plain version. The
+kernels are forward-only, as the TPU kernels were (no VJP): their
+outputs carry no autograd history, so the CUDA branch refuses to run
+where autograd would record through it. Training runs the blocks'
+textbook form (nn/blocks.py `set_kernels`).
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ ACTS = ('silu', 'none')
 TILE_H, TILE_W = 8, 16     # output pixels per kernel block (conv_tile.cuh)
 CHUNK = 32                 # input channels per staged chunk (conv_tile.cuh)
 
-_launches = {'conv3x3_dots': 0, 'downsample_dots': 0}
+_launches = {'conv3x3_dots': 0, 'downsample_dots': 0, 'conv3x3_bias': 0}
 
 
 def launch_counts() -> dict:
@@ -112,6 +118,17 @@ def downsample_dots_ref(x, weight, bias, compute_dtype=torch.float32):
     ct = compute_dtype
     h = F.pad(x.to(ct).permute(0, 3, 1, 2), (0, 1, 0, 1))
     y = F.conv2d(h, weight.to(x.dtype).to(ct), bias.to(ct), stride=2)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def conv3x3_bias_ref(x, weight, bias, compute_dtype=torch.float32):
+    """Plain bare conv: a SAME 3x3 stride-1 conv of x (B, H, W, Cin) with
+    weight (Cout, Cin, 3, 3) rounded to x.dtype, in compute_dtype (fp32:
+    the reference; x.dtype: the plain path at PyTorch's speed), plus the
+    bias, rounded once to x.dtype: (B, H, W, Cout)."""
+    ct = compute_dtype
+    y = F.conv2d(x.to(ct).permute(0, 3, 1, 2), weight.to(x.dtype).to(ct),
+                 bias.to(ct), padding=1)
     return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
@@ -282,4 +299,39 @@ def downsample_dots(x: torch.Tensor, weight: torch.Tensor,
         raise RuntimeError(f'downsample_dots kernel launch failed: '
                            f'cudaError {rc}')
     _launches['downsample_dots'] += 1
+    return y
+
+
+def conv3x3_bias(x: torch.Tensor, weight: torch.Tensor,
+                 bias: torch.Tensor) -> torch.Tensor:
+    """The bare conv: (B, H, W, Cin) -> (B, H, W, Cout), as
+    conv3x3_bias_ref. On CUDA: bf16 x, Cin a multiple of 32, Cout a
+    multiple of 32 or 3 (K1's limits); the sums are fp32 and the bias is
+    added in the fp32 epilogue."""
+    if x.device.type == 'cpu':
+        return conv3x3_bias_ref(x, weight, bias)
+    _refuse_autograd('conv3x3_bias', x, weight, bias)
+    from codeformer_tpu_torch.kernels.build import library
+    bsz, h, w, cin = x.shape
+    cout = weight.shape[0]
+    if weight.shape != (cout, cin, 3, 3) or bias.shape != (cout,):
+        raise ValueError(f'weight {tuple(weight.shape)} / bias '
+                         f'{tuple(bias.shape)} do not match Cin={cin}')
+    if cout % CHUNK and cout != 3:
+        raise ValueError(f'Cout={cout} must be a multiple of {CHUNK} or 3')
+    _check_act_map('x', x, cin)
+    _check_params(x, weight, bias)
+    nf = n_frags(cout)
+    cout_p = _round_up(cout, 16 * nf)
+    wk = kernel_weight(weight, cout_p)
+    bk = kernel_bias(bias, cout_p)
+    y = torch.empty((bsz, h, w, cout), dtype=x.dtype, device=x.device)
+    dev, stream = _device_and_stream(x)
+    rc = library().cf_conv3x3_bias(
+        x.data_ptr(), wk.data_ptr(), bk.data_ptr(), y.data_ptr(), bsz, h, w,
+        cin, cout, cout_p, nf, dev, stream)
+    if rc != 0:
+        raise RuntimeError(f'conv3x3_bias kernel launch failed: cudaError '
+                           f'{rc}')
+    _launches['conv3x3_bias'] += 1
     return y

@@ -3,10 +3,11 @@
     python -m codeformer_tpu_torch.train.train -opt options/CodeFormer_stage2.yml
 
 YAML config -> training set and loader -> trainer -> loop with logging
-and checkpoints. Host-side only: the YAML parser, the datasets and the
-loader are the JAX package's jax-free modules (codeformer_tpu.utils.options,
-codeformer_tpu.data), imported inside the functions, and need yaml and
-cv2. chip_smoke.py drives the trainer on the card without them.
+and checkpoints. The options parser (utils/options.py), the datasets and
+the loader (data/) are the port's own host-side modules; they need yaml,
+cv2 and PIL and are imported inside the functions. chip_smoke.py drives
+the trainer on the card without them. The trainer runs on the yml's
+`device:` (default 'cuda'); `--force_yml device=cpu` overrides it.
 """
 from __future__ import annotations
 
@@ -19,10 +20,12 @@ import time
 
 
 def parse_options(root_path: str, args=None) -> dict:
-    """-opt <yml> [--force_yml key:sub=value ...] -> the option dict, with
-    the experiment paths under root_path/experiments/<name>."""
+    """-opt <yml> [--force_yml key:sub=value ...] -> the
+    option dict, with the experiment paths under
+    root_path/experiments/<name>."""
     import yaml
-    from codeformer_tpu.utils.options import parse
+
+    from codeformer_tpu_torch.utils.options import parse
     parser = argparse.ArgumentParser()
     parser.add_argument('-opt', type=str, required=True,
                         help='Path to option YAML file.')
@@ -46,7 +49,7 @@ def train_pipeline(root_path: str, args=None):
     opt = parse_options(root_path, args)
     resume_state_path = (opt.get('path') or {}).get('resume_state')
     if not resume_state_path:
-        from codeformer_tpu.utils.misc import mkdir_and_rename
+        from codeformer_tpu_torch.utils.misc import mkdir_and_rename
         mkdir_and_rename(opt['path']['experiments_root'])
     for key in ('models', 'training_states'):
         os.makedirs(opt['path'][key], exist_ok=True)
@@ -70,8 +73,9 @@ def _train(opt: dict, logger: logging.Logger):
     import numpy as np
     import torch
 
-    from codeformer_tpu.data import build_dataset
-    from codeformer_tpu.data.loader import EnlargedSampler, build_dataloader
+    from codeformer_tpu_torch.data import build_dataset
+    from codeformer_tpu_torch.data.loader import (EnlargedSampler,
+                                                  build_dataloader)
     from codeformer_tpu_torch.train.trainers import build_model
 
     seed = opt.get('manual_seed') or 0

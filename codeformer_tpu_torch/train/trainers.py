@@ -77,7 +77,9 @@ def freeze_modules(net: torch.nn.Module, fix_modules) -> list:
 class BaseTrainer:
     """Options, device placement, EMA, checkpoint IO and logging.
     Subclasses define `_build()` (networks, optimizer, schedule) and
-    `optimize_parameters(current_iter)`."""
+    `optimize_parameters(current_iter)`. The device is `opt['device']`
+    ('cuda' by default, or e.g. 'cuda:1', 'cpu'); asking for CUDA where
+    there is none raises."""
 
     # train: keys the trainer reads; any other key is warned about, so no
     # knob is silently ignored ('use_adaptive_weight' is carried by the
@@ -114,8 +116,12 @@ class BaseTrainer:
             raise NotImplementedError(
                 f'validation datasets {val} are not ported yet (ROADMAP.md '
                 f'Queue 1 item 10)')
-        self.device = torch.device('cuda' if torch.cuda.is_available()
-                                   else 'cpu')
+        self.device = torch.device(opt.get('device') or 'cuda')
+        if self.device.type == 'cuda' and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {self.device}: no CUDA device is available; the "
+                f"trainer does not fall back to the CPU (set `device: cpu` "
+                f"in the options to train on the host)")
         if int(opt.get('num_devices') or 1) > 1 or (
                 self.device.type == 'cuda' and torch.cuda.device_count() > 1):
             logger.info(f'training on one device, {self.device}: data '

@@ -5,7 +5,8 @@
 kernels -> (O, I), the packed attention `in_proj_weight` (E, 3E) ->
 (3E, E), norm `scale` -> `weight`, `blocks_3` -> `blocks.3`, and the
 flax names of the torch Sequential heads back to their indices
-(`idx_pred_norm` -> `idx_pred_layer.0`, `scale_0` -> `scale.0`). The
+(`idx_pred_norm` -> `idx_pred_layer.0`, `scale_0` -> `scale.0`), and a
+raw 4-d `weight` param (DCNv2Pack's, HWIO) -> OIHW. The
 port's modules use the reference `.pth` names, so the result loads with
 `load_state_dict` and a released `.pth` needs no conversion at all.
 `load_flax_trainer` carries a JAX trainer's weights into a port trainer.
@@ -61,6 +62,10 @@ def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             key = f'{mod}.weight'
         elif leaf_name == 'scale':
             key = f'{mod}.weight'
+        elif leaf_name == 'weight' and arr.ndim == 4:
+            # a raw HWIO conv weight (nn/arch_util.py DCNv2Pack) -> OIHW
+            arr = arr.transpose(3, 2, 0, 1)
+            key = f'{mod}.weight' if mod else 'weight'
         elif leaf_name == 'in_proj_weight':
             arr = arr.T              # (E, 3E) -> (3E, E)
             key = f'{mod}.in_proj_weight'

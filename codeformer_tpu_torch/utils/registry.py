@@ -41,5 +41,6 @@ class Registry:
 
 ARCH_REGISTRY = Registry('arch')
 MODEL_REGISTRY = Registry('model')   # trainers, by `model_type:`
+DATASET_REGISTRY = Registry('dataset')   # data/, by a dataset's `type:`
 
-__all__ = ['Registry', 'ARCH_REGISTRY', 'MODEL_REGISTRY']
+__all__ = ['Registry', 'ARCH_REGISTRY', 'MODEL_REGISTRY', 'DATASET_REGISTRY']

@@ -19,7 +19,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from codeformer_tpu.models import CodeFormer as JaxCodeFormer  # noqa: E402
-from codeformer_tpu.nn.blocks import colpack_mode  # noqa: E402
+from codeformer_tpu.nn.blocks import colpack_mode, set_colpack_mode  # noqa: E402
 from codeformer_tpu.utils.checkpoint import init_params_fast  # noqa: E402
 from codeformer_tpu_torch.models import CodeFormer  # noqa: E402
 from codeformer_tpu_torch.utils.convert import flax_to_state_dict  # noqa: E402
@@ -49,14 +49,18 @@ def perturbed_params(model, seed):
 
 @pytest.fixture(scope='module')
 def models():
-    assert colpack_mode() == 'off'
+    # the plain XLA GroupNorm path; another test file of the same process
+    # may have left the global mode elsewhere
+    prev = colpack_mode()
+    set_colpack_mode('off')
     jm = JaxCodeFormer(**TINY)
     v = perturbed_params(jm, seed=5)
     pm = CodeFormer(**TINY)
     pm.load_state_dict(flax_to_state_dict(v))
     x = np.random.default_rng(6).normal(0, 0.3, (2, 64, 64, 3)).astype(
         np.float32)
-    return jm, v, pm.eval(), x
+    yield jm, v, pm.eval(), x
+    set_colpack_mode(prev)
 
 
 def _port(pm, x, *args, **kw):

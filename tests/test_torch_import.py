@@ -1,38 +1,93 @@
 """The port imports torch and numpy only: never jax or flax (the card's
 machine has neither), nothing of the JAX package, and neither cv2, yaml
-nor triton at import time (the training entry point imports yaml and the
-JAX package's data modules inside its functions)."""
+nor triton at import time. Its host-side data and option modules
+(codeformer_tpu_torch.data, utils/options.py) are its own copies and
+import cv2, yaml and PIL as the JAX copies do; only the training entry
+point imports them, inside its functions."""
 import os
+import re
 import subprocess
 import sys
+from pathlib import Path
 
 import pytest
 
 pytest.importorskip('torch')
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HOST_SIDE = ('codeformer_tpu_torch.data', 'codeformer_tpu_torch.utils.options')
 
 _PROBE = r'''
-import importlib, pkgutil, sys
-import codeformer_tpu_torch as pkg
-names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
+import importlib, pathlib, sys
+host_side = {host_side!r}
+# module names from the files: pkgutil.walk_packages would import every
+# package on its way, the host-side ones included
+names = sorted('.'.join(p.with_suffix('').parts[:-1] if p.stem == '__init__'
+                        else p.with_suffix('').parts)
+               for p in pathlib.Path('codeformer_tpu_torch').rglob('*.py'))
 for name in names:
-    importlib.import_module(name)
+    if {with_host} or not name.startswith(host_side):
+        importlib.import_module(name)
 print(len(names))
-print(sorted(m for m in ('jax', 'flax', 'cv2', 'triton', 'PIL', 'yaml',
-                         'optax', 'codeformer_tpu') if m in sys.modules))
+print(sorted(m for m in {forbidden!r} if m in sys.modules))
 '''
+# the JAX package (codeformer_tpu) or any JAX module, at any depth
+_JAX_IMPORT = re.compile(
+    r'^\s*(?:from|import)\s+(?:codeformer_tpu|jax|jaxlib|flax|optax)\b'
+    r'(?!_torch)'
+    r'|import_module\(\s*[\'"](?:codeformer_tpu|jax|flax)\b(?!_torch)',
+    re.M)
 
 
-def test_port_imports_no_jax_flax_cv2_triton():
-    """Every module of the port, the training package included."""
+def _probe(with_host: bool, forbidden) -> tuple:
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONSTARTUP'}
-    out = subprocess.run([sys.executable, '-c', _PROBE], cwd=ROOT, env=env,
+    code = _PROBE.format(host_side=HOST_SIDE, with_host=with_host,
+                         forbidden=tuple(forbidden))
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules, loaded = out.stdout.strip().splitlines()[-2:]
-    assert int(n_modules) >= 25
+    return int(n_modules), loaded
+
+
+def test_port_imports_no_jax_flax_cv2_triton():
+    """Every module of the port but the host-side data and option
+    modules: no jax, flax, cv2, PIL, yaml, triton or JAX package."""
+    n_modules, loaded = _probe(False, (
+        'jax', 'flax', 'cv2', 'triton', 'PIL', 'yaml', 'optax',
+        'codeformer_tpu'))
+    assert n_modules >= 35
     assert loaded == '[]', f'port imported {loaded}'
+
+
+def test_host_side_modules_import_no_jax():
+    """With the data and option modules too: still no jax, flax, triton
+    or JAX package."""
+    pytest.importorskip('cv2')
+    pytest.importorskip('yaml')
+    _, loaded = _probe(True, ('jax', 'flax', 'triton', 'optax',
+                              'codeformer_tpu'))
+    assert loaded == '[]', f'port imported {loaded}'
+
+
+def test_no_source_file_imports_the_jax_package():
+    """A source scan of every codeformer_tpu_torch/**/*.py and of
+    chip_smoke.py: no import of codeformer_tpu (or of jax, flax, optax),
+    at module level or inside a function."""
+    files = sorted(Path(ROOT, 'codeformer_tpu_torch').rglob('*.py'))
+    files.append(Path(ROOT, 'chip_smoke.py'))
+    assert len(files) >= 36
+    hits = [f'{f.relative_to(ROOT)}:{src[:m.start()].count(chr(10)) + 1}'
+            for f in files for src in [f.read_text()]
+            for m in _JAX_IMPORT.finditer(src)]
+    assert hits == [], hits
+    # the pattern does catch such lines
+    for line in ('from codeformer_tpu.data import build_dataset',
+                 '    import codeformer_tpu.utils.options as o',
+                 "    importlib.import_module('codeformer_tpu.data')",
+                 'import jax.numpy as jnp'):
+        assert _JAX_IMPORT.search(line), line
+    assert not _JAX_IMPORT.search('from codeformer_tpu_torch.data import x')
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -49,22 +104,26 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_kernel_sources_and_signatures():
     """The ctypes argtypes match the C entry points' parameter lists:
-    a pointer where the C side takes a pointer, an int where an int."""
+    a pointer where the C side takes a pointer, an int where an int, a
+    long long where a long long, a double where a double."""
     import ctypes
-    import re
 
     from codeformer_tpu_torch.kernels import build
     names = {p.name for p in build._sources()}
     assert {'conv3x3_dots.cu', 'downsample_dots.cu', 'nearest_code.cu',
-            'conv_tile.cuh'} <= names
+            'fused_act.cu', 'conv_tile.cuh'} <= names
+    assert {'cf_conv3x3_bias', 'cf_fused_lrelu_fwd',
+            'cf_fused_lrelu_bwd'} <= set(build.SIGNATURES)
     src = '\n'.join(p.read_text() for p in build._sources())
+    scalars = {'int': ctypes.c_int, 'long long': ctypes.c_longlong,
+               'double': ctypes.c_double}
     for entry, argtypes in build.SIGNATURES.items():
         m = re.search(r'extern "C" int ' + entry + r'\(([^)]*)\)', src)
         assert m, entry
         params = [' '.join(p.split()) for p in m.group(1).split(',')]
-        kinds = [ctypes.c_void_p if '*' in p else ctypes.c_int
-                 for p in params]
-        assert all('*' in p or p.startswith('int ') for p in params), params
+        kinds = [ctypes.c_void_p if '*' in p
+                 else scalars.get(p.rsplit(' ', 1)[0]) for p in params]
+        assert None not in kinds, params
         assert kinds == argtypes, entry
 
 

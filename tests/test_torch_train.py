@@ -52,6 +52,7 @@ def _opt(tmp_path, **train):
     opt = {
         'name': 'port_stage2', 'model_type': 'CodeFormerIdxModel',
         'manual_seed': 0, 'num_devices': 1, 'is_train': True,
+        'device': 'cpu',
         'network_g': dict(TINY_CF), 'network_vqgan': dict(TINY_VQGAN),
         'path': {'models': str(tmp_path / 'models'),
                  'training_states': str(tmp_path / 'states')},
@@ -332,13 +333,25 @@ def test_unknown_train_key_warns(tmp_path):
     assert any('definitely_not_a_knob' in m for m in records)
 
 
-def test_train_pipeline_two_iterations(tmp_path):
-    """python -m codeformer_tpu_torch.train.train -opt <tiny yml>, in
-    process: the JAX package's FFHQ dataset and loader feed the port's
-    trainer for 2 iterations; checkpoints written."""
+@pytest.mark.parametrize('device', [None, 'cuda', 'cuda:0'])
+def test_trainer_never_falls_back_to_the_cpu(tmp_path, monkeypatch, device):
+    """The device comes from the options ('cuda' when unset); asking for
+    CUDA where there is none raises instead of training on the host."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    opt = _opt(tmp_path)
+    if device is None:
+        del opt['device']
+    else:
+        opt['device'] = device
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        _port(opt)
+
+
+def _tiny_yml(tmp_path, device='cpu'):
+    """Four seeded 64x64 images on disk and a tiny stage-II yml that
+    trains on them for 2 iterations; returns the yml's path."""
     import cv2
     import yaml
-    from codeformer_tpu_torch.train.train import train_pipeline
     root = tmp_path / 'ffhq64'
     root.mkdir()
     rng = np.random.default_rng(0)
@@ -367,9 +380,21 @@ def test_train_pipeline_two_iterations(tmp_path):
                                 'milestones': [400000, 450000],
                                 'gamma': 0.5}},
         'logger': {'print_freq': 1, 'save_checkpoint_freq': 2}}
+    if device:
+        opt['device'] = device
     yml = tmp_path / 'tiny.yml'
     yml.write_text(yaml.safe_dump(opt))
+    return yml
+
+
+def test_train_pipeline_two_iterations(tmp_path):
+    """python -m codeformer_tpu_torch.train.train -opt <tiny yml>, in
+    process: the port's own FFHQ dataset and loader feed the trainer for
+    2 iterations on the yml's `device: cpu`; checkpoints written."""
+    from codeformer_tpu_torch.train.train import train_pipeline
+    yml = _tiny_yml(tmp_path)
     model = train_pipeline(str(tmp_path), ['-opt', str(yml)])
+    assert model.device == torch.device('cpu')
     assert model.step == 2
     assert all(np.isfinite(v) for v in model.log_dict.values())
     exp = tmp_path / 'experiments' / 'port_stage2_tiny'
@@ -485,3 +510,35 @@ def test_optimizer_is_the_optax_adamw_chain():
     assert np.abs(l2 - np.asarray(pj)).max() > 1e-4
     with pytest.raises(NotImplementedError, match='Adam only'):
         build_optimizer({'type': 'SGD', 'lr': 1.0}, [])
+
+
+_ENTRY = r'''
+import sys
+from codeformer_tpu_torch.train.train import train_pipeline
+model = train_pipeline(sys.argv[1], ['-opt', sys.argv[2],
+                                     '--force_yml', 'device=cpu'])
+print(model.step, model.device)
+print(sorted({m.split('.')[0] for m in sys.modules}
+             & {'jax', 'flax', 'optax', 'codeformer_tpu'}))
+'''
+
+
+def test_train_entry_point_uses_only_the_port(tmp_path):
+    """The entry point in a fresh process on a yml without `device:`
+    (--force_yml device=cpu): the port's own options parser, dataset and loader,
+    and nothing of the JAX package or of JAX is imported."""
+    import os
+    import subprocess
+    import sys
+    yml = _tiny_yml(tmp_path, device=None)
+    root = osp.dirname(osp.dirname(osp.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONSTARTUP'}
+    out = subprocess.run([sys.executable, '-c', _ENTRY, str(tmp_path),
+                          str(yml)], cwd=root, env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    step_line, loaded = out.stdout.strip().splitlines()[-2:]
+    assert step_line == '2 cpu'
+    assert loaded == '[]', loaded
+    assert (tmp_path / 'experiments' / 'port_stage2_tiny' / 'models'
+            / 'net_g_latest.pth').exists()
