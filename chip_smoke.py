@@ -9,9 +9,11 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. card and versions (needs a CUDA card of compute capability 9.0);
   2. build the hand-written kernels from codeformer_tpu_torch/csrc/;
   3. K1/K2 against their plain PyTorch versions at the serving path's
-     shapes (B=2, bf16 inputs; reference in fp32 with TF32 off), their
-     GroupNorm partials against torch.sum, planted faults that the
-     bounds must reject, and kernel vs plain times;
+     shapes (B=2, bf16 inputs; reference in fp32 with TF32 off; K2 also
+     at a ragged map and the serving batch), their GroupNorm partials
+     against torch.sum, planted faults that the bounds must reject, and
+     kernel (the launch on prepared operands), whole-call, plain and
+     library times;
   4. K3 (nearest code) against its plain version at the training path's
      token counts on three codebooks (exact lowest index on duplicated
      rows), planted faults that must fail, kernel vs plain times;
@@ -34,8 +36,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      gradients at the encoder, frozen modules unchanged; idx_gt against
      the plain-op encode (and a planted fault); training faces/s of the
      kernel and plain paths; peak memory.
-The last line is the JSON result; the line before it lists the kernels,
-each with its launches on the main paths, its time, its plain version's,
+Every time is per launch: runs of back-to-back launches between two
+CUDA events (`time_ms`), the median run. The last line is the JSON
+result; the line before it lists the kernels, each with its launches on
+the main paths, its time (the launch on prepared operands; the whole
+call's time, `call_ms`, is printed on an earlier line), its plain version's,
 the least time the card could take for the same work (bound_ms) and,
 where one PyTorch call computes the same function, that call's time.
 """
@@ -117,8 +122,11 @@ K1_CASES = [  # (H=W, Cin, Cout, act, skip, Cs)
     (16, 512, 512, 'silu', 'none', 0),
     (16, 512, 512, 'silu', 'proj', 256),
 ]
-K2_CASES = [(512, 64), (256, 128), (128, 128), (64, 256), (32, 256)]
 BATCH = 2
+K2_CASES = [  # (B, H=W, C): the forward's five at B=2, a map ragged
+    # against the tile, and the serving batch
+    (BATCH, 512, 64), (BATCH, 256, 128), (BATCH, 128, 128), (BATCH, 64, 256),
+    (BATCH, 32, 256), (BATCH, 72, 128), (8, 512, 64)]
 
 
 def card_line() -> str:
@@ -128,20 +136,38 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median CUDA-event time of fn() in ms."""
+class Timing(float):
+    """A per-launch time in ms (the median run), with the runs' spread."""
+
+    def __new__(cls, runs):
+        t = super().__new__(cls, statistics.median(runs))
+        t.lo, t.hi = min(runs), max(runs)
+        return t
+
+    def spread(self) -> str:
+        return f'[{self.lo:.4f}, {self.hi:.4f}]'
+
+
+def time_ms(fn, iters: int = 20, runs: int = 5, warmup: int = 3) -> Timing:
+    """Per-launch CUDA-event time of fn() in ms: `runs` runs of `iters`
+    back-to-back calls, one event pair around each run, the elapsed time
+    over `iters`; the median run, with the spread. One pair around a
+    single small call times the host's launch work, not the card.
+    Back-to-back calls at the small shapes find their inputs in L2, as
+    on the main path, where the previous layer has just written them."""
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(iters):
+    for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(iters):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        times.append(start.elapsed_time(end) / iters)
+    return Timing(times)
 
 
 def rel_rms(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -195,7 +221,54 @@ def k2_fault(x, weight, bias):
     return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
+def k2_planted(kind: str):
+    """Planted faults of K2, each with downsample_dots_ref's signature:
+    'symmetric pad' (k2_fault); 'pad top-left', the zero row and column
+    on the top and left instead of the bottom and right; 'tap off by one',
+    the centre tap reads (2y+1, 2x+2) instead of (2y+1, 2x+1);
+    'split partial dropped', the fp32 partial of the plan's last split
+    left out of the sum (None where the plan does not split)."""
+    import torch.nn.functional as F
+    from codeformer_tpu_torch.ops import conv3x3 as cv
+
+    def run(x, weight, bias):
+        xn = x.float().permute(0, 3, 1, 2)
+        wf, bf = weight.to(x.dtype).float(), bias.float()
+        if kind == 'symmetric pad':
+            return k2_fault(x, weight, bias)
+        if kind == 'pad top-left':
+            y = F.conv2d(F.pad(xn, (1, 0, 1, 0)), wf, bf, stride=2)
+        elif kind == 'tap off by one':
+            centre = torch.zeros_like(wf)
+            centre[:, :, 1, 1] = wf[:, :, 1, 1]
+            shifted = F.pad(xn[..., 1:], (0, 2, 0, 1))
+            y = F.conv2d(F.pad(xn, (0, 1, 0, 1)), wf - centre, bf, stride=2) \
+                + F.conv2d(shifted, centre, stride=2)
+        elif kind == 'split partial dropped':
+            p = cv.conv_plan(*x.shape, x.shape[-1], 2)
+            if p.split == 1:
+                return None
+            lo = (p.split - 1) * (p.chunks // p.split) * cv.SM90_KC
+            xd = x.clone()
+            xd[..., lo:] = 0
+            return cv.downsample_dots_ref(xd, weight, bias)
+        else:
+            raise ValueError(kind)
+        return y.permute(0, 2, 3, 1).to(x.dtype)
+    return run
+
+
+def takes_prepared(fn):
+    """fn(x, weight, bias) as a stand-in for cv.downsample_dots, whose
+    callers may hand it kept operands (`prepared`): fn ignores them."""
+    def run(x, weight, bias, prepared=None):
+        return fn(x, weight, bias)
+    return run
+
+
 K1_FAULTS = ('bf16 prologue', 'halo act(b)')
+K2_FAULTS = ('symmetric pad', 'pad top-left', 'tap off by one',
+             'split partial dropped')
 
 # K3 (nearest code): tokens at the stage-II shape (B*256 for B = 1, 4,
 # 16) and a generate_latent_gt-sized run; D and K of every shipped config
@@ -274,7 +347,8 @@ def phase_k3():
     from codeformer_tpu_torch.ops import vq
     g = torch.Generator(device='cuda').manual_seed(3)
     books, dup_of = k3_codebooks(g)
-    print(f'K3 checks: D={K3_DIM}, K={K3_CODES}, z ~ N(0, 1) fp32; ref = '
+    print(f'K3 checks ({card_line()}): D={K3_DIM}, K={K3_CODES}, z ~ N(0, '
+          f'1) fp32; ref = '
           f'plain version (fp32, TF32 off); a disagreement must be within '
           f'{K3_MARGIN} of the exact (fp64) minimum distance; on duplicated '
           f'rows every pick must be the lowest index', flush=True)
@@ -377,6 +451,7 @@ CONV_BIAS_CASES = [  # (B, H=W, Cin, Cout)
     (2, 256, 128, 128),   # K1'
     (3, 128, 64, 64),     # an odd batch
     (2, 512, 64, 3),      # Cout = 3
+    (2, 100, 96, 64),     # a ragged map, Cin % 64 == 32
 ]
 OPS_ITERS = 10            # timing iterations of the ops phase
 
@@ -437,7 +512,8 @@ def phase_k4():
     OPS_ITERS)."""
     from codeformer_tpu_torch.ops import fused_act as fa
     g = torch.Generator(device='cuda').manual_seed(4)
-    print(f'K4 checks: forward bitwise (fp32) / within 1 bf16 ulp (bf16) '
+    print(f'K4 checks ({card_line()}): forward bitwise (fp32) / within 1 '
+          f'bf16 ulp (bf16) '
           f'of the plain version, dx exact, dbias within {DBIAS_BOUND} of '
           f'the fp64 sum (relative to sum |dx|)', flush=True)
     rows = []
@@ -530,40 +606,58 @@ def phase_k4():
 
 
 def conv_bias_fault(kind: str, x, weight, bias):
-    """Planted faults of the bare conv: 'halo row shifted', every kernel
-    tile of TILE_H output rows reads its top halo row one row too low
-    (the tile's own first row); 'bias dropped'."""
+    """Planted faults of the bare conv: 'halo row shifted', every tile of
+    the plan's TH output rows reads its top halo row one row too low (the
+    tile's own first row); 'bias dropped'; 'channel tail read' (Cin % 64
+    == 32), the channels past Cin of the last 64-channel chunk read from
+    memory (the next pixel's first channels) against weight rows that are
+    not zero (those of the chunk's first channels)."""
     import torch.nn.functional as F
     from codeformer_tpu_torch.ops import conv3x3 as cv
+    wf, bf = weight.to(x.dtype).float(), bias.float()
     if kind == 'bias dropped':
         return cv.conv3x3_bias_ref(x, weight, torch.zeros_like(bias))
+    if kind == 'channel tail read':
+        bsz, h, w, cin = x.shape
+        tail = 64 - cin % 64
+        flat = F.pad(x.reshape(bsz, h * w * cin), (0, tail))
+        nxt = flat.unfold(1, cin + tail, cin)[:, :h * w, cin:]
+        xt = torch.cat([x, nxt.reshape(bsz, h, w, tail)], -1)
+        wt = torch.cat([wf, wf[:, cin - 64 + tail:cin - 64 + 2 * tail]], 1)
+        return F.conv2d(xt.float().permute(0, 3, 1, 2), wt, bf, padding=1) \
+            .permute(0, 2, 3, 1).to(x.dtype)
     if kind != 'halo row shifted':
         raise ValueError(kind)
+    th = cv.conv_plan(x.shape[0], x.shape[1], x.shape[2], x.shape[3],
+                      weight.shape[0], 1).th
     xp = F.pad(x.float().permute(0, 3, 1, 2), (1, 1, 1, 1))
-    wf, bf = weight.to(x.dtype).float(), bias.float()
     tiles = []
-    for y0 in range(0, x.shape[1], cv.TILE_H):
-        win = xp[:, :, y0:y0 + cv.TILE_H + 2].clone()
+    for y0 in range(0, x.shape[1], th):
+        win = xp[:, :, y0:y0 + th + 2].clone()
         if y0 > 0:
             win[:, :, 0] = win[:, :, 1]
         tiles.append(F.conv2d(win, wf, bf))
     return torch.cat(tiles, 2).permute(0, 2, 3, 1).to(x.dtype)
 
 
-CONV_BIAS_FAULTS = ('halo row shifted', 'bias dropped')
+CONV_BIAS_FAULTS = ('halo row shifted', 'bias dropped', 'channel tail read')
 
 
 def phase_conv_bias():
     """conv3x3_bias against its plain version (fp32 sums, TF32 off) at
-    CONV_BIAS_CASES; planted faults; kernel, plain (bf16, cuDNN) and
-    library-call (one F.conv2d, bf16, channels_last) times."""
+    CONV_BIAS_CASES; planted faults; kernel (the launch on prepared
+    operands), whole call, plain (bf16, cuDNN) and library-call (one
+    F.conv2d, bf16, channels_last) times."""
     import torch.nn.functional as F
     from codeformer_tpu_torch.ops import conv3x3 as cv
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device='cuda').manual_seed(6)
-    print(f'conv3x3_bias checks: bf16 in/out; ref = plain version in fp32, '
-          f'TF32 off; rel RMS <= {REL_RMS_BOUND}; library = '
-          f'F.conv2d(NCHW channels_last view, padding=1) in bf16', flush=True)
+    print(f'conv3x3_bias checks ({card_line()}): bf16 in/out; ref = plain '
+          f'version in fp32, TF32 off; rel RMS <= {REL_RMS_BOUND}; kernel = '
+          f'the launch on prepared operands, call = the whole '
+          f'conv3x3_bias call; library = F.conv2d(NCHW channels_last view, '
+          f'padding=1) in bf16; ms per launch, median of 5 runs of '
+          f'{OPS_ITERS} [min, max]', flush=True)
     rows = []
     for bsz, h, cin, cout in CONV_BIAS_CASES:
         x = torch.randn(bsz, h, h, cin, generator=g, device='cuda') \
@@ -577,11 +671,14 @@ def phase_conv_bias():
         err = float((y.float() - yr.float()).abs().max())
         rr = rel_rms(y, yr)
         faults = {k: rel_rms(y, conv_bias_fault(k, x, wt, bias))
-                  for k in CONV_BIAS_FAULTS}
+                  for k in CONV_BIAS_FAULTS
+                  if k != 'channel tail read' or cin % 64}
         xc = x.permute(0, 3, 1, 2)            # NCHW view, channels_last
         wb, bb = wt.to(torch.bfloat16).contiguous(
             memory_format=torch.channels_last), bias.to(torch.bfloat16)
-        ms = time_ms(lambda: cv.conv3x3_bias(x, wt, bias), iters=OPS_ITERS)
+        launch = cv.prepare_conv(x, cv.conv_operands(wt, bias), 1)
+        ms = time_ms(lambda: cv.launch_conv(launch), iters=OPS_ITERS)
+        cms = time_ms(lambda: cv.conv3x3_bias(x, wt, bias), iters=OPS_ITERS)
         pms = time_ms(lambda: cv.conv3x3_bias_ref(
             x, wt, bias, compute_dtype=torch.bfloat16), iters=OPS_ITERS)
         lms = time_ms(lambda: F.conv2d(xc, wb, bb, padding=1),
@@ -593,12 +690,16 @@ def phase_conv_bias():
         name = f'conv3x3_bias B={bsz} {h}^2 {cin}->{cout}'
         ok = rr <= REL_RMS_BOUND and y.shape == (bsz, h, h, cout)
         caught = all(v > REL_RMS_BOUND for v in faults.values())
+        pl = launch.plan
         print(f'  {name:36s} max_abs {err:.4g} rel_rms {rr:.3g} (<= '
-              f'{REL_RMS_BOUND})  kernel {ms:.4f} ms  plain {pms:.4f} ms  '
-              f'library {lms:.4f} ms  bound {lim["bound_ms"]:.4f} ms '
-              f'({lim["bound_by"]})  {"ok" if ok else "FAIL"}; planted '
-              f'faults: ' + ', '.join(f'{k} {v:.3g}' for k, v in
-                                      faults.items())
+              f'{REL_RMS_BOUND})  kernel {ms:.4f} {ms.spread()} ms  call '
+              f'{cms:.4f} ms  plain {pms:.4f} ms  library {lms:.4f} '
+              f'{lms.spread()} ms  bound {lim["bound_ms"]:.4f} ms '
+              f'({lim["bound_by"]}, {lim["bound_ms"] / ms:.1%} of it)  plan '
+              f'TH={pl.th} BN={pl.bn} split={pl.split} stages={pl.stages} '
+              f'grid={pl.grid_x}x{pl.n_slices * pl.split}  '
+              f'{"ok" if ok else "FAIL"}; planted faults: ' + ', '.join(
+                  f'{k} {v:.3g}' for k, v in faults.items())
               + f' {"FAIL as they must" if caught else "PASS (bound too loose)"}',
               flush=True)
         if not ok:
@@ -608,8 +709,8 @@ def phase_conv_bias():
             raise SystemExit(f'chip_smoke: {name}: a planted fault passes '
                              f'the bound')
         rows.append(dict(shape=name, max_abs_err=err, rel_rms=rr, ms=ms,
-                         plain_ms=pms, library_ms=lms, **lim))
-        del x, y, yr, xc
+                         call_ms=cms, plain_ms=pms, library_ms=lms, **lim))
+        del x, y, yr, xc, launch
     torch.cuda.empty_cache()
     return rows
 
@@ -689,7 +790,10 @@ def phase_build():
           f'(cached={info["cached"]}), load total '
           f'{time.perf_counter() - t0:.1f} s')
     for line in info['log'].splitlines():
-        if 'registers' in line or 'spill' in line or 'error' in line:
+        if 'Function properties for' in line:     # names the lines below
+            print('  ptxas:', line.strip()[:110])
+        elif any(k in line for k in ('registers', 'spill', 'error',
+                                     'warning', 'Performance')):
             print('  ptxas:', line.strip())
     sys.stdout.flush()
 
@@ -720,9 +824,11 @@ def phase_kernels():
     torch.backends.cudnn.allow_tf32 = False          # the fp32 reference
     torch.backends.cuda.matmul.allow_tf32 = False    # must be true fp32
     g = torch.Generator(device='cuda').manual_seed(0)
-    results = {}
-    print('kernel checks: B=2, bf16 in/out; ref = plain version in fp32, '
-          'TF32 off; plain time = plain version in bf16 (cuDNN)')
+    results, split_faults = {}, []
+    print(f'kernel checks ({card_line()}): bf16 in/out; ref = plain version '
+          f'in fp32, TF32 off; kernel = the launch on prepared operands, '
+          f'call = the whole public call, plain = plain version in bf16 '
+          f'(cuDNN); ms per launch, median of 5 runs of 20 [min, max]')
     for h, cin, cout, act, skip, cs in K1_CASES:
         x, a, b, wt, bias, sk, w1 = _k1_inputs(g, h, cin, cout, skip, cs)
         y, st = cv.conv3x3_dots(x, a, b, act, wt, bias, sk, w1)
@@ -736,7 +842,10 @@ def phase_kernels():
                         / yf.abs().sum((1, 2)).clamp_min(1e-6)).max())
         s2_err = float(((s[:, 1] - yf.square().sum((1, 2))).abs()
                         / yf.square().sum((1, 2)).clamp_min(1e-6)).max())
-        ms = time_ms(lambda: cv.conv3x3_dots(x, a, b, act, wt, bias, sk, w1))
+        launch = cv.prepare_dots(x, a, b, act, wt, bias, sk, w1)
+        ms = time_ms(lambda: cv.launch_dots(launch))
+        cms = time_ms(lambda: cv.conv3x3_dots(x, a, b, act, wt, bias, sk,
+                                              w1))
         pms = time_ms(lambda: cv.conv3x3_dots_ref(
             x, a, b, act, wt, bias, sk, w1, compute_dtype=torch.bfloat16))
         name = f'K1 {h}^2 {cin}->{cout} {act} skip={skip}' + \
@@ -747,7 +856,8 @@ def phase_kernels():
         caught = all(v > REL_RMS_BOUND for v in faults.values())
         print(f'  {name:38s} max_abs {err:.4g} rel_rms {rr:.3g} '
               f'(<= {REL_RMS_BOUND}) stats_rel {max(s1_err, s2_err):.3g} '
-              f'(<= {STATS_BOUND})  kernel {ms:.4f} ms  plain {pms:.4f} ms'
+              f'(<= {STATS_BOUND})  kernel {ms:.4f} {ms.spread()} ms  call '
+              f'{cms:.4f} ms  plain {pms:.4f} ms'
               f'  {"ok" if ok else "FAIL"}; planted faults: '
               + ', '.join(f'{k} {v:.3g}' for k, v in faults.items())
               + f' {"FAIL as they must" if caught else "PASS (bound too loose)"}',
@@ -760,10 +870,11 @@ def phase_kernels():
                              f'the bound')
         results.setdefault('conv3x3_dots', []).append(
             dict(shape=name, max_abs_err=err, rel_rms=rr, ms=ms,
-                 plain_ms=pms, library_ms=None,
+                 call_ms=cms, plain_ms=pms, library_ms=None,
                  **k1_bound(BATCH, h, cin, cout, skip, cs)))
-    for h, c in K2_CASES:
-        x = (torch.randn(BATCH, h, h, c, generator=g, device='cuda')
+        del launch
+    for bsz, h, c in K2_CASES:
+        x = (torch.randn(bsz, h, h, c, generator=g, device='cuda')
              .to(torch.bfloat16))
         wt = torch.randn(c, c, 3, 3, generator=g, device='cuda') \
             * (9 * c) ** -0.5
@@ -773,7 +884,9 @@ def phase_kernels():
         yr = cv.downsample_dots_ref(x, wt, bias)
         err = float((y.float() - yr.float()).abs().max())
         rr = rel_rms(y, yr)
-        ms = time_ms(lambda: cv.downsample_dots(x, wt, bias))
+        launch = cv.prepare_conv(x, cv.conv_operands(wt, bias), 2)
+        ms = time_ms(lambda: cv.launch_conv(launch))
+        cms = time_ms(lambda: cv.downsample_dots(x, wt, bias))
         pms = time_ms(lambda: cv.downsample_dots_ref(
             x, wt, bias, compute_dtype=torch.bfloat16))
         # the library yardstick: F.pad + one F.conv2d, bf16, channels_last
@@ -783,29 +896,45 @@ def phase_kernels():
         bb = bias.to(torch.bfloat16)
         lms = time_ms(lambda: F.conv2d(F.pad(xc, (0, 1, 0, 1)), wb, bb,
                                        stride=2))
-        name = f'K2 {h}^2 -> {h // 2}^2 C={c}'
-        ok = rr <= REL_RMS_BOUND and y.shape == (BATCH, h // 2, h // 2, c)
-        fault = rel_rms(y, k2_fault(x, wt, bias))
+        name = f'K2 B={bsz} {h}^2 -> {h // 2}^2 C={c}'
+        ok = rr <= REL_RMS_BOUND and y.shape == (bsz, h // 2, h // 2, c)
+        faults = {}
+        for kind in K2_FAULTS:
+            wrong = k2_planted(kind)(x, wt, bias)
+            if wrong is not None:
+                faults[kind] = rel_rms(y, wrong)
+                if kind == 'split partial dropped':
+                    split_faults.append(name)
+        pix = bsz * (h // 2) ** 2
+        lim = bound(2 * pix * 9 * c * c,
+                    2 * bsz * h * h * c + 2 * pix * c + 18 * c * c + 4 * c,
+                    BF16_TC_FLOPS)
+        pl = launch.plan
+        caught = all(v > REL_RMS_BOUND for v in faults.values())
         print(f'  {name:38s} max_abs {err:.4g} rel_rms {rr:.3g} '
-              f'(<= {REL_RMS_BOUND})  kernel {ms:.4f} ms  plain '
-              f'{pms:.4f} ms  library {lms:.4f} ms  '
-              f'{"ok" if ok else "FAIL"}; planted fault: '
-              f'symmetric pad {fault:.3g} '
-              f'{"FAIL as it must" if fault > REL_RMS_BOUND else "PASS"}',
+              f'(<= {REL_RMS_BOUND})  kernel {ms:.4f} {ms.spread()} ms  call '
+              f'{cms:.4f} ms  plain {pms:.4f} ms  library {lms:.4f} '
+              f'{lms.spread()} ms  bound {lim["bound_ms"]:.4f} ms '
+              f'({lim["bound_by"]}, {lim["bound_ms"] / ms:.1%} of it)  plan '
+              f'TH={pl.th} BN={pl.bn} split={pl.split} stages={pl.stages} '
+              f'grid={pl.grid_x}x{pl.n_slices * pl.split}  '
+              f'{"ok" if ok else "FAIL"}; planted faults: ' + ', '.join(
+                  f'{k} {v:.3g}' for k, v in faults.items())
+              + f' {"FAIL as they must" if caught else "PASS (bound too loose)"}',
               flush=True)
         if not ok:
             raise SystemExit(f'chip_smoke: {name} disagrees with its plain '
                              f'version')
-        if fault <= REL_RMS_BOUND:
+        if not caught:
             raise SystemExit(f'chip_smoke: {name}: a planted fault passes '
                              f'the bound')
-        pix = BATCH * (h // 2) ** 2
         results.setdefault('downsample_dots', []).append(
             dict(shape=name, max_abs_err=err, rel_rms=rr, ms=ms,
-                 plain_ms=pms, library_ms=lms, **bound(
-                     2 * pix * 9 * c * c,
-                     2 * BATCH * h * h * c + 2 * pix * c + 18 * c * c
-                     + 4 * c, BF16_TC_FLOPS)))
+                 call_ms=cms, plain_ms=pms, library_ms=lms, **lim))
+        del x, y, yr, xc, launch
+    if not split_faults:
+        raise SystemExit('chip_smoke: no K2 shape splits its input chunks, '
+                         'so the split is never checked')
     return results
 
 
@@ -898,8 +1027,8 @@ def phase_slice():
     img_std = float(img_k.std())
 
     def against(label, k1, k2):
-        with torch.inference_mode(), \
-                mock.patch.multiple(cv, conv3x3_dots=k1, downsample_dots=k2):
+        with torch.inference_mode(), mock.patch.multiple(
+                cv, conv3x3_dots=k1, downsample_dots=takes_prepared(k2)):
             out_r, logits_r, lq_r = model(xn, 0.5, adain=True)
         diff = (img_k - restorer.denormalize(out_r).float()).abs()
         r = dict(lq=rel_rms(lq_k, lq_r), logits=rel_rms(logits_k, logits_r),
@@ -967,10 +1096,13 @@ def per_call(model, xn, label, k1, k2) -> dict:
             rel_rms(y, cv.conv3x3_dots_ref(*args, **kw)[0]))
         return y, st
 
-    def shadow2(*args, **kw):
-        y = k2(*args, **kw)
+    def shadow2(x, weight, bias, prepared=None):
+        # the kernel takes the module's kept operands; a plain stand-in
+        # ignores them
+        y = k2(x, weight, bias, prepared) if k2 is cv.downsample_dots \
+            else k2(x, weight, bias)
         errs['downsample_dots'].append(
-            rel_rms(y, cv.downsample_dots_ref(*args, **kw)))
+            rel_rms(y, cv.downsample_dots_ref(x, weight, bias)))
         return y
 
     with torch.inference_mode(), mock.patch.multiple(
@@ -1008,8 +1140,8 @@ def plain_ops():
     return mock.patch.multiple(
         cv, conv3x3_dots=functools.partial(cv.conv3x3_dots_ref,
                                            compute_dtype=torch.bfloat16),
-        downsample_dots=functools.partial(cv.downsample_dots_ref,
-                                          compute_dtype=torch.bfloat16))
+        downsample_dots=takes_prepared(functools.partial(
+            cv.downsample_dots_ref, compute_dtype=torch.bfloat16)))
 
 
 def phase_rates(restorer, rng):
@@ -1052,8 +1184,11 @@ def print_profile(label: str, prof, iters: int, wall_ms: float) -> None:
     print(f'profile, {label}: wall {wall_ms:.2f} ms (profiler on), device '
           f'kernels {busy:.2f} ms, busy share {busy / wall_ms:.3f}, '
           f'{sum(r[2] for r in rows)} device events a repetition')
-    for key, ms, n in rows[:20]:
-        print(f'  {ms:8.3f} ms {100 * ms / busy:5.1f}% x{n:4d}  {key[:100]}')
+    # the top 20, then the port's own kernels that rank lower
+    for i, (key, ms, n) in enumerate(rows):
+        if i < 20 or 'cf::' in key:
+            print(f'  {ms:8.3f} ms {100 * ms / busy:5.1f}% x{n:4d}  '
+                  f'{key[:100]}')
     sys.stdout.flush()
 
 
@@ -1278,7 +1413,7 @@ def phase_train():
 
     def idx_with(k1, k2, k3):
         with torch.no_grad(), mock.patch.multiple(
-                cv, conv3x3_dots=k1, downsample_dots=k2), \
+                cv, conv3x3_dots=k1, downsample_dots=takes_prepared(k2)), \
                 mock.patch.object(vq, 'nearest_code_indices', k3):
             return trainer._idx_gt(mb)
     with torch.no_grad():
@@ -1395,7 +1530,7 @@ KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
                         'codeformer_tpu/ops/fused_act.py:37'),
     'fused_lrelu_bwd': ('codeformer_tpu_torch/csrc/fused_act.cu',
                         'codeformer_tpu/ops/fused_act.py:66'),
-    'conv3x3_bias': ('codeformer_tpu_torch/csrc/conv3x3_dots.cu',
+    'conv3x3_bias': ('codeformer_tpu_torch/csrc/conv3x3_bias.cu',
                      'codeformer_tpu/ops/colpack_conv.py:137; '
                      'codeformer_tpu/ops/pallas_conv.py:101; '
                      'codeformer_tpu/ops/imgpair_conv.py:117 (:158)'),
@@ -1442,6 +1577,10 @@ def main():
             'ms': head['ms'], 'plain_ms': head['plain_ms'],
             'bound_ms': head['bound_ms'], 'bound_by': head['bound_by'],
             'library_ms': head['library_ms']})
+    print('call_ms (the whole public call; ms above is the launch on '
+          'prepared operands): ' + '; '.join(
+              f'{name} {rows[0]["call_ms"]:.4f} (launch {rows[0]["ms"]:.4f})'
+              for name, rows in results.items() if 'call_ms' in rows[0]))
     if not all(k['launches'] > 0 for k in kernels):
         raise SystemExit('chip_smoke: a kernel of the path never launched')
     if train_counts['nearest_code'] == 0 or not all(

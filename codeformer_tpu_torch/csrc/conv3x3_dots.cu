@@ -32,17 +32,9 @@
 // This first version does not overlap the staging loads with the MMAs
 // (no cp.async, TMA or wgmma).
 //
-// The same kernel compiled with no prologue, no skip and no statistics
-// (PROLOGUE = STATS = false) is the bare conv `cf_conv3x3_bias`:
-//
-//   y = conv3x3_SAME(x) + bias
-//
-// It replaces the TPU kernels codeformer_tpu/ops/colpack_conv.py
-// `conv3x3_colpack`, ops/pallas_conv.py `conv3x3_pallas` and
-// ops/imgpair_conv.py `conv3x3_imgpair` / `conv3x3_pair`: the same
-// function in three TPU packings (column pairs, phase pairs, image pairs)
-// that only fill the TPU's 128-lane matrix unit. The staging load copies x
-// as it is and the halo is plain zero padding.
+// conv_tile.cuh now serves this kernel alone: the bare conv
+// (conv3x3_bias.cu) and K2 (downsample_dots.cu) run on the Hopper core in
+// conv_sm90.cuh, which this kernel moves onto next (ROADMAP, Queue 2).
 #include "conv_tile.cuh"
 
 using namespace nvcuda;
@@ -82,7 +74,7 @@ __device__ __forceinline__ uint4 affine_act8(uint4 raw, const float* ap,
   return out;
 }
 
-template <int NF, int ACT, int SKIP, bool PROLOGUE, bool STATS>
+template <int NF, int ACT, int SKIP>
 __global__ void __launch_bounds__(kThreads)
 conv3x3_dots_kernel(const __nv_bfloat16* __restrict__ x,
                     const float* __restrict__ a,
@@ -130,11 +122,10 @@ conv3x3_dots_kernel(const __nv_bfloat16* __restrict__ x,
       uint4 val = make_uint4(0u, 0u, 0u, 0u);  // SAME halo: zero after act
       if (iy >= 0 && iy < H && ix >= 0 && ix < W) {
         const int c = c0 + cv * 8;
-        val = *reinterpret_cast<const uint4*>(
-            x + ((size_t)(bi * H + iy) * W + ix) * Cin + c);
-        if constexpr (PROLOGUE)
-          val = affine_act8<ACT>(val, a + (size_t)bi * Cin + c,
-                                 b + (size_t)bi * Cin + c);
+        val = affine_act8<ACT>(
+            *reinterpret_cast<const uint4*>(
+                x + ((size_t)(bi * H + iy) * W + ix) * Cin + c),
+            a + (size_t)bi * Cin + c, b + (size_t)bi * Cin + c);
       }
       *reinterpret_cast<uint4*>(halo + p * CKP + cv * 8) = val;
     }
@@ -213,10 +204,8 @@ conv3x3_dots_kernel(const __nv_bfloat16* __restrict__ x,
       y[pix * Cout + gn] = o;
       r = __bfloat162float(o);
     }
-    if constexpr (STATS)
-      stage[p * LDC + n] = r;  // rounded value feeds the statistics
+    stage[p * LDC + n] = r;  // rounded value feeds the statistics
   }
-  if constexpr (!STATS) return;
   __syncthreads();
 
   if (tid < BN) {
@@ -235,7 +224,7 @@ conv3x3_dots_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <int NF, int ACT, int SKIP, bool PROLOGUE = true, bool STATS = true>
+template <int NF, int ACT, int SKIP>
 cudaError_t launch(const void* x, const void* a, const void* b, const void* w,
                    const void* bias, const void* skip, const void* w1,
                    void* y, void* stats, int B, int H, int W, int Cin,
@@ -244,7 +233,7 @@ cudaError_t launch(const void* x, const void* a, const void* b, const void* w,
   constexpr int main_bytes = kHaloElems * 2 + weight_bytes(9, BN);
   constexpr int smem = main_bytes > stage_bytes(BN) ? main_bytes
                                                     : stage_bytes(BN);
-  auto kern = conv3x3_dots_kernel<NF, ACT, SKIP, PROLOGUE, STATS>;
+  auto kern = conv3x3_dots_kernel<NF, ACT, SKIP>;
   // set on every launch: the attribute belongs to the current device
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -322,29 +311,6 @@ extern "C" int cf_conv3x3_dots(const void* x, const void* a, const void* b,
   else if (n_frags == 1)
     err = cf::dispatch_act<1>(act, skip_mode, x, a, b, w, bias, skip, w1, y,
                               stats, B, H, W, Cin, Cout, CoutP, Cs, s);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
-}
-
-// C entry of the bare conv: y = conv3x3_SAME(x) + bias, no prologue, no
-// skip, no statistics. Arguments as cf_conv3x3_dots.
-extern "C" int cf_conv3x3_bias(const void* x, const void* w,
-                               const void* bias, void* y, int B, int H,
-                               int W, int Cin, int Cout, int CoutP,
-                               int n_frags, int device, void* stream) {
-  using namespace cf;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_frags == 4)
-    err = launch<4, ACT_NONE, SKIP_NONE, false, false>(
-        x, nullptr, nullptr, w, bias, nullptr, nullptr, y, nullptr, B, H, W,
-        Cin, Cout, CoutP, 0, s);
-  else if (n_frags == 1)
-    err = launch<1, ACT_NONE, SKIP_NONE, false, false>(
-        x, nullptr, nullptr, w, bias, nullptr, nullptr, y, nullptr, B, H, W,
-        Cin, Cout, CoutP, 0, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

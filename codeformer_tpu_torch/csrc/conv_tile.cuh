@@ -1,5 +1,5 @@
-// Shared tiling for the implicit-GEMM conv kernels (conv3x3_dots.cu,
-// downsample_dots.cu).
+// The WMMA tiling of K1 (conv3x3_dots.cu), the one kernel left on it: the
+// bare conv and K2 run on the Hopper core in conv_sm90.cuh.
 //
 // GEMM view: M = output pixels, N = output channels, K = taps x input
 // channels. A block owns a TH x TW tile of output pixels and BN = 16*NF

@@ -32,8 +32,8 @@ _D = ctypes.c_double
 # C signatures of the entry points (csrc/*.cu, extern "C")
 SIGNATURES = {
     'cf_conv3x3_dots': [_P] * 9 + [_I] * 11 + [_P],
-    'cf_conv3x3_bias': [_P] * 4 + [_I] * 8 + [_P],
-    'cf_downsample_dots': [_P] * 4 + [_I] * 6 + [_P],
+    'cf_conv3x3_bias': [_P] * 5 + [_I] * 13 + [_P],
+    'cf_downsample_dots': [_P] * 5 + [_I] * 12 + [_P],
     'cf_nearest_code': [_P] * 5 + [_I] * 4 + [_P],
     'cf_fused_lrelu_fwd': [_P] * 3 + [_I, _L, _I, _D, _D, _I, _P],
     'cf_fused_lrelu_bwd': [_P] * 4 + [_I, _L, _I, _I, _D, _D, _I, _P],
@@ -102,7 +102,13 @@ def build() -> Path:
                 raise RuntimeError(f'nvcc failed ({rc}):\n{" ".join(cmd)}\n'
                                    f'{out}')
         tmp_lib = str(Path(tmp_dir) / LIB_NAME)
-        cmd = [nvcc, *NVCC_FLAGS[:2], '-shared', '-o', tmp_lib, *objs]
+        # -lcuda: the conv core encodes its TMA tensor maps with
+        # cuTensorMapEncodeTiled from libcuda; nvcc links the toolkit's
+        # stub, and at load time it binds the libcuda.so.1 torch has open.
+        # Linked by name, the symbol needs no runtime entry-point query,
+        # whose API differs between CUDA releases.
+        cmd = [nvcc, *NVCC_FLAGS[:2], '-shared', '-o', tmp_lib, *objs,
+               '-lcuda']
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=300)
         if proc.returncode != 0:

@@ -182,18 +182,35 @@ class AttnBlock(nn.Module):
 class Downsample(nn.Module):
     """Stride-2 3x3 conv with the reference's (0,1,0,1) padding
     (vqgan_arch.py:117-126), as K2 or, without `use_kernels`, a plain pad
-    and conv."""
+    and conv. In eval mode it keeps K2's kernel-layout weight and bias
+    between calls (`kernel_operands`)."""
 
     def __init__(self, in_channels: int):
         super().__init__()
         self.use_kernels = True
         self.conv = Conv2d(in_channels, in_channels, 3, stride=2, padding=0)
+        self._operands = None    # (key, cv.ConvOperands)
+
+    def kernel_operands(self):
+        """cv.conv_operands of the conv's weight and bias, made again when
+        either is updated in place (`_version`), replaced, moved or cast;
+        None in training mode, where nothing is kept."""
+        if self.training:
+            self._operands = None
+            return None
+        w, b = self.conv.weight, self.conv.bias
+        key = tuple((t._version, t.data_ptr(), t.device, t.dtype)
+                    for t in (w, b))
+        if self._operands is None or self._operands[0] != key:
+            self._operands = (key, cv.conv_operands(w, b))
+        return self._operands[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.use_kernels:
             return self.conv(F.pad(x, (0, 1, 0, 1)))
+        ops = self.kernel_operands() if x.is_cuda else None
         return nchw(cv.downsample_dots(nhwc(x), self.conv.weight,
-                                       self.conv.bias))
+                                       self.conv.bias, prepared=ops))
 
 
 class Upsample(nn.Module):

@@ -15,25 +15,34 @@ packing (which only fills the TPU's 128-lane matrix unit):
   gn_affine       GroupNorm(32, eps 1e-6) folded into a per-channel a, b
 
 Dispatch: a tensor on the CPU goes to the plain PyTorch version
-(`*_ref`); a CUDA tensor launches the hand-written kernel
-(csrc/conv3x3_dots.cu, csrc/downsample_dots.cu; conv3x3_bias is
-conv3x3_dots.cu compiled with no prologue, skip or statistics) or
-raises. There is no fallback from the kernel to the plain version. The
-kernels are forward-only, as the TPU kernels were (no VJP): their
-outputs carry no autograd history, so the CUDA branch refuses to run
-where autograd would record through it. Training runs the blocks'
-textbook form (nn/blocks.py `set_kernels`).
+(`*_ref`); a CUDA tensor launches the hand-written kernel or raises:
+K1 csrc/conv3x3_dots.cu (WMMA, conv_tile.cuh); conv3x3_bias
+csrc/conv3x3_bias.cu and K2 csrc/downsample_dots.cu, both on the Hopper
+conv core csrc/conv_sm90.cuh (TMA, wgmma, persistent blocks), whose
+tiling `conv_plan` chooses here. There is no fallback from the kernel to
+the plain version. The kernels are forward-only, as the TPU kernels were
+(no VJP): their outputs carry no autograd history, so the CUDA branch
+refuses to run where autograd would record through it. Training runs
+the blocks' textbook form (nn/blocks.py `set_kernels`).
+
+Each CUDA call is two steps, so a caller can keep the first and time
+the second alone: preparing the operands (kernel-layout weight and bias,
+the plan, the output) -- `prepare_dots`, `conv_operands` +
+`prepare_conv` -- and the launch on them -- `launch_dots`,
+`launch_conv`.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 ACTS = ('silu', 'none')
-TILE_H, TILE_W = 8, 16     # output pixels per kernel block (conv_tile.cuh)
-CHUNK = 32                 # input channels per staged chunk (conv_tile.cuh)
+TILE_H, TILE_W = 8, 16     # K1's output pixels per block (conv_tile.cuh)
+CHUNK = 32                 # K1's input channels per staged chunk; the
+                           # channel multiple every conv kernel takes
 
 _launches = {'conv3x3_dots': 0, 'downsample_dots': 0, 'conv3x3_bias': 0}
 
@@ -207,17 +216,228 @@ def _device_and_stream(x: torch.Tensor):
     return x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream
 
 
+# ------------------------------------------ the Hopper conv core's plan
+# Mirrors of csrc/conv_sm90.cuh's constants: the plan is chosen here and
+# only checked there.
+SM90_TW = 16               # output columns per tile
+SM90_KC = 64               # input channels per staged chunk (128 B)
+SMEM_LIMIT = 232448        # shared memory a block may opt in to (H100)
+ALIGN_SLACK = 1024         # the 1024-B alignment of the base
+BARRIER_BYTES = 128
+MAX_STAGES = 4
+# (MB, BN) the kernels are built for, by stride, best first: BN output
+# channels a block (shared-memory reads per FLOP fall with BN: A is read
+# once per k16 step for all BN columns), then MB m64 blocks a consumer
+# warpgroup (a tile of 8 * MB output rows; a larger tile re-reads fewer
+# halo rows)
+VARIANTS = {1: ((1, 128), (2, 64), (1, 64), (1, 32), (1, 16), (2, 8)),
+            2: ((1, 128), (1, 64), (1, 32), (1, 16))}
+
+
+def tile_h(mb: int) -> int:
+    """Output rows of a tile (csrc/conv_sm90.cuh tile_h)."""
+    return 8 * mb
+
+
+def win_hw(stride: int, th: int) -> Tuple[int, int]:
+    """(rows, columns) of the input window of a tile of th rows: the TMA
+    box."""
+    if stride == 1:
+        return th + 2, SM90_TW + 2
+    return 2 * th + 1, 2 * SM90_TW + 1
+
+
+def slot_bytes(stride: int, th: int) -> int:
+    """Bytes of one ring slot: the window, 128 B a pixel, 1024-aligned."""
+    bh, bw = win_hw(stride, th)
+    return _round_up(bh * bw * 2 * SM90_KC, 1024)
+
+
+class ConvPlan(NamedTuple):
+    stride: int
+    ho: int
+    wo: int
+    th: int                # output rows a tile (TW = SM90_TW columns)
+    mb: int                # m64 blocks per consumer warpgroup
+    bn: int                # output channels a block
+    split: int             # blocks that share the input chunks of a pixel
+    chunks: int            # 64-channel input chunks
+    coutp: int             # Cout padded to a multiple of 8
+    stages: int            # windows in flight
+    smem: int              # dynamic shared memory a block
+    tiles_x: int
+    tiles_y: int
+    n_tiles: int           # B * tiles_y * tiles_x
+    n_slices: int          # coutp // bn
+    grid_x: int            # persistent blocks per (slice, split)
+
+
+def conv_plan(bsz: int, h: int, w: int, cin: int, cout: int, stride: int,
+              num_sms: int = 132) -> ConvPlan:
+    """The tiling of one conv on the Hopper core. Every (MB, BN, split)
+    whose resident weights (its chunks x 9 taps x BN rows x 128 B) and at
+    least two ring slots fit the shared memory is a candidate; the plan
+    takes the one that comes closest to one block per SM, then the
+    smallest split (a split adds an fp32 pass), then the best variant."""
+    ho, wo = (h, w) if stride == 1 else (h // 2, w // 2)
+    chunks = -(-cin // SM90_KC)
+    coutp = _round_up(cout, 8)
+    best = None
+    for split in (s for s in range(1, chunks + 1) if chunks % s == 0):
+        for pref, (mb, bn) in enumerate(VARIANTS[stride]):
+            if coutp % bn:
+                continue
+            th = tile_h(mb)
+            w_bytes = chunks // split * 9 * bn * 2 * SM90_KC
+            slot = slot_bytes(stride, th)
+            stages = min(MAX_STAGES, (SMEM_LIMIT - ALIGN_SLACK
+                                      - BARRIER_BYTES - w_bytes) // slot)
+            if stages < 2:
+                continue
+            tiles_x, tiles_y = -(-wo // SM90_TW), -(-ho // th)
+            n_tiles = bsz * tiles_x * tiles_y
+            groups = coutp // bn * split
+            key = (max(0, num_sms - n_tiles * groups), split, pref)
+            if best is None or key < best[0]:
+                best = (key, ConvPlan(
+                    stride, ho, wo, th, mb, bn, split, chunks, coutp,
+                    stages, ALIGN_SLACK + w_bytes + stages * slot
+                    + BARRIER_BYTES, tiles_x, tiles_y, n_tiles,
+                    coutp // bn,
+                    max(1, min(n_tiles, num_sms // groups))))
+    if best is None:
+        raise ValueError(f'no conv plan fits {cin} -> {cout} channels')
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def swizzle_rows(w: torch.Tensor) -> torch.Tensor:
+    """(..., rows, 64) -> the same with the 128-byte swizzle of a K-major
+    wgmma operand: 16-byte group g of row n stored at g ^ (n % 8). Its own
+    inverse."""
+    rows = w.shape[-2]
+    n = torch.arange(rows, device=w.device)
+    idx = torch.arange(8, device=w.device)[None, :] ^ (n[:, None] % 8)
+    w8 = w.reshape(*w.shape[:-1], 8, 8)
+    return w8.gather(-2, idx[..., None].expand(w8.shape)).reshape(w.shape)
+
+
+class ConvOperands(NamedTuple):
+    """One conv's parameters in the Hopper core's layout."""
+    weight: torch.Tensor   # (chunks, 9, coutp, 64), rows swizzled
+    bias: torch.Tensor     # (coutp,) fp32
+    cin: int
+    cout: int
+
+
+def conv_operands(weight: torch.Tensor, bias: torch.Tensor,
+                  dtype=torch.bfloat16) -> ConvOperands:
+    """(Cout, Cin, 3, 3) weight and (Cout,) bias -> ConvOperands:
+    [chunk][tap][out][in % 64], tap = 3*dy + dx, input channels past Cin
+    and output channels past Cout zero. The layout does not depend on the
+    plan: a block's slab is 9 x its chunks runs of BN rows."""
+    with torch.no_grad():
+        cout, cin = weight.shape[:2]
+        chunks, coutp = -(-cin // SM90_KC), _round_up(cout, 8)
+        w = weight.detach().permute(2, 3, 0, 1).reshape(9, cout, cin)
+        w = F.pad(w, (0, chunks * SM90_KC - cin, 0, coutp - cout)).to(dtype)
+        w = w.reshape(9, coutp, chunks, SM90_KC).permute(2, 0, 1, 3)
+        return ConvOperands(swizzle_rows(w).contiguous(),
+                            kernel_bias(bias.detach(), coutp), cin, cout)
+
+
+def operands_weight(ops: ConvOperands) -> torch.Tensor:
+    """The inverse of conv_operands' weight layout: (Cout, Cin, 3, 3)."""
+    w = swizzle_rows(ops.weight).permute(1, 2, 0, 3)
+    w = w.reshape(9, w.shape[1], -1)[:, :ops.cout, :ops.cin]
+    return w.reshape(3, 3, ops.cout, ops.cin).permute(2, 3, 0, 1)
+
+
+class ConvLaunch(NamedTuple):
+    """Everything one launch of the Hopper core needs."""
+    x: torch.Tensor
+    ops: ConvOperands
+    plan: ConvPlan
+    y: torch.Tensor
+    ws: Optional[torch.Tensor]   # fp32 partials of a split
+
+
+def prepare_conv(x: torch.Tensor, ops: ConvOperands,
+                 stride: int) -> ConvLaunch:
+    """Check x against the operands, plan the launch and allocate its
+    output (and a split's fp32 partials)."""
+    bsz, h, w, cin = x.shape
+    _check_act_map('x', x, cin)
+    if cin != ops.cin:
+        raise ValueError(f'x has {cin} channels, the weight {ops.cin}')
+    _check_params(x, ops.weight, ops.bias)
+    plan = conv_plan(bsz, h, w, cin, ops.cout, stride,
+                     _num_sms(x.device.index or 0))
+    y = torch.empty((bsz, plan.ho, plan.wo, ops.cout), dtype=x.dtype,
+                    device=x.device)
+    ws = None
+    if plan.split > 1:
+        ws = torch.empty((plan.split, bsz * plan.ho * plan.wo, plan.coutp),
+                         dtype=torch.float32, device=x.device)
+    return ConvLaunch(x, ops, plan, y, ws)
+
+
+def launch_conv(c: ConvLaunch) -> torch.Tensor:
+    """Launch conv3x3_bias (stride 1) or K2 (stride 2) on prepared
+    operands; returns the prepared output."""
+    from codeformer_tpu_torch.kernels.build import library
+    name = 'conv3x3_bias' if c.plan.stride == 1 else 'downsample_dots'
+    if c.y.numel() == 0:
+        return c.y
+    dev, stream = _device_and_stream(c.x)
+    p, (bsz, h, w, cin) = c.plan, c.x.shape
+    ptrs = (c.x.data_ptr(), c.ops.weight.data_ptr(), c.ops.bias.data_ptr(),
+            c.y.data_ptr(), c.ws.data_ptr() if c.ws is not None else None)
+    tail = (p.coutp, p.bn, p.mb, p.split, p.stages, p.smem, p.grid_x, dev,
+            stream)
+    if p.stride == 1:
+        rc = library().cf_conv3x3_bias(*ptrs, bsz, h, w, cin, c.ops.cout,
+                                       *tail)
+    else:
+        rc = library().cf_downsample_dots(*ptrs, bsz, h, w, cin, *tail)
+    if rc < 0:
+        raise RuntimeError(f'{name}: the tensor map of x could not be '
+                           f'encoded: CUresult {-rc}')
+    if rc != 0:
+        raise RuntimeError(f'{name} kernel launch failed: cudaError {rc}')
+    _launches[name] += 1
+    return c.y
+
+
 # ------------------------------------------------------------- kernels
-def conv3x3_dots(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+class DotsLaunch(NamedTuple):
+    """Everything one launch of K1 needs."""
+    x: torch.Tensor
+    a: torch.Tensor
+    b: torch.Tensor
+    wk: torch.Tensor
+    bk: torch.Tensor
+    skip: Optional[torch.Tensor]
+    w1: Optional[torch.Tensor]
+    y: torch.Tensor
+    stats: torch.Tensor
+    cout: int
+    cout_p: int
+    cs: int
+    act: int
+    skip_mode: int
+    nf: int
+
+
+def prepare_dots(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                  act: str, weight: torch.Tensor, bias: torch.Tensor,
                  skip: Optional[torch.Tensor] = None,
-                 w1x1: Optional[torch.Tensor] = None):
-    """K1. Arguments and results as conv3x3_dots_ref; on CUDA the stats
-    are per kernel block: (B, stats_tiles(H, W), 2, Cout)."""
-    if x.device.type == 'cpu':
-        return conv3x3_dots_ref(x, a, b, act, weight, bias, skip, w1x1)
-    _refuse_autograd('conv3x3_dots', x, a, b, weight, bias, skip, w1x1)
-    from codeformer_tpu_torch.kernels.build import library
+                 w1x1: Optional[torch.Tensor] = None) -> DotsLaunch:
+    """K1's checks, kernel-layout weights and bias, and outputs."""
     if act not in ACTS:
         raise ValueError(f'act must be one of {ACTS}, got {act!r}')
     bsz, h, w, cin = x.shape
@@ -235,7 +455,6 @@ def conv3x3_dots(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             raise ValueError(f'{name}: need contiguous fp32 ({bsz}, {cin}) '
                              f'on {x.device}')
     skip_mode, cs = 0, 0
-    w1 = None
     if skip is not None:
         if w1x1 is None:
             skip_mode = 1
@@ -251,87 +470,83 @@ def conv3x3_dots(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             raise ValueError('skip and x differ in (B, H, W)')
     elif w1x1 is not None:
         raise ValueError('w1x1 given without skip')
-
     nf = n_frags(cout)
     cout_p = _round_up(cout, 16 * nf)
-    wk = kernel_weight(weight, cout_p)
-    bk = kernel_bias(bias, cout_p)
-    if skip_mode == 2:
-        w1 = kernel_w1x1(w1x1, cout_p)
-    y = torch.empty((bsz, h, w, cout), dtype=x.dtype, device=x.device)
-    stats = torch.empty((bsz, stats_tiles(h, w), 2, cout),
-                        dtype=torch.float32, device=x.device)
-    dev, stream = _device_and_stream(x)
+    return DotsLaunch(
+        x, a, b, kernel_weight(weight, cout_p), kernel_bias(bias, cout_p),
+        skip, kernel_w1x1(w1x1, cout_p) if skip_mode == 2 else None,
+        torch.empty((bsz, h, w, cout), dtype=x.dtype, device=x.device),
+        torch.empty((bsz, stats_tiles(h, w), 2, cout), dtype=torch.float32,
+                    device=x.device),
+        cout, cout_p, cs, 1 if act == 'silu' else 0, skip_mode, nf)
+
+
+def launch_dots(c: DotsLaunch):
+    """Launch K1 on prepared operands; returns the prepared (y, stats)."""
+    from codeformer_tpu_torch.kernels.build import library
+    bsz, h, w, cin = c.x.shape
+    dev, stream = _device_and_stream(c.x)
     rc = library().cf_conv3x3_dots(
-        x.data_ptr(), a.data_ptr(), b.data_ptr(), wk.data_ptr(),
-        bk.data_ptr(), skip.data_ptr() if skip is not None else None,
-        w1.data_ptr() if w1 is not None else None, y.data_ptr(),
-        stats.data_ptr(), bsz, h, w, cin, cout, cout_p, cs,
-        1 if act == 'silu' else 0, skip_mode, nf, dev, stream)
+        c.x.data_ptr(), c.a.data_ptr(), c.b.data_ptr(), c.wk.data_ptr(),
+        c.bk.data_ptr(), c.skip.data_ptr() if c.skip is not None else None,
+        c.w1.data_ptr() if c.w1 is not None else None, c.y.data_ptr(),
+        c.stats.data_ptr(), bsz, h, w, cin, c.cout, c.cout_p, c.cs, c.act,
+        c.skip_mode, c.nf, dev, stream)
     if rc != 0:
         raise RuntimeError(f'conv3x3_dots kernel launch failed: cudaError {rc}')
     _launches['conv3x3_dots'] += 1
-    return y, stats
+    return c.y, c.stats
+
+
+def conv3x3_dots(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                 act: str, weight: torch.Tensor, bias: torch.Tensor,
+                 skip: Optional[torch.Tensor] = None,
+                 w1x1: Optional[torch.Tensor] = None):
+    """K1. Arguments and results as conv3x3_dots_ref; on CUDA the stats
+    are per kernel block: (B, stats_tiles(H, W), 2, Cout)."""
+    if x.device.type == 'cpu':
+        return conv3x3_dots_ref(x, a, b, act, weight, bias, skip, w1x1)
+    _refuse_autograd('conv3x3_dots', x, a, b, weight, bias, skip, w1x1)
+    _device_and_stream(x)
+    return launch_dots(prepare_dots(x, a, b, act, weight, bias, skip, w1x1))
 
 
 def downsample_dots(x: torch.Tensor, weight: torch.Tensor,
-                    bias: torch.Tensor) -> torch.Tensor:
-    """K2: (B, H, W, C) -> (B, H/2, W/2, C), as downsample_dots_ref."""
+                    bias: torch.Tensor,
+                    prepared: Optional[ConvOperands] = None) -> torch.Tensor:
+    """K2: (B, H, W, C) -> (B, H/2, W/2, C), as downsample_dots_ref.
+    `prepared`: conv_operands(weight, bias) kept by the caller (the
+    Downsample module keeps them between calls), else made here."""
     if x.device.type == 'cpu':
         return downsample_dots_ref(x, weight, bias)
     _refuse_autograd('downsample_dots', x, weight, bias)
-    from codeformer_tpu_torch.kernels.build import library
-    bsz, h, w, c = x.shape
+    _device_and_stream(x)
+    c = x.shape[-1]
     if weight.shape != (c, c, 3, 3):
         raise ValueError(f'weight {tuple(weight.shape)} is not ({c}, {c}, '
                          f'3, 3)')
-    _check_act_map('x', x, c)
-    _check_params(x, weight, bias)
-    cout_p = _round_up(c, 64)
-    wk = kernel_weight(weight, cout_p)
-    bk = kernel_bias(bias, cout_p)
-    y = torch.empty((bsz, h // 2, w // 2, c), dtype=x.dtype, device=x.device)
-    dev, stream = _device_and_stream(x)
-    rc = library().cf_downsample_dots(
-        x.data_ptr(), wk.data_ptr(), bk.data_ptr(), y.data_ptr(),
-        bsz, h, w, c, cout_p, dev, stream)
-    if rc != 0:
-        raise RuntimeError(f'downsample_dots kernel launch failed: '
-                           f'cudaError {rc}')
-    _launches['downsample_dots'] += 1
-    return y
+    ops = prepared if prepared is not None else conv_operands(weight, bias)
+    if (ops.cin, ops.cout) != (c, c):
+        raise ValueError(f'prepared operands map {ops.cin} -> {ops.cout} '
+                         f'channels, x has {c}')
+    return launch_conv(prepare_conv(x, ops, 2))
 
 
 def conv3x3_bias(x: torch.Tensor, weight: torch.Tensor,
                  bias: torch.Tensor) -> torch.Tensor:
     """The bare conv: (B, H, W, Cin) -> (B, H, W, Cout), as
     conv3x3_bias_ref. On CUDA: bf16 x, Cin a multiple of 32, Cout a
-    multiple of 32 or 3 (K1's limits); the sums are fp32 and the bias is
-    added in the fp32 epilogue."""
+    multiple of 32 or 3; the sums are fp32 and the bias is added in fp32
+    before the one rounding to bf16."""
     if x.device.type == 'cpu':
         return conv3x3_bias_ref(x, weight, bias)
     _refuse_autograd('conv3x3_bias', x, weight, bias)
-    from codeformer_tpu_torch.kernels.build import library
-    bsz, h, w, cin = x.shape
+    _device_and_stream(x)
+    cin = x.shape[-1]
     cout = weight.shape[0]
     if weight.shape != (cout, cin, 3, 3) or bias.shape != (cout,):
         raise ValueError(f'weight {tuple(weight.shape)} / bias '
                          f'{tuple(bias.shape)} do not match Cin={cin}')
     if cout % CHUNK and cout != 3:
         raise ValueError(f'Cout={cout} must be a multiple of {CHUNK} or 3')
-    _check_act_map('x', x, cin)
-    _check_params(x, weight, bias)
-    nf = n_frags(cout)
-    cout_p = _round_up(cout, 16 * nf)
-    wk = kernel_weight(weight, cout_p)
-    bk = kernel_bias(bias, cout_p)
-    y = torch.empty((bsz, h, w, cout), dtype=x.dtype, device=x.device)
-    dev, stream = _device_and_stream(x)
-    rc = library().cf_conv3x3_bias(
-        x.data_ptr(), wk.data_ptr(), bk.data_ptr(), y.data_ptr(), bsz, h, w,
-        cin, cout, cout_p, nf, dev, stream)
-    if rc != 0:
-        raise RuntimeError(f'conv3x3_bias kernel launch failed: cudaError '
-                           f'{rc}')
-    _launches['conv3x3_bias'] += 1
-    return y
+    return launch_conv(prepare_conv(x, conv_operands(weight, bias), 1))
