@@ -9,11 +9,14 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. card and versions (needs a CUDA card of compute capability 9.0);
   2. build the hand-written kernels from codeformer_tpu_torch/csrc/;
   3. K1/K2 against their plain PyTorch versions at the serving path's
-     shapes (B=2, bf16 inputs; reference in fp32 with TF32 off; K2 also
-     at a ragged map and the serving batch), their GroupNorm partials
-     against torch.sum, planted faults that the bounds must reject, and
-     kernel (the launch on prepared operands), whole-call, plain and
-     library times;
+     shapes (B=2, bf16 inputs; reference in fp32 with TF32 off; K1 also
+     at B=1 and B=8 on its largest and its widest map, K2 at a ragged
+     map and the serving batch), K1's GroupNorm partials slot by slot
+     against the exact sums of its rounded output, planted faults that
+     the bounds must reject, each shape's plan and bound, and kernel
+     (the launch on prepared operands), whole-call, plain and library
+     times (for K1 the library call is a cuDNN conv of the same shape,
+     the conv alone);
   4. K3 (nearest code) against its plain version at the training path's
      token counts on three codebooks (exact lowest index on duplicated
      rows), planted faults that must fail, kernel vs plain times;
@@ -69,7 +72,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # prologue reads >= 3.0e-3 and a halo of act(b) >= 5.7e-3. The same
 # bound holds every kernel call of one forward on its own inputs.
 REL_RMS_BOUND = 1e-3
-# the stats partials are fp32 sums of the same rounded y in another order
+# K1's statistics slot by slot against the exact sums of its own rounded
+# y over the slot's tile (128 or 256 pixels), relative to sum |y| and sum
+# y^2: fp32 sums of at most 256 terms stay near 1e-7, while the
+# statistics of the y before its rounding (half a bf16 ulp a term, random
+# signs) are off by several times the bound in the worst slot of every
+# call (PERF.md, Findings)
 STATS_BOUND = 1e-4
 # whole model, kernel path vs plain-op reference forward: lq_feat and
 # logits rel RMS read 0.0089 and 0.011 (rounding flips compound over 60
@@ -91,7 +99,7 @@ RATE_REPEATS = 3
 # a ResBlock(cin, cout) runs conv1 cin->cout without skip and conv2
 # cout->cout with the identity or the projected (Cs = cin) skip; the
 # decoder tail is 64->3 without activation
-K1_CASES = [  # (H=W, Cin, Cout, act, skip, Cs)
+K1_SHAPES = [  # (H=W, Cin, Cout, act, skip, Cs)
     (512, 64, 64, 'silu', 'identity', 0),
     (512, 64, 64, 'silu', 'none', 0),
     (512, 64, 64, 'silu', 'proj', 128),
@@ -123,6 +131,10 @@ K1_CASES = [  # (H=W, Cin, Cout, act, skip, Cs)
     (16, 512, 512, 'silu', 'proj', 256),
 ]
 BATCH = 2
+# (B, H=W, Cin, Cout, act, skip, Cs): every shape at the forward's B=2,
+# then the largest and the widest map at B = 1 and the serving batch 8
+K1_CASES = [(BATCH, *c) for c in K1_SHAPES] + [
+    (bsz, *c) for bsz in (1, 8) for c in (K1_SHAPES[0], K1_SHAPES[-1])]
 K2_CASES = [  # (B, H=W, C): the forward's five at B=2, a map ragged
     # against the tile, and the serving batch
     (BATCH, 512, 64), (BATCH, 256, 128), (BATCH, 128, 128), (BATCH, 64, 256),
@@ -176,40 +188,85 @@ def rel_rms(got: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def k1_fault(kind: str):
-    """A deliberately wrong plain K1 with conv3x3_dots' signature, as a
-    control the bounds must catch: 'bf16 prologue' evaluates a*x+b and
-    the activation in bf16 arithmetic; 'halo act(b)' pads the activated
-    map with act(b) instead of 0 (the fault of folding the prologue into
-    the load without masking the halo)."""
+    """A deliberately wrong plain K1 with conv3x3_dots_ref's signature, as
+    a control the bounds must catch. It returns (y, stats), the stats in
+    the kernel's slot layout for a tile of `th` rows (`th=None`: one slot
+    an image, as the plain version):
+      'bf16 prologue'       a*x+b and the activation in bf16 arithmetic;
+      'halo act(b)'         the activated map padded with act(b), not 0
+                            (TMA's zero fill, activated without masking);
+      'chunk unrewritten'   the last 64-channel chunk's windows read as
+                            staged: raw x, the prologue skipped;
+      'prologue on skip'    the projected skip's raw chunks rewritten as
+                            if they were x's: bf16(act(a*s+b)), with the
+                            a, b of channel (k mod Cin);
+      'skip dropped'        no skip added;
+      'stats of unrounded y' the right y, the statistics of the fp32 sum
+                            before its rounding.
+    None where the fault has nothing to act on (no skip, no projection)."""
     import torch.nn.functional as F
     from codeformer_tpu_torch.ops import conv3x3 as cv
 
-    def run(x, a, b, act, weight, bias, skip=None, w1x1=None):
+    def run(x, a, b, act, weight, bias, skip=None, w1x1=None, th=None):
+        if (kind == 'skip dropped' and skip is None) or \
+                (kind == 'prologue on skip' and w1x1 is None):
+            return None
+
         def f(t):
             return F.silu(t) if act == 'silu' else t
         a4, b4 = a[:, None, None], b[:, None, None]
+        dt = x.dtype
         if kind == 'bf16 prologue':
-            h = f(x * a4.to(x.dtype) + b4.to(x.dtype)).float()
-            h = F.pad(h.permute(0, 3, 1, 2), (1, 1, 1, 1))
-        elif kind == 'halo act(b)':
-            inner = f(x.float() * a4 + b4).to(x.dtype).float()
-            bsz, hh, ww, c = x.shape
-            h = f(b).to(x.dtype).float()[:, :, None, None] \
-                .expand(bsz, c, hh + 2, ww + 2).clone()
-            h[:, :, 1:-1, 1:-1] = inner.permute(0, 3, 1, 2)
+            h = f(x * a4.to(dt) + b4.to(dt)).float()
         else:
-            raise ValueError(kind)
-        y = F.conv2d(h, weight.to(x.dtype).float(), bias.float())
+            h = f(x.float() * a4 + b4).to(dt).float()
+        if kind == 'chunk unrewritten':
+            lo = (x.shape[-1] - 1) // cv.SM90_KC * cv.SM90_KC
+            h[..., lo:] = x[..., lo:].float()
+        h = F.pad(h.permute(0, 3, 1, 2), (1, 1, 1, 1))
+        if kind == 'halo act(b)':
+            inner = h[:, :, 1:-1, 1:-1].clone()
+            h = f(b).to(dt).float()[:, :, None, None].expand_as(h).clone()
+            h[:, :, 1:-1, 1:-1] = inner
+        y = F.conv2d(h, weight.to(dt).float(), bias.float())
         y = y.permute(0, 2, 3, 1)
-        if skip is not None:
+        if skip is not None and kind != 'skip dropped':
             s = skip.float()
             if w1x1 is not None:
-                s = s @ w1x1.reshape(w1x1.shape[0], -1).to(x.dtype) \
-                    .float().t()
+                if kind == 'prologue on skip':
+                    k = torch.arange(s.shape[-1], device=s.device) % a.shape[1]
+                    s = f(s * a[:, None, None, k] + b[:, None, None, k]) \
+                        .to(dt).float()
+                s = s @ w1x1.reshape(w1x1.shape[0], -1).to(dt).float().t()
             y = y + s
-        y = y.to(x.dtype)
-        return y, cv.channel_stats(y)
+        yr = y.to(dt)
+        st = k1_slot_sums(y if kind == 'stats of unrounded y' else yr, th)[0]
+        return yr, st.float()
     return run
+
+
+def k1_slot_sums(y: torch.Tensor, th=None):
+    """([sum y, sum y^2], [sum |y|, sum y^2]) in fp64 over each tile of th
+    x 16 pixels (the kernel's statistics slots, ops/conv3x3.py
+    stats_slots), or over each image (th None): (B, slots, 2, C) each."""
+    import torch.nn.functional as F
+    bsz, h, w, c = y.shape
+    th, tw = (th, 16) if th else (h, w)
+    ty, tx = -(-h // th), -(-w // tw)
+    v = F.pad(y.double(), (0, 0, 0, tx * tw - w, 0, ty * th - h)) \
+        .reshape(bsz, ty, th, tx, tw, c)
+    s1, s2, s_abs = (t.sum((2, 4)).reshape(bsz, ty * tx, c)
+                     for t in (v, v.square(), v.abs()))
+    return torch.stack([s1, s2], 2), torch.stack([s_abs, s2], 2)
+
+
+def k1_stats_err(st: torch.Tensor, y: torch.Tensor, th: int) -> float:
+    """The worst statistics slot and channel: |stats - the exact (fp64)
+    sums of the rounded y over the slot's tile| relative to sum |y| (for
+    the sum) or sum y^2 (for the sum of squares)."""
+    exact, scale = k1_slot_sums(y, th)
+    return float(((st.double() - exact).abs()
+                  / scale.clamp_min(1e-30)).max())
 
 
 def k2_fault(x, weight, bias):
@@ -259,14 +316,17 @@ def k2_planted(kind: str):
 
 
 def takes_prepared(fn):
-    """fn(x, weight, bias) as a stand-in for cv.downsample_dots, whose
-    callers may hand it kept operands (`prepared`): fn ignores them."""
-    def run(x, weight, bias, prepared=None):
-        return fn(x, weight, bias)
+    """fn as a stand-in for cv.conv3x3_dots or cv.downsample_dots, whose
+    callers may hand them kept operands (`prepared`): fn ignores them."""
+    def run(*args, prepared=None, **kw):
+        return fn(*args, **kw)
     return run
 
 
-K1_FAULTS = ('bf16 prologue', 'halo act(b)')
+K1_FAULTS = ('bf16 prologue', 'halo act(b)', 'chunk unrewritten',
+             'prologue on skip', 'skip dropped', 'stats of unrounded y')
+# the faults the per-call check of a whole forward runs
+K1_MODEL_FAULTS = ('bf16 prologue', 'halo act(b)')
 K2_FAULTS = ('symmetric pad', 'pad top-left', 'tap off by one',
              'split partial dropped')
 
@@ -414,14 +474,14 @@ def bound(flops: float, nbytes: float, peak: float) -> dict:
             'bound_by': 'bytes' if t_bytes >= t_ops else 'operations'}
 
 
-def k1_bound(b, h, cin, cout, skip, cs) -> dict:
+def k1_bound(b, h, cin, cout, skip, cs, slots) -> dict:
     """K1 at B x h^2: x, skip and y once in bf16, the weights, a, b and
-    the stats partials once; the 3x3 (and 1x1) products on the tensor
-    cores."""
+    the statistics (`slots` an image, ops/conv3x3.py stats_slots) once;
+    the 3x3 (and 1x1) products on the tensor cores."""
     pix = b * h * h
     flops = 2 * pix * 9 * cin * cout
     nbytes = 2 * pix * (cin + cout) + 2 * 9 * cin * cout + 8 * b * cin \
-        + 4 * cout + 8 * b * cout * (-(-h // 8)) * (-(-h // 16))
+        + 4 * cout + 8 * b * cout * slots
     if skip == 'identity':
         nbytes += 2 * pix * cout
     elif skip == 'proj':
@@ -798,68 +858,95 @@ def phase_build():
     sys.stdout.flush()
 
 
-def _k1_inputs(g, h, cin, cout, skip, cs):
+def _k1_inputs(g, bsz, h, cin, cout, skip, cs):
     dev = 'cuda'
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device=dev) * scale
 
-    x = rnd(BATCH, h, h, cin).to(torch.bfloat16)
-    a = (1.0 + rnd(BATCH, cin, scale=0.1)).contiguous()
-    b = rnd(BATCH, cin, scale=0.3).contiguous()     # non-zero: halo trap
+    x = rnd(bsz, h, h, cin).to(torch.bfloat16)
+    a = (1.0 + rnd(bsz, cin, scale=0.1)).contiguous()
+    b = rnd(bsz, cin, scale=0.3).contiguous()       # non-zero: halo trap
     weight = rnd(cout, cin, 3, 3, scale=(9 * cin) ** -0.5)
     bias = rnd(cout, scale=0.1)
     sk, w1 = None, None
     if skip == 'identity':
-        sk = rnd(BATCH, h, h, cout).to(torch.bfloat16)
+        sk = rnd(bsz, h, h, cout).to(torch.bfloat16)
     elif skip == 'proj':
-        sk = rnd(BATCH, h, h, cs).to(torch.bfloat16)
+        sk = rnd(bsz, h, h, cs).to(torch.bfloat16)
         w1 = rnd(cout, cs, 1, 1, scale=cs ** -0.5)
     return x, a, b, weight, bias, sk, w1
 
 
-def phase_kernels():
+def phase_k1():
+    """K1 against its plain version (fp32 sums, TF32 off) at K1_CASES: y
+    within REL_RMS_BOUND, every statistics slot within STATS_BOUND of the
+    exact sums of the kernel's own rounded y; planted faults that must
+    fail; kernel (the launch on prepared operands), whole-call, plain
+    (bf16, cuDNN) and conv-alone library (one F.conv2d) times; the plan
+    and the bound of every shape."""
     import torch.nn.functional as F
     from codeformer_tpu_torch.ops import conv3x3 as cv
     torch.backends.cudnn.allow_tf32 = False          # the fp32 reference
     torch.backends.cuda.matmul.allow_tf32 = False    # must be true fp32
     g = torch.Generator(device='cuda').manual_seed(0)
-    results, split_faults = {}, []
-    print(f'kernel checks ({card_line()}): bf16 in/out; ref = plain version '
-          f'in fp32, TF32 off; kernel = the launch on prepared operands, '
-          f'call = the whole public call, plain = plain version in bf16 '
-          f'(cuDNN); ms per launch, median of 5 runs of 20 [min, max]')
-    for h, cin, cout, act, skip, cs in K1_CASES:
-        x, a, b, wt, bias, sk, w1 = _k1_inputs(g, h, cin, cout, skip, cs)
+    rows = []
+    print(f'K1 checks ({card_line()}): bf16 in/out; ref = plain version in '
+          f'fp32, TF32 off; y rel RMS <= {REL_RMS_BOUND}, every statistics '
+          f'slot within {STATS_BOUND} of the fp64 sums of the rounded y; '
+          f'kernel = the launch on prepared operands, call = the whole '
+          f'conv3x3_dots call, plain = plain version in bf16 (cuDNN), conv '
+          f'library = one F.conv2d of the same shape (bf16, channels_last; '
+          f'the conv alone, not the same function); ms per launch, median '
+          f'of 5 runs of 20 [min, max]', flush=True)
+    for bsz, h, cin, cout, act, skip, cs in K1_CASES:
+        x, a, b, wt, bias, sk, w1 = _k1_inputs(g, bsz, h, cin, cout, skip,
+                                               cs)
         y, st = cv.conv3x3_dots(x, a, b, act, wt, bias, sk, w1)
         torch.cuda.synchronize()
+        launch = cv.prepare_dots(x, a, b, act,
+                                 cv.dots_operands(wt, bias, w1), sk)
+        pl = launch.plan
         yr, _ = cv.conv3x3_dots_ref(x, a, b, act, wt, bias, sk, w1)
         err = float((y.float() - yr.float()).abs().max())
         rr = rel_rms(y, yr)
-        s = st.sum(1)
-        yf = y.float()
-        s1_err = float(((s[:, 0] - yf.sum((1, 2))).abs()
-                        / yf.abs().sum((1, 2)).clamp_min(1e-6)).max())
-        s2_err = float(((s[:, 1] - yf.square().sum((1, 2))).abs()
-                        / yf.square().sum((1, 2)).clamp_min(1e-6)).max())
-        launch = cv.prepare_dots(x, a, b, act, wt, bias, sk, w1)
+        st_err = k1_stats_err(st, y, pl.th)
+        ok = rr <= REL_RMS_BOUND and st_err <= STATS_BOUND \
+            and y.shape == (bsz, h, h, cout) \
+            and st.shape == (bsz, cv.stats_slots(pl), 2, cout)
+        faults = {}
+        for kind in K1_FAULTS:
+            got = k1_fault(kind)(x, a, b, act, wt, bias, sk, w1, th=pl.th)
+            if got is None:
+                continue
+            fy, fst = got
+            faults[kind] = k1_stats_err(fst, fy, pl.th) \
+                if kind == 'stats of unrounded y' else rel_rms(y, fy)
+        caught = all(v > (STATS_BOUND if k == 'stats of unrounded y'
+                          else REL_RMS_BOUND) for k, v in faults.items())
         ms = time_ms(lambda: cv.launch_dots(launch))
         cms = time_ms(lambda: cv.conv3x3_dots(x, a, b, act, wt, bias, sk,
                                               w1))
         pms = time_ms(lambda: cv.conv3x3_dots_ref(
             x, a, b, act, wt, bias, sk, w1, compute_dtype=torch.bfloat16))
-        name = f'K1 {h}^2 {cin}->{cout} {act} skip={skip}' + \
+        xc = x.permute(0, 3, 1, 2)            # NCHW view, channels_last
+        wb = wt.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        bb = bias.to(torch.bfloat16)
+        lms = time_ms(lambda: F.conv2d(xc, wb, bb, padding=1))
+        lim = k1_bound(bsz, h, cin, cout, skip, cs, cv.stats_slots(pl))
+        name = f'K1 B={bsz} {h}^2 {cin}->{cout} {act} skip={skip}' + \
             (f'({cs})' if cs else '')
-        ok = rr <= REL_RMS_BOUND and max(s1_err, s2_err) <= STATS_BOUND
-        faults = {k: rel_rms(y, k1_fault(k)(x, a, b, act, wt, bias, sk, w1)[0])
-                  for k in K1_FAULTS}
-        caught = all(v > REL_RMS_BOUND for v in faults.values())
-        print(f'  {name:38s} max_abs {err:.4g} rel_rms {rr:.3g} '
-              f'(<= {REL_RMS_BOUND}) stats_rel {max(s1_err, s2_err):.3g} '
-              f'(<= {STATS_BOUND})  kernel {ms:.4f} {ms.spread()} ms  call '
-              f'{cms:.4f} ms  plain {pms:.4f} ms'
-              f'  {"ok" if ok else "FAIL"}; planted faults: '
-              + ', '.join(f'{k} {v:.3g}' for k, v in faults.items())
+        print(f'  {name:44s} max_abs {err:.4g} rel_rms {rr:.3g} (<= '
+              f'{REL_RMS_BOUND}) stats {st_err:.3g} (<= {STATS_BOUND})  '
+              f'kernel {ms:.4f} {ms.spread()} ms  call {cms:.4f} ms  plain '
+              f'{pms:.4f} ms  conv library {lms:.4f} {lms.spread()} ms  '
+              f'bound {lim["bound_ms"]:.4f} ms ({lim["bound_by"]}, '
+              f'{lim["bound_ms"] / ms:.1%} of it)  plan TH={pl.th} '
+              f'BN={pl.bn} split={pl.split} stages={pl.stages} '
+              f'grid={pl.grid_x}x{pl.n_slices * pl.split} smem={pl.smem}  '
+              f'{"ok" if ok else "FAIL"}; planted faults: ' + ', '.join(
+                  f'{k} {v:.3g}' for k, v in faults.items())
               + f' {"FAIL as they must" if caught else "PASS (bound too loose)"}',
               flush=True)
         if not ok:
@@ -867,12 +954,27 @@ def phase_kernels():
                              f'version')
         if not caught:
             raise SystemExit(f'chip_smoke: {name}: a planted fault passes '
-                             f'the bound')
-        results.setdefault('conv3x3_dots', []).append(
-            dict(shape=name, max_abs_err=err, rel_rms=rr, ms=ms,
-                 call_ms=cms, plain_ms=pms, library_ms=None,
-                 **k1_bound(BATCH, h, cin, cout, skip, cs)))
-        del launch
+                             f'the bounds')
+        rows.append(dict(shape=name, max_abs_err=err, rel_rms=rr,
+                         stats_err=st_err, ms=ms, call_ms=cms, plain_ms=pms,
+                         library_ms=None, conv_library_ms=lms, **lim))
+        del x, y, yr, st, launch, xc
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_kernels():
+    """K1 (phase_k1), then K2 against its plain version at K2_CASES, with
+    planted faults and kernel, whole-call, plain and library times."""
+    import torch.nn.functional as F
+    from codeformer_tpu_torch.ops import conv3x3 as cv
+    results = {'conv3x3_dots': phase_k1()}
+    g = torch.Generator(device='cuda').manual_seed(1)
+    split_faults = []
+    print(f'K2 checks ({card_line()}): bf16 in/out; ref = plain version '
+          f'in fp32, TF32 off; kernel = the launch on prepared operands, '
+          f'call = the whole public call, plain = plain version in bf16 '
+          f'(cuDNN); ms per launch, median of 5 runs of 20 [min, max]')
     for bsz, h, c in K2_CASES:
         x = (torch.randn(bsz, h, h, c, generator=g, device='cuda')
              .to(torch.bfloat16))
@@ -1028,7 +1130,8 @@ def phase_slice():
 
     def against(label, k1, k2):
         with torch.inference_mode(), mock.patch.multiple(
-                cv, conv3x3_dots=k1, downsample_dots=takes_prepared(k2)):
+                cv, conv3x3_dots=takes_prepared(k1),
+                downsample_dots=takes_prepared(k2)):
             out_r, logits_r, lq_r = model(xn, 0.5, adain=True)
         diff = (img_k - restorer.denormalize(out_r).float()).abs()
         r = dict(lq=rel_rms(lq_k, lq_r), logits=rel_rms(logits_k, logits_r),
@@ -1072,7 +1175,7 @@ def phase_slice():
     if max(worst.values()) > REL_RMS_BOUND:
         raise SystemExit('chip_smoke: a kernel call of the forward '
                          'disagrees with its plain version')
-    for fault in K1_FAULTS:
+    for fault in K1_MODEL_FAULTS:
         worst = per_call(model, xn, f'planted fault: K1 {fault}',
                          k1_fault(fault), cv.downsample_dots_ref)
         if worst['conv3x3_dots'] <= REL_RMS_BOUND:
@@ -1089,18 +1192,19 @@ def per_call(model, xn, label, k1, k2) -> dict:
     compounded rounding noise. Returns the worst rel RMS by op."""
     from codeformer_tpu_torch.ops import conv3x3 as cv
     errs = {'conv3x3_dots': [], 'downsample_dots': []}
+    # the kernels take the modules' kept operands; a plain stand-in
+    # ignores them
+    k1 = k1 if k1 is cv.conv3x3_dots else takes_prepared(k1)
+    k2 = k2 if k2 is cv.downsample_dots else takes_prepared(k2)
 
-    def shadow1(*args, **kw):
-        y, st = k1(*args, **kw)
+    def shadow1(*args, prepared=None, **kw):
+        y, st = k1(*args, prepared=prepared, **kw)
         errs['conv3x3_dots'].append(
             rel_rms(y, cv.conv3x3_dots_ref(*args, **kw)[0]))
         return y, st
 
     def shadow2(x, weight, bias, prepared=None):
-        # the kernel takes the module's kept operands; a plain stand-in
-        # ignores them
-        y = k2(x, weight, bias, prepared) if k2 is cv.downsample_dots \
-            else k2(x, weight, bias)
+        y = k2(x, weight, bias, prepared=prepared)
         errs['downsample_dots'].append(
             rel_rms(y, cv.downsample_dots_ref(x, weight, bias)))
         return y
@@ -1138,8 +1242,8 @@ def plain_ops():
     port's forward as plain PyTorch, for timing."""
     from codeformer_tpu_torch.ops import conv3x3 as cv
     return mock.patch.multiple(
-        cv, conv3x3_dots=functools.partial(cv.conv3x3_dots_ref,
-                                           compute_dtype=torch.bfloat16),
+        cv, conv3x3_dots=takes_prepared(functools.partial(
+            cv.conv3x3_dots_ref, compute_dtype=torch.bfloat16)),
         downsample_dots=takes_prepared(functools.partial(
             cv.downsample_dots_ref, compute_dtype=torch.bfloat16)))
 
@@ -1413,7 +1517,8 @@ def phase_train():
 
     def idx_with(k1, k2, k3):
         with torch.no_grad(), mock.patch.multiple(
-                cv, conv3x3_dots=k1, downsample_dots=takes_prepared(k2)), \
+                cv, conv3x3_dots=takes_prepared(k1),
+                downsample_dots=takes_prepared(k2)), \
                 mock.patch.object(vq, 'nearest_code_indices', k3):
             return trainer._idx_gt(mb)
     with torch.no_grad():

@@ -31,7 +31,7 @@ _L = ctypes.c_longlong
 _D = ctypes.c_double
 # C signatures of the entry points (csrc/*.cu, extern "C")
 SIGNATURES = {
-    'cf_conv3x3_dots': [_P] * 9 + [_I] * 11 + [_P],
+    'cf_conv3x3_dots': [_P] * 10 + [_I] * 16 + [_P],
     'cf_conv3x3_bias': [_P] * 5 + [_I] * 13 + [_P],
     'cf_downsample_dots': [_P] * 5 + [_I] * 12 + [_P],
     'cf_nearest_code': [_P] * 5 + [_I] * 4 + [_P],

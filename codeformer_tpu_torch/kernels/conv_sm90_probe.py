@@ -12,6 +12,12 @@ shared memory (an SS wgmma in place of the RS one). Only the full build
 computes the conv; the others time a part. Then it samples the SM clock
 and power (nvidia-smi) while the full kernel, one cuDNN call for the same
 conv and a large bf16 matmul run back to back for a few seconds each.
+Then K1 (csrc/conv3x3_dots.cu) at its main shapes: the kernel with SiLU,
+the same launch with act 'none' (no SFU work in the prologue), builds
+with one part taken out (wrong results, the time without that part):
+the prologue stage's rewrite (its warps only pass each window on), the
+statistics, the identity skip's loads, and all three; and the bare conv
+conv3x3_bias of the same shape (no prologue, skip or statistics).
 Prints one line a shape and one a clock sample; needs one CUDA card.
 """
 from __future__ import annotations
@@ -32,7 +38,7 @@ SHAPES = ((16, 512, 64, 64), (2, 512, 64, 64), (2, 256, 128, 128),
           (16, 512, 64, 128))
 _MMA = 'Wgmma<BN>::mma(acc[mb], af[p][kk][mb], desc, keep);'
 _STORE = ('if (ok && nb < a.Cout)\n'
-          '              *reinterpret_cast<uint4*>(a.y + pix * a.Cout + nb) = o;')
+          '            *reinterpret_cast<uint4*>(a.y + pix * a.Cout + nb) = o;')
 _TMA = ('mbar_expect_tx(full, BOX);\n'
         '          tma_load_4d(win_s + stage * SLOT, &xmap, full,\n'
         '                      (split * a.cps + cl) * KC, wx, wy, b);')
@@ -82,32 +88,113 @@ def variants(hdr: str) -> dict:
             .replace(_MMA, _SS_MMA)}
 
 
+# K1's prologue loop over the window's rows, and a stand-in that runs it
+# over none of them; its statistics (from the butterfly to the last
+# barrier) and its identity skip's loads
+_PROLOGUE = 'for (int r = pt >> 3; r < ROWS; r += kPrologueThreads / 8) {'
+_NO_PROLOGUE = 'for (int r = ROWS + (pt >> 3); r < ROWS; r += 12) {'
+_STATS_FROM = '    // the 8 lanes of a column (lane >> 2) into one sum'
+_STATS_TO = '  consumer_sync();   // the partials may be overwritten by the next tile'
+_SKIP_LOAD = 'const bool ok = a.skip_id != nullptr && oy < a.Ho && ox < a.Wo;'
+_NO_SKIP_LOAD = 'const bool ok = a.skip_id != nullptr && oy < 0;'
+
+
+def k1_variants(hdr: str) -> dict:
+    """{name: conv_sm90.cuh text} of K1 with one part taken out."""
+    for part in (_PROLOGUE, _STATS_FROM, _STATS_TO, _SKIP_LOAD):
+        if part not in hdr:
+            raise RuntimeError(f'conv_sm90.cuh changed: {part[:40]!r}')
+    i, j = hdr.index(_STATS_FROM), hdr.index(_STATS_TO) + len(_STATS_TO)
+    no_stats = hdr[:i] + '    (void)s1; (void)s2;\n  }\n' + hdr[j:]
+    none = no_stats.replace(_PROLOGUE, _NO_PROLOGUE) \
+        .replace(_SKIP_LOAD, _NO_SKIP_LOAD)
+    return {'K1 no prologue': hdr.replace(_PROLOGUE, _NO_PROLOGUE),
+            'K1 no stats': no_stats,
+            'K1 no skip loads': hdr.replace(_SKIP_LOAD, _NO_SKIP_LOAD),
+            'K1 none of the three': none}
+K1_SHAPES = ((2, 512, 64, 64, 0), (8, 512, 64, 64, 0), (2, 256, 128, 128, 0),
+             (8, 16, 512, 512, 256))   # (B, H=W, Cin, Cout, projected Cs)
+
+
 def build_variants(root: Path) -> dict:
-    """Compile each variant of conv3x3_bias.cu in parallel; {name: fn}."""
+    """Compile each variant of conv3x3_bias.cu, and K1 without its
+    prologue, in parallel; {name: fn}."""
     hdr = (build.CSRC / 'conv_sm90.cuh').read_text()
     jobs = []
-    for i, (name, text) in enumerate(variants(hdr).items()):
+    sources = [(name, text, 'conv3x3_bias')
+               for name, text in variants(hdr).items()]
+    sources += [(name, text, 'conv3x3_dots')
+                for name, text in k1_variants(hdr).items()]
+    for i, (name, text, src) in enumerate(sources):
         d = root / str(i)
         d.mkdir(parents=True, exist_ok=True)
         (d / 'conv_sm90.cuh').write_text(text)
-        (d / 'conv3x3_bias.cu').write_text(
-            (build.CSRC / 'conv3x3_bias.cu').read_text())
+        (d / f'{src}.cu').write_text((build.CSRC / f'{src}.cu').read_text())
         lib = d / 'probe.so'
         cmd = [build._nvcc(), *build.NVCC_FLAGS, '-shared', '-o', str(lib),
-               str(d / 'conv3x3_bias.cu'), '-lcuda']
-        jobs.append((name, lib, subprocess.Popen(
+               str(d / f'{src}.cu'), '-lcuda']
+        jobs.append((name, lib, f'cf_{src}', subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     fns = {}
-    for name, lib, proc in jobs:
+    for name, lib, entry, proc in jobs:
         log = proc.communicate(timeout=900)[0]
         if proc.returncode:
             raise RuntimeError(f'{name}: nvcc failed\n{log[-3000:]}')
-        fn = ctypes.CDLL(str(lib)).cf_conv3x3_bias
-        fn.argtypes = build.SIGNATURES['cf_conv3x3_bias']
+        fn = getattr(ctypes.CDLL(str(lib)), entry)
+        fn.argtypes = build.SIGNATURES[entry]
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
+
+
+def dots_args(c, act: int) -> tuple:
+    """cf_conv3x3_dots' arguments for a prepared K1 launch `c`."""
+    p, (bsz, h, w, cin) = c.plan, c.x.shape
+    return (c.x.data_ptr(), c.a.data_ptr(), c.b.data_ptr(),
+            c.ops.conv.weight.data_ptr(), c.ops.conv.bias.data_ptr(),
+            c.skip.data_ptr(),
+            c.ops.w1.data_ptr() if c.ops.w1 is not None else None,
+            c.y.data_ptr(), c.stats.data_ptr(),
+            c.ws.data_ptr() if c.ws is not None else None, bsz, h, w, cin,
+            c.ops.conv.cout, p.coutp, c.ops.cs, act, c.skip_mode, p.bn, p.mb,
+            p.split, p.stages, p.smem, p.grid_x, c.x.device.index or 0,
+            torch.cuda.current_stream().cuda_stream)
+
+
+def probe_k1(fns: dict, g) -> None:
+    """K1 with SiLU, with act 'none', without its prologue stage, and the
+    bare conv of the same shape; ms, median of runs."""
+    lib = build.library()
+    for bsz, h, cin, cout, cs in K1_SHAPES:
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g, device='cuda')
+        x = rnd(bsz, h, h, cin).to(torch.bfloat16)
+        a, b = (1 + 0.1 * rnd(bsz, cin)), 0.3 * rnd(bsz, cin)
+        wt = rnd(cout, cin, 3, 3) * (9 * cin) ** -0.5
+        bias = 0.1 * rnd(cout)
+        skip = rnd(bsz, h, h, cs or cout).to(torch.bfloat16)
+        w1 = rnd(cout, cs, 1, 1) * cs ** -0.5 if cs else None
+        c = cv.prepare_dots(x, a, b, 'silu', cv.dots_operands(wt, bias, w1),
+                            skip)
+        bare = cv.prepare_conv(x, cv.conv_operands(wt, bias), 1)
+        ms = {}
+        runs = [('silu', lib.cf_conv3x3_dots, 1),
+                ('none', lib.cf_conv3x3_dots, 0)]
+        runs += [(k[3:], fn, 1) for k, fn in fns.items() if k[:3] == 'K1 ']
+        for name, fn, act in runs:
+            args = dots_args(c, act)
+
+            def run(fn=fn, args=args):
+                if fn(*args):
+                    raise RuntimeError(f'K1 {name}: launch failed')
+            ms[name] = time_ms(run)
+        ms['bare conv'] = time_ms(lambda: cv.launch_conv(bare))
+        p = c.plan
+        print(f'K1 B={bsz} {h}^2 {cin}->{cout} skip '
+              f'{"proj " + str(cs) if cs else "identity"} (TH={p.th} '
+              f'BN={p.bn} stages={p.stages}), ms: ' + '  '.join(
+                  f'{k} {v:.4f}' for k, v in ms.items()), flush=True)
 
 
 def time_ms(fn, iters: int = 20, runs: int = 5) -> float:
@@ -161,6 +248,7 @@ def main() -> None:
     fns = build_variants(build.BUILD_ROOT.parent / 'probe')
     g = torch.Generator(device='cuda').manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
+    probe_k1(fns, g)
     for bsz, h, cin, cout in SHAPES:
         x = torch.randn(bsz, h, h, cin, generator=g, device='cuda') \
             .to(torch.bfloat16)
@@ -176,6 +264,8 @@ def main() -> None:
         line = (f'B={bsz} {h}^2 {cin}->{cout} (TH={p.th} BN={p.bn} '
                 f'stages={p.stages}), ms:')
         for name, fn in fns.items():
+            if name.startswith('K1'):
+                continue
             def run(fn=fn):
                 rc = fn(*args)
                 if rc:

@@ -1,19 +1,27 @@
-"""Time an earlier checkout's conv3x3_bias and K2 the way chip_smoke.py
-times kernels now: runs of back-to-back launches between two CUDA events,
-the median run; beside it the one-event-pair-a-call reading that
-chip_smoke.py took before, and one cuDNN call for the same function.
+"""Time an earlier checkout's convs the way chip_smoke.py times kernels
+now: runs of back-to-back launches between two CUDA events, the median
+run.
 
     git archive <commit> codeformer_tpu_torch | tar -x -C build/parent
     python3 codeformer_tpu_torch/kernels/time_parent_convs.py build/parent
+    python3 codeformer_tpu_torch/kernels/time_parent_convs.py build/parent k1
 
 Run it as a file, not with -m: it imports `codeformer_tpu_torch` from the
 directory given, so the checkout's own wrappers and kernels are timed.
-It expects the C entries of commits before the Hopper conv core
-(cf_conv3x3_bias with n_frags, cf_downsample_dots without a plan).
+Without `k1` it times conv3x3_bias and K2 of commits before the Hopper
+conv core (their C entries: cf_conv3x3_bias with n_frags,
+cf_downsample_dots without a plan), each beside the one-event-pair-a-call
+reading chip_smoke.py took before and one cuDNN call for the same
+function. With `k1` it times the checkout's K1 at every shape of this
+checkout's chip_smoke.K1_CASES through the checkout's own
+`prepare_dots(x, a, b, act, weight, bias, skip, w1x1)` and `launch_dots`
+(the API of commits before K1 moved onto the Hopper core): the launch
+on prepared operands and the whole conv3x3_dots call.
 """
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -55,7 +63,24 @@ def pair_ms(fn, iters: int = 20) -> float:
     return sorted(times)[iters // 2]
 
 
-def main(root: str) -> None:
+def time_k1(cv) -> None:
+    """The checkout's K1 at every chip_smoke.K1_CASES shape."""
+    sys.path.append(str(Path(__file__).resolve().parents[2]))
+    import chip_smoke
+    g = torch.Generator(device='cuda').manual_seed(0)
+    for bsz, h, cin, cout, act, skip, cs in chip_smoke.K1_CASES:
+        x, a, b, wt, bias, sk, w1 = chip_smoke._k1_inputs(
+            g, bsz, h, cin, cout, skip, cs)
+        launch = cv.prepare_dots(x, a, b, act, wt, bias, sk, w1)
+        ms = runs_ms(lambda: cv.launch_dots(launch))
+        cms = runs_ms(lambda: cv.conv3x3_dots(x, a, b, act, wt, bias, sk,
+                                              w1))
+        print(f'K1 B={bsz} {h}^2 {cin}->{cout} {act} skip={skip}'
+              + (f'({cs})' if cs else '') + f': launch {ms:.4f} ms, call '
+              f'{cms:.4f} ms', flush=True)
+
+
+def main(root: str, k1: bool = False) -> None:
     if not torch.cuda.is_available():
         raise SystemExit('time_parent_convs: no CUDA device')
     sys.path.insert(0, os.path.abspath(root))
@@ -67,6 +92,8 @@ def main(root: str) -> None:
                          text=True, check=True).stdout.strip())
     print(f'timing the package at {codeformer_tpu_torch.__file__}',
           flush=True)
+    if k1:
+        return time_k1(cv)
     lib = library()
     g = torch.Generator(device='cuda').manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
@@ -121,6 +148,6 @@ def main(root: str) -> None:
 
 
 if __name__ == '__main__':
-    if len(sys.argv) != 2:
+    if len(sys.argv) not in (2, 3) or sys.argv[2:] not in ([], ['k1']):
         raise SystemExit(__doc__)
-    main(sys.argv[1])
+    main(sys.argv[1], sys.argv[2:] == ['k1'])

@@ -14,9 +14,11 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from codeformer_tpu_torch.nn import blocks as nb
 from codeformer_tpu_torch.nn.blocks import (AttnBlock, Conv2d, Downsample,
                                             GroupNorm32, ResBlock, Upsample,
                                             decoder_tail)
+from codeformer_tpu_torch.ops import conv3x3 as cv
 from codeformer_tpu_torch.ops import vq
 from codeformer_tpu_torch.utils.registry import ARCH_REGISTRY
 
@@ -166,7 +168,8 @@ class Generator(nn.Module):
     """Latents -> image (vqgan_arch.py:276-323). `fuse_fns` maps a block
     index to a callable applied to that block's output (CodeFormer's
     SFT fusion). With `use_kernels` the final GroupNorm + conv_out run as
-    one K1 call."""
+    one K1 call, whose operands it keeps in eval mode
+    (`kernel_operands`)."""
 
     def __init__(self, nf=64, emb_dim=256, ch_mult=(1, 2, 2, 4, 4, 8),
                  num_res_blocks=2, resolution=512, attn_resolutions=(16,),
@@ -177,6 +180,15 @@ class Generator(nn.Module):
             nf, emb_dim, tuple(ch_mult), num_res_blocks, resolution,
             tuple(attn_resolutions), out_channels)
         self.blocks = nn.ModuleList(blocks)
+        self._operands = None    # (key, the tail's cv.DotsOperands)
+
+    def kernel_operands(self):
+        """The tail conv's cv.dots_operands, kept in eval mode
+        (`kept_operands`); None in training mode."""
+        conv = self.blocks[-1]
+        return nb.kept_operands(
+            self, (conv.weight, conv.bias),
+            lambda: cv.dots_operands(conv.weight, conv.bias))
 
     def forward(self, x: torch.Tensor,
                 fuse_fns: Optional[Dict[int, Callable]] = None
@@ -187,8 +199,10 @@ class Generator(nn.Module):
             x = self.blocks[i](x)
             if i in fuse_fns:
                 x = fuse_fns[i](x)
+        kept = self.kernel_operands() \
+            if self.use_kernels and nb.on_card(x) else None
         return decoder_tail(self.blocks[n - 2], self.blocks[n - 1], x,
-                            self.use_kernels)
+                            self.use_kernels, prepared=kept)
 
 
 @ARCH_REGISTRY.register()

@@ -10,8 +10,10 @@ With `use_kernels` on (the default, and the restorer's setting) every
 ResBlock conv runs through K1 (`conv3x3_dots`, GroupNorm-apply and SiLU
 folded in) and every Downsample through K2 (`downsample_dots`); the
 decoder tail GroupNorm -> conv_out is one K1 call without activation.
-The kernels are forward-only, so training switches a model to the
-textbook form with `set_kernels(model, False)`: plain GroupNorm, SiLU and
+In eval mode each of those modules keeps its kernel-layout operands
+between calls (`kept_operands`). The kernels are forward-only, so
+training switches a model to the textbook form with
+`set_kernels(model, False)`: plain GroupNorm, SiLU and
 convs that autograd records (the JAX package trains through plain XLA
 convs the same way, train/train.py `set_colpack_mode('off')`).
 Attention, Upsample, the SFT convs and the encoder's edges are plain
@@ -91,6 +93,28 @@ def set_kernels(model: nn.Module, on: bool) -> nn.Module:
     return model
 
 
+def on_card(x: torch.Tensor) -> bool:
+    """Whether x runs the kernels (a CUDA tensor): there the modules hand
+    them their kept operands."""
+    return x.is_cuda
+
+
+def kept_operands(mod: nn.Module, params, make):
+    """`make()` kept on `mod._operands` between calls in eval mode, made
+    again when a tensor of `params` is updated in place (`_version`),
+    replaced, moved or cast; None in training mode, where nothing is
+    kept."""
+    if mod.training:
+        mod._operands = None
+        return None
+    key = tuple((t._version, t.data_ptr(), t.device, t.dtype)
+                for t in params)
+    if mod._operands is None or mod._operands[0] != key:
+        with torch.no_grad():
+            mod._operands = (key, make())
+    return mod._operands[1]
+
+
 class ResBlock(nn.Module):
     """GroupNorm -> SiLU -> 3x3 conv, twice, plus the (projected) skip
     (vqgan_arch.py:141-164). With `use_kernels`, two K1 calls:
@@ -99,7 +123,8 @@ class ResBlock(nn.Module):
       2. gn_affine(y1 stats) -> K1(silu, skip = x_in or x_in @ conv_out)
 
     The projected skip multiplies the RAW block input; conv_out's bias is
-    folded into conv2's. Without, the textbook form of JAX
+    folded into conv2's. In eval mode the block keeps both calls'
+    operands (`kernel_operands`). Without, the textbook form of JAX
     ResBlock._forward (codeformer_tpu/nn/blocks.py:127-137).
     """
 
@@ -114,6 +139,32 @@ class ResBlock(nn.Module):
         self.conv2 = Conv2d(out_ch, out_ch, 3, padding=1)
         if in_channels != out_ch:
             self.conv_out = Conv2d(in_channels, out_ch, 1)
+        self._operands = None    # (key, (ops1, ops2, bias2))
+
+    def _conv2_bias(self) -> torch.Tensor:
+        """conv2's bias, with conv_out's folded in where the skip is
+        projected."""
+        if self.in_channels == self.out_channels:
+            return self.conv2.bias
+        return self.conv2.bias + self.conv_out.bias
+
+    def kernel_operands(self):
+        """(dots_operands of conv1, of conv2 with the folded bias and
+        conv_out's 1x1 weight, the folded bias) kept in eval mode
+        (`kept_operands`); None in training mode."""
+        proj = self.in_channels != self.out_channels
+        params = [self.conv1.weight, self.conv1.bias, self.conv2.weight,
+                  self.conv2.bias]
+        if proj:
+            params += [self.conv_out.weight, self.conv_out.bias]
+
+        def make():
+            bias2 = self._conv2_bias().detach()
+            return (cv.dots_operands(self.conv1.weight, self.conv1.bias),
+                    cv.dots_operands(self.conv2.weight, bias2,
+                                     self.conv_out.weight if proj else None),
+                    bias2)
+        return kept_operands(self, params, make)
 
     def forward(self, x_in: torch.Tensor) -> torch.Tensor:
         if not self.use_kernels:
@@ -124,32 +175,33 @@ class ResBlock(nn.Module):
             return h + x_in
         x = nhwc(x_in)
         hw = x.shape[1] * x.shape[2]
+        kept = self.kernel_operands() if on_card(x) else None
+        ops1, ops2, bias2 = kept or (None, None, self._conv2_bias())
         a1, b1 = cv.gn_affine(cv.channel_stats(x), self.norm1.weight,
                               self.norm1.bias, hw)
         y1, st1 = cv.conv3x3_dots(x, a1, b1, 'silu', self.conv1.weight,
-                                  self.conv1.bias)
+                                  self.conv1.bias, prepared=ops1)
         a2, b2 = cv.gn_affine(st1, self.norm2.weight, self.norm2.bias, hw)
-        if self.in_channels != self.out_channels:
-            y, _ = cv.conv3x3_dots(y1, a2, b2, 'silu', self.conv2.weight,
-                                   self.conv2.bias + self.conv_out.bias,
-                                   skip=x, w1x1=self.conv_out.weight)
-        else:
-            y, _ = cv.conv3x3_dots(y1, a2, b2, 'silu', self.conv2.weight,
-                                   self.conv2.bias, skip=x)
+        w1x1 = self.conv_out.weight \
+            if self.in_channels != self.out_channels else None
+        y, _ = cv.conv3x3_dots(y1, a2, b2, 'silu', self.conv2.weight, bias2,
+                               skip=x, w1x1=w1x1, prepared=ops2)
         return nchw(y)
 
 
 def decoder_tail(norm: GroupNorm32, conv: Conv2d, x: torch.Tensor,
-                 use_kernels: bool = True) -> torch.Tensor:
+                 use_kernels: bool = True, prepared=None) -> torch.Tensor:
     """Generator tail GroupNorm -> conv_out (reference
     vqgan_arch.py:313-314: no swish before conv_out), as ONE K1 call with
-    no activation, or plainly without `use_kernels`."""
+    no activation, or plainly without `use_kernels`. `prepared`: the
+    conv's cv.dots_operands kept by the caller (the Generator)."""
     if not use_kernels:
         return conv(norm(x))
     xh = nhwc(x)
     a, b = cv.gn_affine(cv.channel_stats(xh), norm.weight, norm.bias,
                         xh.shape[1] * xh.shape[2])
-    y, _ = cv.conv3x3_dots(xh, a, b, 'none', conv.weight, conv.bias)
+    y, _ = cv.conv3x3_dots(xh, a, b, 'none', conv.weight, conv.bias,
+                           prepared=prepared)
     return nchw(y)
 
 
@@ -192,23 +244,15 @@ class Downsample(nn.Module):
         self._operands = None    # (key, cv.ConvOperands)
 
     def kernel_operands(self):
-        """cv.conv_operands of the conv's weight and bias, made again when
-        either is updated in place (`_version`), replaced, moved or cast;
-        None in training mode, where nothing is kept."""
-        if self.training:
-            self._operands = None
-            return None
+        """cv.conv_operands of the conv's weight and bias, kept in eval
+        mode (`kept_operands`); None in training mode."""
         w, b = self.conv.weight, self.conv.bias
-        key = tuple((t._version, t.data_ptr(), t.device, t.dtype)
-                    for t in (w, b))
-        if self._operands is None or self._operands[0] != key:
-            self._operands = (key, cv.conv_operands(w, b))
-        return self._operands[1]
+        return kept_operands(self, (w, b), lambda: cv.conv_operands(w, b))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.use_kernels:
             return self.conv(F.pad(x, (0, 1, 0, 1)))
-        ops = self.kernel_operands() if x.is_cuda else None
+        ops = self.kernel_operands() if on_card(x) else None
         return nchw(cv.downsample_dots(nhwc(x), self.conv.weight,
                                        self.conv.bias, prepared=ops))
 

@@ -16,10 +16,10 @@ packing (which only fills the TPU's 128-lane matrix unit):
 
 Dispatch: a tensor on the CPU goes to the plain PyTorch version
 (`*_ref`); a CUDA tensor launches the hand-written kernel or raises:
-K1 csrc/conv3x3_dots.cu (WMMA, conv_tile.cuh); conv3x3_bias
-csrc/conv3x3_bias.cu and K2 csrc/downsample_dots.cu, both on the Hopper
-conv core csrc/conv_sm90.cuh (TMA, wgmma, persistent blocks), whose
-tiling `conv_plan` chooses here. There is no fallback from the kernel to
+K1 csrc/conv3x3_dots.cu, conv3x3_bias csrc/conv3x3_bias.cu and K2
+csrc/downsample_dots.cu, all three on the Hopper conv core
+csrc/conv_sm90.cuh (TMA, wgmma, persistent blocks), whose tiling
+`conv_plan` chooses here. There is no fallback from the kernel to
 the plain version. The kernels are forward-only, as the TPU kernels were
 (no VJP): their outputs carry no autograd history, so the CUDA branch
 refuses to run where autograd would record through it. Training runs
@@ -27,9 +27,10 @@ the blocks' textbook form (nn/blocks.py `set_kernels`).
 
 Each CUDA call is two steps, so a caller can keep the first and time
 the second alone: preparing the operands (kernel-layout weight and bias,
-the plan, the output) -- `prepare_dots`, `conv_operands` +
-`prepare_conv` -- and the launch on them -- `launch_dots`,
-`launch_conv`.
+the plan, the output) -- `dots_operands` + `prepare_dots`,
+`conv_operands` + `prepare_conv` -- and the launch on them --
+`launch_dots`, `launch_conv`. The blocks keep their operands between
+calls in eval mode (nn/blocks.py `kept_operands`).
 """
 from __future__ import annotations
 
@@ -40,9 +41,7 @@ import torch
 import torch.nn.functional as F
 
 ACTS = ('silu', 'none')
-TILE_H, TILE_W = 8, 16     # K1's output pixels per block (conv_tile.cuh)
-CHUNK = 32                 # K1's input channels per staged chunk; the
-                           # channel multiple every conv kernel takes
+CHUNK = 32                 # the channel multiple every conv kernel takes
 
 _launches = {'conv3x3_dots': 0, 'downsample_dots': 0, 'conv3x3_bias': 0}
 
@@ -71,7 +70,8 @@ def gn_affine(stats: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
               eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fold GroupNorm into gn(x) = a*x + b per (sample, channel).
 
-    stats: (B, n_tiles, 2, C) partial [sum, sumsq]; n_pixels: H*W.
+    stats: (B, slots, 2, C) partial [sum, sumsq] (channel_stats, or
+    K1's one slot a tile: stats_slots); n_pixels: H*W.
     var = E[x^2] - mean^2 in fp32, as colpack_conv.gn_affine. Returns
     (a, b), each (B, C) fp32 contiguous.
     """
@@ -146,34 +146,8 @@ def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-def n_frags(cout: int) -> int:
-    """16-wide output-channel fragments per kernel block."""
-    return 4 if cout >= 64 else 1
-
-
-def kernel_weight(weight: torch.Tensor, cout_p: int,
-                  dtype=torch.bfloat16) -> torch.Tensor:
-    """(Cout, Cin, 3, 3) -> (9, Cin, cout_p) [tap][in][out], zero-padded
-    output channels, tap = 3*dy + dx."""
-    cout, cin = weight.shape[:2]
-    w = weight.permute(2, 3, 1, 0).reshape(9, cin, cout)
-    return F.pad(w, (0, cout_p - cout)).to(dtype).contiguous()
-
-
-def kernel_w1x1(w1x1: torch.Tensor, cout_p: int,
-                dtype=torch.bfloat16) -> torch.Tensor:
-    """(Cout, Cs[, 1, 1]) -> (Cs, cout_p)."""
-    w = w1x1.reshape(w1x1.shape[0], -1).t()
-    return F.pad(w, (0, cout_p - w.shape[1])).to(dtype).contiguous()
-
-
 def kernel_bias(bias: torch.Tensor, cout_p: int) -> torch.Tensor:
     return F.pad(bias.float(), (0, cout_p - bias.shape[0])).contiguous()
-
-
-def stats_tiles(h: int, w: int) -> int:
-    """Stats slots per image that conv3x3_dots writes (one per block)."""
-    return -(-h // TILE_H) * -(-w // TILE_W)
 
 
 def _check_act_map(name: str, t: torch.Tensor, channels: int) -> None:
@@ -253,6 +227,12 @@ def slot_bytes(stride: int, th: int) -> int:
     return _round_up(bh * bw * 2 * SM90_KC, 1024)
 
 
+def stats_bytes(bn: int) -> int:
+    """K1's per-warp statistics partials: [sum, sumsq] x BN fp32 for each
+    of the 8 consumer warps (csrc/conv_sm90.cuh stats_bytes)."""
+    return 8 * 2 * bn * 4
+
+
 class ConvPlan(NamedTuple):
     stride: int
     ho: int
@@ -270,25 +250,47 @@ class ConvPlan(NamedTuple):
     n_tiles: int           # B * tiles_y * tiles_x
     n_slices: int          # coutp // bn
     grid_x: int            # persistent blocks per (slice, split)
+    fused: bool = False    # K1: prologue, skip and statistics
+    s_chunks: int = 0      # K1's 64-channel chunks of a projected skip
 
 
+@functools.lru_cache(maxsize=None)
 def conv_plan(bsz: int, h: int, w: int, cin: int, cout: int, stride: int,
-              num_sms: int = 132) -> ConvPlan:
+              num_sms: int = 132, fused: bool = False,
+              cs: int = 0) -> ConvPlan:
     """The tiling of one conv on the Hopper core. Every (MB, BN, split)
     whose resident weights (its chunks x 9 taps x BN rows x 128 B) and at
     least two ring slots fit the shared memory is a candidate; the plan
     takes the one that comes closest to one block per SM, then the
-    smallest split (a split adds an fp32 pass), then the best variant."""
+    smallest split (a split adds an fp32 pass), then the best variant.
+
+    `fused` plans K1 (stride 1). Its shared memory adds the resident 1x1
+    weights of a projected skip of `cs` channels (its ceil(cs / 64)
+    chunks dealt round the splits, BN rows x 128 B a chunk) and the
+    statistics partials; the skip's TH x 16-pixel box fits the ring slot
+    of the window it follows, and the ready barriers the 128 bytes of
+    barriers. The blocks of every BN slice rewrite the same windows with
+    the prologue, so a narrow BN repeats the prologue over many slices
+    and runs small products: K1 takes the smallest split that lets it
+    reach BN = min(64, Cout) (the split's second pass,
+    dots_finish_kernel, then adds the bias and the skip, rounds and
+    takes the statistics), and a narrow BN only where no split does."""
+    if fused and stride != 1:
+        raise ValueError('K1 is a stride-1 conv')
     ho, wo = (h, w) if stride == 1 else (h // 2, w // 2)
     chunks = -(-cin // SM90_KC)
+    s_chunks = -(-cs // SM90_KC) if fused else 0
     coutp = _round_up(cout, 8)
-    best = None
+    cands = []
     for split in (s for s in range(1, chunks + 1) if chunks % s == 0):
         for pref, (mb, bn) in enumerate(VARIANTS[stride]):
             if coutp % bn:
                 continue
             th = tile_h(mb)
             w_bytes = chunks // split * 9 * bn * 2 * SM90_KC
+            if fused:   # W1: the skip's chunks dealt round the splits
+                w_bytes += (-(-s_chunks // split) * bn * 2 * SM90_KC
+                            + stats_bytes(bn))
             slot = slot_bytes(stride, th)
             stages = min(MAX_STAGES, (SMEM_LIMIT - ALIGN_SLACK
                                       - BARRIER_BYTES - w_bytes) // slot)
@@ -298,16 +300,22 @@ def conv_plan(bsz: int, h: int, w: int, cin: int, cout: int, stride: int,
             n_tiles = bsz * tiles_x * tiles_y
             groups = coutp // bn * split
             key = (max(0, num_sms - n_tiles * groups), split, pref)
-            if best is None or key < best[0]:
-                best = (key, ConvPlan(
-                    stride, ho, wo, th, mb, bn, split, chunks, coutp,
-                    stages, ALIGN_SLACK + w_bytes + stages * slot
-                    + BARRIER_BYTES, tiles_x, tiles_y, n_tiles,
-                    coutp // bn,
-                    max(1, min(n_tiles, num_sms // groups))))
-    if best is None:
+            cands.append((key, ConvPlan(
+                stride, ho, wo, th, mb, bn, split, chunks, coutp, stages,
+                ALIGN_SLACK + w_bytes + stages * slot + BARRIER_BYTES,
+                tiles_x, tiles_y, n_tiles, coutp // bn,
+                max(1, min(n_tiles, num_sms // groups)), fused, s_chunks)))
+    if fused:
+        cands = [c for c in cands if c[1].bn >= min(64, coutp)] or cands
+    if not cands:
         raise ValueError(f'no conv plan fits {cin} -> {cout} channels')
-    return best[1]
+    return min(cands, key=lambda c: c[0])[1]
+
+
+def stats_slots(plan: ConvPlan) -> int:
+    """K1's statistics slots an image: one a tile (tiles_y x tiles_x),
+    each written by the block that walks the tile, for its BN channels."""
+    return plan.tiles_x * plan.tiles_y
 
 
 @functools.lru_cache(maxsize=None)
@@ -413,85 +421,120 @@ def launch_conv(c: ConvLaunch) -> torch.Tensor:
     return c.y
 
 
-# ------------------------------------------------------------- kernels
+# ------------------------------------------------------------------ K1
+def w1_operand(w1x1: torch.Tensor, coutp: int,
+               dtype=torch.bfloat16) -> torch.Tensor:
+    """(Cout, Cs[, 1, 1]) -> (ceil(Cs/64), coutp, 64) [chunk][out][in %
+    64], rows swizzled like conv_operands' taps, input channels past Cs
+    and output channels past Cout zero."""
+    with torch.no_grad():
+        w = w1x1.detach().reshape(w1x1.shape[0], -1)
+        cout, cs = w.shape
+        chunks = -(-cs // SM90_KC)
+        w = F.pad(w, (0, chunks * SM90_KC - cs, 0, coutp - cout)).to(dtype)
+        w = w.reshape(coutp, chunks, SM90_KC).permute(1, 0, 2)
+        return swizzle_rows(w).contiguous()
+
+
+class DotsOperands(NamedTuple):
+    """K1's parameters in the Hopper core's layout."""
+    conv: ConvOperands             # the 3x3 weight and the (folded) bias
+    w1: Optional[torch.Tensor]     # w1_operand of a projected skip, or None
+    cs: int                        # the projected skip's channels, or 0
+
+
+def dots_operands(weight: torch.Tensor, bias: torch.Tensor,
+                  w1x1: Optional[torch.Tensor] = None,
+                  dtype=torch.bfloat16) -> DotsOperands:
+    """K1's weight (Cout, Cin, 3, 3), bias (Cout,) and, for a projected
+    skip, 1x1 weight (Cout, Cs[, 1, 1]) -> DotsOperands. The bias is the
+    conv's, plus the projection's own where there is one (the caller
+    folds it in, as the ResBlock does)."""
+    conv = conv_operands(weight, bias, dtype)
+    if w1x1 is None:
+        return DotsOperands(conv, None, 0)
+    if w1x1.shape[0] != conv.cout or w1x1[0].numel() != w1x1.shape[1]:
+        raise ValueError(f'w1x1 {tuple(w1x1.shape)} is no (Cout={conv.cout}'
+                         f', Cs[, 1, 1]) projection')
+    return DotsOperands(conv, w1_operand(w1x1, conv.bias.shape[0], dtype),
+                        w1x1.shape[1])
+
+
 class DotsLaunch(NamedTuple):
     """Everything one launch of K1 needs."""
     x: torch.Tensor
     a: torch.Tensor
     b: torch.Tensor
-    wk: torch.Tensor
-    bk: torch.Tensor
+    ops: DotsOperands
     skip: Optional[torch.Tensor]
-    w1: Optional[torch.Tensor]
+    plan: ConvPlan
     y: torch.Tensor
-    stats: torch.Tensor
-    cout: int
-    cout_p: int
-    cs: int
-    act: int
-    skip_mode: int
-    nf: int
+    stats: torch.Tensor            # (B, stats_slots(plan), 2, Cout) fp32
+    ws: Optional[torch.Tensor]     # fp32 partials of a split
+    act: int                       # 0 none, 1 SiLU
+    skip_mode: int                 # 0 none, 1 identity, 2 projected
 
 
 def prepare_dots(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                 act: str, weight: torch.Tensor, bias: torch.Tensor,
-                 skip: Optional[torch.Tensor] = None,
-                 w1x1: Optional[torch.Tensor] = None) -> DotsLaunch:
-    """K1's checks, kernel-layout weights and bias, and outputs."""
+                 act: str, ops: DotsOperands,
+                 skip: Optional[torch.Tensor] = None) -> DotsLaunch:
+    """K1's checks against the operands, its plan and its outputs."""
     if act not in ACTS:
         raise ValueError(f'act must be one of {ACTS}, got {act!r}')
     bsz, h, w, cin = x.shape
-    cout = weight.shape[0]
-    if weight.shape != (cout, cin, 3, 3):
-        raise ValueError(f'weight {tuple(weight.shape)} does not match '
-                         f'Cin={cin}')
+    cout = ops.conv.cout
+    if cin != ops.conv.cin:
+        raise ValueError(f'x has {cin} channels, the weight {ops.conv.cin}')
     if cout % CHUNK and cout != 3:
         raise ValueError(f'Cout={cout} must be a multiple of {CHUNK} or 3')
     _check_act_map('x', x, cin)
-    _check_params(x, weight, bias, w1x1)
+    _check_params(x, ops.conv.weight, ops.conv.bias, ops.w1)
     for name, t in (('a', a), ('b', b)):
         if t.dtype != torch.float32 or t.shape != (bsz, cin) \
                 or not t.is_contiguous() or t.device != x.device:
             raise ValueError(f'{name}: need contiguous fp32 ({bsz}, {cin}) '
                              f'on {x.device}')
-    skip_mode, cs = 0, 0
+    skip_mode = 0
     if skip is not None:
-        if w1x1 is None:
-            skip_mode = 1
-            _check_act_map('skip', skip, cout)
-        else:
-            skip_mode = 2
-            cs = skip.shape[-1]
-            _check_act_map('skip', skip, cs)
-            if w1x1.reshape(w1x1.shape[0], -1).shape != (cout, cs):
-                raise ValueError(f'w1x1 {tuple(w1x1.shape)} does not map '
-                                 f'{cs} -> {cout} channels')
+        skip_mode = 2 if ops.w1 is not None else 1
+        _check_act_map('skip', skip, ops.cs if ops.w1 is not None else cout)
         if skip.shape[:3] != x.shape[:3]:
             raise ValueError('skip and x differ in (B, H, W)')
-    elif w1x1 is not None:
-        raise ValueError('w1x1 given without skip')
-    nf = n_frags(cout)
-    cout_p = _round_up(cout, 16 * nf)
+    elif ops.w1 is not None:
+        raise ValueError('a 1x1 projection given without skip')
+    plan = conv_plan(bsz, h, w, cin, cout, 1, _num_sms(x.device.index or 0),
+                     fused=True, cs=ops.cs)
+    ws = None
+    if plan.split > 1:
+        ws = torch.empty((plan.split, bsz * h * w, plan.coutp),
+                         dtype=torch.float32, device=x.device)
     return DotsLaunch(
-        x, a, b, kernel_weight(weight, cout_p), kernel_bias(bias, cout_p),
-        skip, kernel_w1x1(w1x1, cout_p) if skip_mode == 2 else None,
+        x, a, b, ops, skip, plan,
         torch.empty((bsz, h, w, cout), dtype=x.dtype, device=x.device),
-        torch.empty((bsz, stats_tiles(h, w), 2, cout), dtype=torch.float32,
-                    device=x.device),
-        cout, cout_p, cs, 1 if act == 'silu' else 0, skip_mode, nf)
+        torch.empty((bsz, stats_slots(plan), 2, cout), dtype=torch.float32,
+                    device=x.device), ws,
+        1 if act == 'silu' else 0, skip_mode)
 
 
 def launch_dots(c: DotsLaunch):
     """Launch K1 on prepared operands; returns the prepared (y, stats)."""
     from codeformer_tpu_torch.kernels.build import library
-    bsz, h, w, cin = c.x.shape
+    if c.y.numel() == 0:
+        return c.y, c.stats
     dev, stream = _device_and_stream(c.x)
+    p, (bsz, h, w, cin) = c.plan, c.x.shape
     rc = library().cf_conv3x3_dots(
-        c.x.data_ptr(), c.a.data_ptr(), c.b.data_ptr(), c.wk.data_ptr(),
-        c.bk.data_ptr(), c.skip.data_ptr() if c.skip is not None else None,
-        c.w1.data_ptr() if c.w1 is not None else None, c.y.data_ptr(),
-        c.stats.data_ptr(), bsz, h, w, cin, c.cout, c.cout_p, c.cs, c.act,
-        c.skip_mode, c.nf, dev, stream)
+        c.x.data_ptr(), c.a.data_ptr(), c.b.data_ptr(),
+        c.ops.conv.weight.data_ptr(), c.ops.conv.bias.data_ptr(),
+        c.skip.data_ptr() if c.skip is not None else None,
+        c.ops.w1.data_ptr() if c.skip_mode == 2 else None, c.y.data_ptr(),
+        c.stats.data_ptr(), c.ws.data_ptr() if c.ws is not None else None,
+        bsz, h, w, cin, c.ops.conv.cout, p.coutp, c.ops.cs, c.act,
+        c.skip_mode, p.bn, p.mb, p.split, p.stages, p.smem, p.grid_x, dev,
+        stream)
+    if rc < 0:
+        raise RuntimeError(f'conv3x3_dots: a tensor map could not be '
+                           f'encoded: CUresult {-rc}')
     if rc != 0:
         raise RuntimeError(f'conv3x3_dots kernel launch failed: cudaError {rc}')
     _launches['conv3x3_dots'] += 1
@@ -501,14 +544,27 @@ def launch_dots(c: DotsLaunch):
 def conv3x3_dots(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                  act: str, weight: torch.Tensor, bias: torch.Tensor,
                  skip: Optional[torch.Tensor] = None,
-                 w1x1: Optional[torch.Tensor] = None):
+                 w1x1: Optional[torch.Tensor] = None,
+                 prepared: Optional[DotsOperands] = None):
     """K1. Arguments and results as conv3x3_dots_ref; on CUDA the stats
-    are per kernel block: (B, stats_tiles(H, W), 2, Cout)."""
+    are one slot a tile: (B, stats_slots(plan), 2, Cout). `prepared`:
+    dots_operands(weight, bias, w1x1) kept by the caller (the ResBlock and
+    the Generator's tail keep them between calls), else made here."""
     if x.device.type == 'cpu':
         return conv3x3_dots_ref(x, a, b, act, weight, bias, skip, w1x1)
     _refuse_autograd('conv3x3_dots', x, a, b, weight, bias, skip, w1x1)
     _device_and_stream(x)
-    return launch_dots(prepare_dots(x, a, b, act, weight, bias, skip, w1x1))
+    cout, cin = weight.shape[:2]
+    if weight.shape != (cout, x.shape[-1], 3, 3) or bias.shape != (cout,):
+        raise ValueError(f'weight {tuple(weight.shape)} / bias '
+                         f'{tuple(bias.shape)} do not match '
+                         f'Cin={x.shape[-1]}')
+    ops = prepared if prepared is not None \
+        else dots_operands(weight, bias, w1x1)
+    if (ops.conv.cin, ops.conv.cout) != (cin, cout) \
+            or (ops.w1 is None) != (w1x1 is None):
+        raise ValueError('the prepared operands do not match the weights')
+    return launch_dots(prepare_dots(x, a, b, act, ops, skip))
 
 
 def downsample_dots(x: torch.Tensor, weight: torch.Tensor,

@@ -134,71 +134,29 @@ def test_downsample_pads_bottom_right_only():
     assert not torch.allclose(y, sym, atol=1e-3)
 
 
-def _emulate_k1(x, a, b, act, wk, bk, cout, w1=None, skip=None):
-    """The CUDA kernel's GEMM on its prepared operands, in torch: tap
-    t = 3*dy + dx reads input pixel (y + dy - 1, x + dx - 1)."""
-    hf = x * a[:, None, None] + b[:, None, None]
-    hf = F.silu(hf) if act == 'silu' else hf
-    hp = F.pad(hf, (0, 0, 1, 1, 1, 1))
-    bsz, h, w, _ = x.shape
-    acc = torch.zeros(bsz, h, w, wk.shape[-1])
-    for t in range(9):
-        dy, dx = divmod(t, 3)
-        acc += hp[:, dy:dy + h, dx:dx + w] @ wk[t].float()
-    if w1 is not None:
-        acc += skip @ w1.float()
-    elif skip is not None:
-        acc[..., :cout] += skip
-    return (acc + bk)[..., :cout]
-
-
-@pytest.mark.parametrize('cout,proj', [(64, False), (3, False), (64, True)])
-def test_kernel_operands_emulate_conv(cout, proj):
-    """The layouts conv3x3_dots hands the CUDA kernel (padded
-    [tap][in][out] weights, (Cs, CoutP) 1x1, padded fp32 bias) compute
-    the plain version's function."""
-    g = torch.Generator().manual_seed(3)
-    b, h, w, cin, cs = 2, 8, 16, 32, 64
-    x = torch.randn(b, h, w, cin, generator=g)
-    a = torch.rand(b, cin, generator=g) + 0.5
-    bb = torch.randn(b, cin, generator=g)
-    weight = torch.randn(cout, cin, 3, 3, generator=g) * 0.1
-    bias = torch.randn(cout, generator=g)
-    skip = torch.randn(b, h, w, cs if proj else cout, generator=g)
-    w1 = torch.randn(cout, cs, 1, 1, generator=g) * 0.1 if proj else None
-    cout_p = -(-cout // (16 * cv.n_frags(cout))) * 16 * cv.n_frags(cout)
-    wk = cv.kernel_weight(weight, cout_p, torch.float32)
-    assert wk.shape == (9, cin, cout_p)
-    w1k = cv.kernel_w1x1(w1, cout_p, torch.float32) if proj else None
-    got = _emulate_k1(x, a, bb, 'silu', wk, cv.kernel_bias(bias, cout_p),
-                      cout, w1k, skip)
-    want, _ = cv.conv3x3_dots_ref(x, a, bb, 'silu', weight, bias, skip, w1)
-    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
-                               atol=1e-4)
-
-
 def test_downsample_operands_emulate_conv():
     """K2 reads input pixel (2*oy + dy, 2*ox + dx), zero past the last row
-    and column."""
+    and column, against tap t = 3*dy + dx of conv_operands' layout, the
+    one csrc/downsample_dots.cu reads: its rows unswizzled, the input
+    channels of each 64-channel chunk, zero past Cin (here 96: a tail)."""
     g = torch.Generator().manual_seed(4)
-    x = torch.randn(2, 16, 32, 64, generator=g)
-    weight = torch.randn(64, 64, 3, 3, generator=g) * 0.1
-    bias = torch.randn(64, generator=g)
-    wk = cv.kernel_weight(weight, 64, torch.float32)
-    xp = F.pad(x, (0, 0, 0, 1, 0, 1))
-    acc = cv.kernel_bias(bias, 64).expand(2, 8, 16, 64).clone()
+    x = torch.randn(2, 16, 32, 96, generator=g)
+    weight = torch.randn(96, 96, 3, 3, generator=g) * 0.1
+    bias = torch.randn(96, generator=g)
+    ops = cv.conv_operands(weight, bias, torch.float32)
+    assert torch.equal(cv.operands_weight(ops), weight)
+    taps = cv.swizzle_rows(ops.weight)      # (chunks, 9, CoutP, 64)
+    assert taps.shape == (2, 9, 96, 64) and not taps[1, :, :, 32:].any()
+    xp = F.pad(x, (0, 32, 0, 1, 0, 1))      # the chunk tail, then the pad
+    acc = ops.bias.expand(2, 8, 16, 96).clone()
     for t in range(9):
         dy, dx = divmod(t, 3)
-        acc += xp[:, dy:dy + 16:2, dx:dx + 32:2] @ wk[t]
+        for c in range(2):
+            acc += xp[:, dy:dy + 16:2, dx:dx + 32:2, 64 * c:64 * c + 64] \
+                @ taps[c, t].t()
     want = cv.downsample_dots_ref(x, weight, bias)
     np.testing.assert_allclose(acc.numpy(), want.numpy(), rtol=1e-4,
                                atol=1e-4)
-
-
-def test_stats_tiles_and_frags():
-    assert cv.stats_tiles(512, 512) == 64 * 32
-    assert cv.stats_tiles(16, 16) == 2
-    assert cv.n_frags(3) == 1 and cv.n_frags(64) == 4
 
 
 def test_bad_act_raises():

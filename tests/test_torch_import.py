@@ -110,9 +110,9 @@ def test_kernel_sources_and_signatures():
 
     from codeformer_tpu_torch.kernels import build
     names = {p.name for p in build._sources()}
-    assert {'conv3x3_dots.cu', 'downsample_dots.cu', 'nearest_code.cu',
-            'fused_act.cu', 'conv_tile.cuh', 'conv_sm90.cuh',
-            'conv3x3_bias.cu'} <= names
+    assert names == {'conv3x3_dots.cu', 'downsample_dots.cu',
+                     'nearest_code.cu', 'fused_act.cu', 'conv_sm90.cuh',
+                     'conv3x3_bias.cu'}
     assert {'cf_conv3x3_bias', 'cf_downsample_dots', 'cf_fused_lrelu_fwd',
             'cf_fused_lrelu_bwd'} <= set(build.SIGNATURES)
     src = '\n'.join(p.read_text() for p in build._sources())

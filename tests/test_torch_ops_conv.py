@@ -2,9 +2,9 @@
 kernels that compute it in their packings: conv3x3_colpack (column
 pairs, K1'), conv3x3_pallas (phase pairs, K5) and conv3x3_pair (image
 pairs, K6), each through the Pallas interpreter on the CPU. The port's
-wrapper takes its plain version here; the CUDA kernel (conv3x3_dots.cu
-with no prologue) is held against the same plain version on the card by
-chip_smoke.py.
+wrapper takes its plain version here; the CUDA kernel (conv3x3_bias.cu
+on the Hopper conv core) is held against the same plain version on the
+card by chip_smoke.py.
 
 fp32 on both sides: 1e-4 (fp32 sums in other orders). In bf16 the JAX
 K5 adds its bias after the kernel in x.dtype, so it rounds twice; the
