@@ -17,9 +17,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      (the launch on prepared operands), whole-call, plain and library
      times (for K1 the library call is a cuDNN conv of the same shape,
      the conv alone);
-  4. K3 (nearest code) against its plain version at the training path's
-     token counts on three codebooks (exact lowest index on duplicated
-     rows), planted faults that must fail, kernel vs plain times;
+  4. K3 (nearest code) against its plain version at the token counts of
+     stage II and latent-GT generation, on four codebooks (K = 1024 and
+     512; exact lowest index on duplicated rows), z in fp32 and bf16, a
+     call after an in-place change of the codebook, planted faults that
+     must fail at every T, one device activity a call on a kept codebook
+     (torch.profiler), kernel, whole-call, plain and fp32-product times;
   4b. the ops layer: K4 (fused_leaky_relu forward and backward) and the
      bare conv conv3x3_bias (the counterpart of K1', K5, K6) against
      their plain versions, planted faults that must fail, gradients and
@@ -331,8 +334,10 @@ K2_FAULTS = ('symmetric pad', 'pad top-left', 'tap off by one',
              'split partial dropped')
 
 # K3 (nearest code): tokens at the stage-II shape (B*256 for B = 1, 4,
-# 16) and a generate_latent_gt-sized run; D and K of every shipped config
-K3_TOKENS = (256, 1024, 4096, 16384)
+# 16), generate_latent_gt at its default batch of 8 (2048) and a large
+# run; D of every shipped config; K = 1024 (restoration, colorization,
+# stage II) and 512 (the inpainting codebook)
+K3_TOKENS = (256, 1024, 2048, 4096, 16384)
 K3_DIM, K3_CODES = 256, 1024
 K3_PATH_TOKENS = 1024     # stage II at batch_size_per_gpu 4
 # Kernel and plain version sum the same fp32 products in other orders, so
@@ -340,7 +345,8 @@ K3_PATH_TOKENS = 1024     # stage II at batch_size_per_gpu 4
 # rounding. Every disagreement must pick a code whose exact (fp64)
 # squared distance is within this relative margin of the exact minimum.
 K3_MARGIN = 1e-5
-K3_FAULTS = ('ties to the highest index', 'e_sq dropped')
+K3_FAULTS = ('ties to the highest index', 'e_sq dropped',
+             'a cluster rank dropped', 'stale cache')
 
 
 def k3_fault(kind: str):
@@ -349,29 +355,55 @@ def k3_fault(kind: str):
     from codeformer_tpu_torch.ops import vq
 
     def run(z, e):
+        z = z.float()
         with vq._fp32_matmul():
             dot = z @ e.t()
+        d = e.square().sum(1)[None] - 2.0 * dot
         if kind == 'ties to the highest index':
-            d = e.square().sum(1)[None] - 2.0 * dot
             return e.shape[0] - 1 - d.flip(1).argmin(1)
         if kind == 'e_sq dropped':
             return (-2.0 * dot).argmin(1)
+        if kind == 'a cluster rank dropped':
+            # the codes of the last rank of the kernel's cluster never
+            # reach rank 0 (with a cluster of 1, those of a second rank)
+            cs = max(2, vq.prepare_nearest_code(z, e).plan.cluster)
+            tile = torch.arange(e.shape[0], device=e.device) \
+                // vq.K3_CODES_PER_TILE
+            lost = tile % cs == cs - 1
+            return d.masked_fill(lost[None], float('inf')).argmin(1)
         raise ValueError(kind)
     return run
 
 
+def k3_after_change(z, e, stale: bool):
+    """K3 on a copy of e, then again after the copy is negated in place
+    (as an optimizer step would update it): (second result, the changed
+    codebook). With `stale` the operand cache's key leaves out the
+    tensor's version, so the second call reads the kept operands of the
+    old codebook: a fault the check on the new one must catch."""
+    from codeformer_tpu_torch.ops import vq
+    e = e.clone()
+    key = (lambda c: (c.data_ptr(), c.device, c.dtype, tuple(c.shape))) \
+        if stale else vq.codebook_key
+    with mock.patch.object(vq, 'codebook_key', key):
+        vq.nearest_code_indices(z, e)
+        e.mul_(-1.0)
+        return vq.nearest_code_indices(z, e), e
+
+
 def k3_codebooks(g):
     """{name: (K, D) fp32}: the init scale (uniform +-1/K, the random-init
-    codebook of the training path), a unit-scale one, and one whose 1024
-    rows are 256 distinct rows each repeated 4 times at scattered places
-    (exact ties)."""
+    codebook of the training path), a unit-scale one, one whose 1024 rows
+    are 256 distinct rows each repeated 4 times at scattered places (exact
+    ties), and the inpainting config's K = 512 at unit scale."""
     k, d = K3_CODES, K3_DIM
     base = torch.randn(k // 4, d, generator=g, device='cuda')
     dup_of = torch.randperm(k, generator=g, device='cuda') % (k // 4)
     return {'init scale': (torch.rand(k, d, generator=g, device='cuda')
                            * 2 - 1) / k,
             'unit scale': torch.randn(k, d, generator=g, device='cuda'),
-            'duplicated rows': base[dup_of].contiguous()}, dup_of
+            'duplicated rows': base[dup_of].contiguous(),
+            'K=512': torch.randn(512, d, generator=g, device='cuda')}, dup_of
 
 
 def k3_verdict(got, ref, z, e, dup_of=None) -> dict:
@@ -400,53 +432,123 @@ def k3_verdict(got, ref, z, e, dup_of=None) -> dict:
     return r
 
 
+def device_launches(fn, name: str = 'nearest_code', iters: int = 20):
+    """(device activities a launch of the kernel whose name holds `name`,
+    ms a launch of it) of fn() from torch.profiler over `iters` calls
+    after a warm-up: kernels, copies and sets, each counted, over the
+    kernel's own launches. A profiler session after an earlier one in the
+    same process may miss the first few calls, so the count is taken per
+    launch seen, not per call made."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_time_total > 0
+            and e.device_type != torch.autograd.DeviceType.CPU]
+    seen = sum(e.count for e in rows if name in e.key)
+    if not seen:
+        raise SystemExit(f'chip_smoke: the profiler saw no {name} launch')
+    return (sum(e.count for e in rows) / seen,
+            sum(e.device_time_total for e in rows if name in e.key)
+            / seen / 1e3)
+
+
 def phase_k3():
-    """K3 against its plain version (fp32, TF32 off) at the path's token
-    counts on three codebooks; planted faults that must fail; kernel vs
-    plain times (CUDA events, median of 20 after 3 warm-ups)."""
+    """K3 against its plain version (fp32, TF32 off) at the token counts
+    of K3_TOKENS on four codebooks, with z in fp32 and in bf16; the
+    operand cache after an in-place change; planted faults that must fail
+    at every T; the launch on a prepared call, the whole call, the plain
+    version and the fp32 product alone (TF32 off) timed with CUDA events.
+    Returns the rows of the init-scale codebook and the timed calls, whose
+    device activities `phase_k3_activities` counts after the main paths
+    (a profiler session leaves the host's launches slower for the rest
+    of the process, and the serving and training rates are host-bound)."""
     from codeformer_tpu_torch.ops import vq
     g = torch.Generator(device='cuda').manual_seed(3)
     books, dup_of = k3_codebooks(g)
-    print(f'K3 checks ({card_line()}): D={K3_DIM}, K={K3_CODES}, z ~ N(0, '
-          f'1) fp32; ref = '
-          f'plain version (fp32, TF32 off); a disagreement must be within '
-          f'{K3_MARGIN} of the exact (fp64) minimum distance; on duplicated '
-          f'rows every pick must be the lowest index', flush=True)
-    rows = []
+    print(f'K3 checks ({card_line()}): D={K3_DIM}, K={K3_CODES} and 512, z ~ '
+          f'N(0, 1) in fp32 and bf16; ref = plain version (fp32, TF32 off) '
+          f'on the same z; a disagreement must be within {K3_MARGIN} of the '
+          f'exact (fp64) minimum distance; on duplicated rows every pick '
+          f'must be the lowest index; after an in-place change the next '
+          f'call must match the plain version on the new codebook',
+          flush=True)
+    rows, calls = [], []
     caught = {k: set() for k in K3_FAULTS}
     for n_tok in K3_TOKENS:
         z = torch.randn(n_tok, K3_DIM, generator=g, device='cuda')
         for name, e in books.items():
             dup = dup_of if name == 'duplicated rows' else None
-            got = vq.nearest_code_indices(z, e)
-            torch.cuda.synchronize()
+            max_abs = 0.0
+            for zname, zz in (('fp32', z), ('bf16', z.bfloat16())):
+                got = vq.nearest_code_indices(zz, e)
+                torch.cuda.synchronize()
+                ref = vq._nearest_code_ref(zz, e)
+                r = k3_verdict(got, ref, zz.float(), e, dup)
+                max_abs = max(max_abs, r['max_abs'])
+                print(f'  K3 T={n_tok:5d} K={e.shape[0]:4d} {name:15s} z '
+                      f'{zname}: agreement {r["agree"]:.6f}, worst '
+                      f'disagreement gap {r["worst_gap"]:.3g} (<= '
+                      f'{K3_MARGIN}), max abs distance gap '
+                      f'{r["max_abs"]:.3g}, lowest index on ties '
+                      f'{r["lowest"]}: {"ok" if r["ok"] else "FAIL"}',
+                      flush=True)
+                if not r['ok']:
+                    raise SystemExit(f'chip_smoke: K3 T={n_tok} {name} z '
+                                     f'{zname} disagrees with its plain '
+                                     f'version')
             ref = vq._nearest_code_ref(z, e)
-            r = k3_verdict(got, ref, z, e, dup)
             faults = {k: k3_verdict(k3_fault(k)(z, e), ref, z, e, dup)['ok']
-                      for k in K3_FAULTS}
-            line = (f'  K3 T={n_tok:5d} {name:15s} agreement '
-                    f'{r["agree"]:.6f}, worst disagreement gap '
-                    f'{r["worst_gap"]:.3g} (<= {K3_MARGIN}), max abs '
-                    f'distance gap {r["max_abs"]:.3g}, lowest index on ties '
-                    f'{r["lowest"]}: {"ok" if r["ok"] else "FAIL"}')
-            if name == 'init scale':
-                ms = time_ms(lambda: vq.nearest_code_indices(z, e))
-                pms = time_ms(lambda: vq._nearest_code_ref(z, e))
-                line += f'  kernel {ms:.4f} ms  plain {pms:.4f} ms'
-                rows.append(dict(tokens=n_tok, max_abs_err=r['max_abs'],
-                                 ms=ms, plain_ms=pms, library_ms=None,
-                                 **bound(2 * n_tok * K3_CODES * K3_DIM,
-                                         4 * (n_tok + K3_CODES) * K3_DIM
-                                         + 4 * n_tok, FP32_FLOPS)))
-            print(line + '; planted faults: ' + ', '.join(
-                f'{k} {"passes" if v else "fails"}'
-                for k, v in faults.items()), flush=True)
-            if not r['ok']:
-                raise SystemExit(f'chip_smoke: K3 T={n_tok} {name} disagrees '
-                                 f'with its plain version')
+                      for k in K3_FAULTS if k != 'stale cache'}
+            new = {}
+            for stale in (False, True):
+                got, e2 = k3_after_change(z, e, stale)
+                new[stale] = k3_verdict(got, vq._nearest_code_ref(z, e2), z,
+                                        e2, dup)['ok']
+            faults['stale cache'] = new[True]
+            print(f'    after an in-place change: '
+                  f'{"ok" if new[False] else "FAIL"}; planted faults: '
+                  + ', '.join(f'{k} {"passes" if v else "fails"}'
+                              for k, v in faults.items()), flush=True)
+            if not new[False]:
+                raise SystemExit(f'chip_smoke: K3 T={n_tok} {name}: a call '
+                                 f'after an in-place change of the codebook '
+                                 f'disagrees with the plain version on it')
             for k, v in faults.items():
                 if not v:
                     caught[k].add(n_tok)
+            if name not in ('init scale', 'K=512'):
+                continue
+            n_codes = e.shape[0]
+            prep = vq.prepare_nearest_code(z, e)
+            prep_bf16 = vq.prepare_nearest_code(z.bfloat16(), e)
+            ms = time_ms(lambda: vq.launch_nearest_code(prep))
+            bf16_ms = time_ms(lambda: vq.launch_nearest_code(prep_bf16))
+            cms = time_ms(lambda: vq.nearest_code_indices(z, e))
+            pms = time_ms(lambda: vq._nearest_code_ref(z, e))
+            with vq._fp32_matmul():
+                gms = time_ms(lambda: torch.mm(z, e.t()))
+            lim = bound(2 * n_tok * n_codes * K3_DIM,
+                        4 * (n_tok + n_codes) * K3_DIM + 8 * n_tok,
+                        FP32_FLOPS)
+            p = prep.plan
+            print(f'    kernel {ms:.4f} ms {ms.spread()} '
+                  f'({100 * lim["bound_ms"] / ms:.1f}% of the '
+                  f'{lim["bound_ms"]:.4f} ms fp32 bound; {p.tok_tiles} x '
+                  f'{p.cluster} blocks in clusters of {p.cluster}), z bf16 '
+                  f'{bf16_ms:.4f}, whole call {cms:.4f}, plain {pms:.4f}, '
+                  f'fp32 product alone (gemm_library_ms, not the same '
+                  f'function) {gms:.4f}', flush=True)
+            row = dict(tokens=n_tok, codes=n_codes, max_abs_err=max_abs,
+                       ms=ms, call_ms=cms, plain_ms=pms, library_ms=None,
+                       gemm_library_ms=gms, bf16_ms=bf16_ms, **lim)
+            calls.append((row, z, e))
+            if name == 'init scale':
+                rows.append(row)
     for k in K3_FAULTS:
         if caught[k] != set(K3_TOKENS):
             raise SystemExit(f'chip_smoke: the K3 checks let the planted '
@@ -454,7 +556,24 @@ def phase_k3():
                              f'{sorted(set(K3_TOKENS) - caught[k])}')
     print('  K3 planted faults fail the checks at every T, as they must',
           flush=True)
-    return rows
+    return rows, calls
+
+
+def phase_k3_activities(calls) -> None:
+    """Device activities a K3 call on a kept codebook takes (torch.profiler,
+    per launch of the kernel; must be 1: the kernel, no memset, copy or
+    second pass) and the kernel's device time, for each timed call of
+    phase_k3; both go into its row."""
+    from codeformer_tpu_torch.ops import vq
+    for row, z, e in calls:
+        acts, dev_ms = device_launches(lambda: vq.nearest_code_indices(z, e))
+        row.update(launches_per_call=acts, device_ms=dev_ms)
+        print(f'  K3 T={row["tokens"]:5d} K={row["codes"]:4d}: device '
+              f'activities a call on a kept codebook {acts:g}, kernel '
+              f'device time (profiler) {dev_ms:.4f} ms', flush=True)
+        if acts != 1:
+            raise SystemExit(f'chip_smoke: a K3 call on a kept codebook ran '
+                             f'{acts:g} device activities, not 1')
 
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet,
@@ -1647,7 +1766,7 @@ def main():
     sys.path.insert(0, ROOT)
     phase_build()
     results = phase_kernels()
-    k3_rows = phase_k3()
+    k3_rows, k3_calls = phase_k3()
     k4_rows, conv_rows, ops_counts = phase_ops()
     serve_counts, restorer = phase_slice()
     if '--profile' in sys.argv[1:]:
@@ -1659,6 +1778,8 @@ def main():
         phase_train_profile(trainer)
     print(f'main-path launches: serving {serve_counts}; stage-II training '
           f'{train_counts}; ops path {ops_counts}')
+    phase_k3_activities(k3_calls)
+    del k3_calls
     # head row of each kernel: K1/K2 the 512^2 shape, K3 the path's T,
     # K4 and the bare conv the ops path's shape
     results['nearest_code'] = [r for r in k3_rows

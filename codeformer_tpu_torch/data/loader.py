@@ -60,11 +60,14 @@ def _stack(samples) -> Dict:
 
 
 class DataLoader:
-    """Iterates batches forever (training) or one epoch (validation)."""
+    """Iterates batches forever (training) or one epoch (validation),
+    starting at the sampler's epoch `start_epoch` (a resumed run's
+    epoch, as the reference's loop sets it; basicsr/train.py:171-210)."""
 
     def __init__(self, dataset, batch_size: int, sampler=None,
                  num_workers: int = 4, prefetch: int = 4,
-                 drop_last: bool = True, loop: bool = True):
+                 drop_last: bool = True, loop: bool = True,
+                 start_epoch: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.sampler = sampler or EnlargedSampler(len(dataset))
@@ -72,6 +75,7 @@ class DataLoader:
         self.prefetch = prefetch
         self.drop_last = drop_last
         self.loop = loop
+        self.start_epoch = start_epoch
 
     def __iter__(self):
         q: 'queue.Queue' = queue.Queue(maxsize=self.prefetch)
@@ -124,7 +128,7 @@ class DataLoader:
                     return not put(e)
                 return not put(batch)
 
-            epoch = 0
+            epoch = self.start_epoch
             try:
                 while not stop.is_set():
                     for bidx in epoch_batches(epoch):
@@ -165,8 +169,10 @@ class DataLoader:
 
 def build_dataloader(dataset, dataset_opt: Dict, sampler=None,
                      num_replicas: int = 1, rank: int = 0,
-                     is_train: bool = True) -> DataLoader:
-    """Factory mirroring basicsr/data/__init__.py:40-93."""
+                     is_train: bool = True,
+                     start_epoch: int = 0) -> DataLoader:
+    """Factory mirroring basicsr/data/__init__.py:40-93; a training
+    loader starts at `start_epoch`."""
     if is_train:
         batch = dataset_opt['batch_size_per_gpu']
         sampler = sampler or EnlargedSampler(
@@ -177,7 +183,7 @@ def build_dataloader(dataset, dataset_opt: Dict, sampler=None,
                           num_workers=dataset_opt.get(
                               'num_worker_per_gpu', 4),
                           prefetch=dataset_opt.get('num_prefetch_queue', 4),
-                          drop_last=True, loop=True)
+                          drop_last=True, loop=True, start_epoch=start_epoch)
     return DataLoader(dataset, 1, sampler=EnlargedSampler(len(dataset)),
                       num_workers=1, prefetch=2, drop_last=False,
                       loop=False)

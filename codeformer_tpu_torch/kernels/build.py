@@ -34,7 +34,8 @@ SIGNATURES = {
     'cf_conv3x3_dots': [_P] * 10 + [_I] * 16 + [_P],
     'cf_conv3x3_bias': [_P] * 5 + [_I] * 13 + [_P],
     'cf_downsample_dots': [_P] * 5 + [_I] * 12 + [_P],
-    'cf_nearest_code': [_P] * 5 + [_I] * 4 + [_P],
+    'cf_nearest_code': [_P, _I, _P, _P, _P] + [_I] * 7 + [_P],
+    'cf_nearest_code_resident': [_I] * 4,
     'cf_fused_lrelu_fwd': [_P] * 3 + [_I, _L, _I, _D, _D, _I, _P],
     'cf_fused_lrelu_bwd': [_P] * 4 + [_I, _L, _I, _I, _D, _D, _I, _P],
     'cf_fused_lrelu_bwd_rows': [_I, _L, _I, _I],

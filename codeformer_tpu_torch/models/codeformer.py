@@ -5,8 +5,11 @@ VQGAN backbone + transformer code predictor + SFT fusion
 Layouts: the image and feature maps are NCHW (channels_last memory), the
 256-token path is batch-major (B, S, E). Code selection is the argmax of
 the logits (the reference's softmax -> top-1 picks the same code).
-Stage-II training runs `forward(..., code_only=True)`; `detach_16` and
-the staged-split methods of the JAX model wait for stage III.
+Stage-II training runs `forward(..., code_only=True)`. The gradient cuts
+are JAX's: `detach_16` stops the gradient at the looked-up codebook
+features, and the encoder features handed to the fuse blocks never pass
+a gradient back. The staged-split methods of the JAX model wait for
+stage III.
 """
 from __future__ import annotations
 
@@ -58,11 +61,15 @@ class CodeFormer(VQAutoEncoder):
             {f: FuseSftBlock(channels[f], channels[f])
              for f in self.connect_list})
 
-    def forward(self, x: torch.Tensor, w=0.0, code_only: bool = False,
-                adain: bool = False, enable_fuse: bool = True):
+    def forward(self, x: torch.Tensor, w=0.0, detach_16: bool = True,
+                code_only: bool = False, adain: bool = False,
+                enable_fuse: bool = True):
         """x: (B, 3, H, W) in [-1, 1]. Returns (out, logits, lq_feat), or
-        (logits, lq_feat) with code_only. `enable_fuse` is the reference's
-        `w > 0` gate (False skips the SFT fusion)."""
+        (logits, lq_feat) with code_only. `detach_16` stops the gradient at
+        the codebook features before AdaIN (JAX models/codeformer.py:
+        124-125); the encoder taps reach the fuse blocks detached, always
+        (:139). `enable_fuse` is the reference's `w > 0` gate (False skips
+        the SFT fusion)."""
         taps = [self.encoder.tap_by_size[s] for s in self.connect_list]
         lq_feat, enc_feats = self.encoder(x, taps)
         b, _, h, wd = lq_feat.shape
@@ -77,6 +84,8 @@ class CodeFormer(VQAutoEncoder):
         top_idx = logits.argmax(-1)
         quant_feat = self.quantize.get_codebook_feat(
             top_idx, shape=(b, h, wd, self.emb_dim), dtype=lq_feat.dtype)
+        if detach_16:
+            quant_feat = quant_feat.detach()
         if adain:
             quant_feat = adaptive_instance_normalization(quant_feat, lq_feat)
 
@@ -85,7 +94,7 @@ class CodeFormer(VQAutoEncoder):
             gen_taps = self.generator.tap_by_size
             for f_size in self.connect_list:
                 fuse = self.fuse_convs_dict[f_size]
-                enc = enc_feats[f_size]
+                enc = enc_feats[f_size].detach()
                 fuse_fns[gen_taps[f_size]] = (
                     lambda dec, fuse=fuse, enc=enc: fuse(enc, dec, w))
         out = self.generator(quant_feat, fuse_fns=fuse_fns)

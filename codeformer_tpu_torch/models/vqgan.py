@@ -47,8 +47,9 @@ class VectorQuantizer(nn.Module):
         z32 = z.float()
         z_flat = z32.permute(0, 2, 3, 1).reshape(-1, d)
         codebook = self.embedding.weight
+        # the parameter itself, so K3 finds its kept operands again
         indices = vq.nearest_code_indices(z_flat.detach().contiguous(),
-                                          codebook.detach().contiguous())
+                                          codebook)
         z_q = vq.codebook_lookup(indices, codebook, torch.float32)
         z_q = z_q.reshape(b, h, w, d).permute(0, 3, 1, 2)
         loss = (torch.mean((z_q.detach() - z32) ** 2)

@@ -87,23 +87,24 @@ def _train(opt: dict, logger: logging.Logger):
                 f'{torch.cuda.is_available()}')
 
     model = build_model(opt)
-    dataset_opt = opt['datasets']['train']
-    train_set = build_dataset(dataset_opt)
-    sampler = EnlargedSampler(len(train_set), 1, 0,
-                              dataset_opt.get('dataset_enlarge_ratio', 1))
-    train_loader = build_dataloader(train_set, dataset_opt, sampler=sampler)
-    iters_per_epoch = max(1, len(train_loader))
-    total_iters = int(opt['train']['total_iter'])
-    logger.info(f'training set [{dataset_opt["name"]}]: {len(train_set)} '
-                f'images, batch {dataset_opt["batch_size_per_gpu"]}, '
-                f'{iters_per_epoch} iterations an epoch')
-
     start_epoch, current_iter = 0, 0
     if resume_state_path:
         start_epoch, current_iter = model.resume_training(resume_state_path)
         logger.info(f'resuming from epoch {start_epoch}, iter '
                     f'{current_iter}')
     start_iter = current_iter
+    dataset_opt = opt['datasets']['train']
+    train_set = build_dataset(dataset_opt)
+    sampler = EnlargedSampler(len(train_set), 1, 0,
+                              dataset_opt.get('dataset_enlarge_ratio', 1))
+    # a resumed run draws the shuffle of its epoch, not epoch 0's again
+    train_loader = build_dataloader(train_set, dataset_opt, sampler=sampler,
+                                    start_epoch=start_epoch)
+    iters_per_epoch = max(1, len(train_loader))
+    total_iters = int(opt['train']['total_iter'])
+    logger.info(f'training set [{dataset_opt["name"]}]: {len(train_set)} '
+                f'images, batch {dataset_opt["batch_size_per_gpu"]}, '
+                f'{iters_per_epoch} iterations an epoch')
     logger_opt = opt.get('logger') or {}
     print_freq = logger_opt.get('print_freq', 100)
     save_freq = logger_opt.get('save_checkpoint_freq', 10 ** 9)

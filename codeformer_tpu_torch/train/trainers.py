@@ -316,12 +316,13 @@ class CodeFormerIdxModel(BaseTrainer):
     def _idx_gt(self, mb: Dict) -> torch.Tensor:
         """(b, h*w) target codes: the batch's latent_gt if present, else
         the frozen HQ VQGAN's encode -> K3 against ITS codebook. Tokens in
-        row-major (h, w) order, as JAX's reshape of NHWC latents."""
+        row-major (h, w) order, as JAX's reshape of NHWC latents; K3 takes
+        the latents in the compute dtype and widens bf16 exactly."""
         if 'latent_gt' in mb:
             return mb['latent_gt'].long()
         x, _ = self.hq_vqgan.encoder(mb['gt'].to(self.compute_dtype))
         b, d = x.shape[:2]
-        z = x.permute(0, 2, 3, 1).reshape(-1, d).float().contiguous()
+        z = x.permute(0, 2, 3, 1).reshape(-1, d).contiguous()
         idx = vq.nearest_code_indices(z,
                                       self.hq_vqgan.quantize.embedding.weight)
         return idx.reshape(b, -1)

@@ -116,3 +116,63 @@ def test_bf16_forward_is_finite(models):
     assert out.dtype == logits.dtype == lq.dtype == torch.bfloat16
     assert torch.isfinite(out.float()).all()
     assert next(pm.parameters()).dtype == torch.float32
+
+
+# Parameter gradients of loss = sum(out * r) against jax.grad of the same
+# loss on the same weights, fp32: both sides sum the same products in other
+# orders, so each tensor is held within GRAD_TOL of its largest JAX
+# gradient, plus GRAD_FLOOR of the model's largest. The floor is for the
+# tensors whose true gradient cancels to about zero (a conv bias feeding a
+# GroupNorm, an attention key bias): both sides return rounding noise
+# there, up to 8e-5 against a largest gradient of 321 (2.5e-7 of it). A
+# tensor JAX gives no gradient (exactly zero) must get none in the port.
+GRAD_TOL = 1e-3
+GRAD_FLOOR = 1e-6
+
+
+def _jax_grads(jm, v, x, r, w, detach_16, adain):
+    def loss(p):
+        out, _, _ = jm.apply({**v, 'params': p}, jnp.asarray(x), w,
+                             detach_16=detach_16, adain=adain)
+        return jnp.sum(out * jnp.asarray(r))
+    g = jax.jit(jax.grad(loss))(v['params'])
+    return flax_to_state_dict({'params': g})
+
+
+def _port_grads(pm, x, r, w, detach_16, adain):
+    import copy
+
+    from codeformer_tpu_torch.nn.blocks import set_kernels
+    net = set_kernels(copy.deepcopy(pm).train(), False)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    out, _, _ = net(xt, w, detach_16=detach_16, adain=adain)
+    (out * torch.from_numpy(r).permute(0, 3, 1, 2)).sum().backward()
+    return {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+            for k, p in net.named_parameters()}
+
+
+@pytest.mark.parametrize('detach_16', [True, False])
+@pytest.mark.parametrize('adain', [True, False])
+def test_codeformer_gradient_cuts_match_jax(models, detach_16, adain):
+    """detach_16 stops the gradient at the codebook features, so the
+    codebook gets none; the encoder taps handed to the fuse blocks pass
+    none back, so without AdaIN (the only other way from the encoder to
+    the image) the encoder's gradient is exactly zero in both."""
+    jm, v, pm, x = models
+    r = np.random.default_rng(7).normal(size=(2, 64, 64, 3)).astype(
+        np.float32)
+    want = _jax_grads(jm, v, x, r, 0.5, detach_16, adain)
+    got = _port_grads(pm, x, r, 0.5, detach_16, adain)
+    assert set(got) == set(want)
+    enc = [k for k in want if k.startswith('encoder.')]
+    assert all(not want[k].any() for k in enc) == (not adain)
+    assert (not want['quantize.embedding.weight'].any()) == detach_16
+    floor = GRAD_FLOOR * max(float(g.abs().max()) for g in want.values())
+    for k, g in got.items():
+        ref = want[k]
+        if not ref.any():
+            assert not g.any(), f'{k}: JAX gives no gradient, the port does'
+            continue
+        np.testing.assert_allclose(
+            g.numpy(), ref.numpy(), rtol=0,
+            atol=GRAD_TOL * float(ref.abs().max()) + floor, err_msg=k)

@@ -98,3 +98,40 @@ def test_options_parse_equals_jax(tmp_path):
     assert got['datasets']['train']['phase'] == 'train'
     assert got['path']['models'] == osp.join(str(tmp_path), 'experiments',
                                              got['name'], 'models')
+
+
+class _Numbered:
+    """A dataset whose item is its own index."""
+
+    def __len__(self):
+        return 6
+
+    def __getitem__(self, i):
+        return {'i': np.array([i])}
+
+
+def _first_batches(ld, n):
+    it = iter(ld)
+    try:
+        return [next(it)['i'][:, 0].tolist() for _ in range(n)]
+    finally:
+        it.close()
+
+
+@pytest.mark.parametrize('start_epoch', [0, 1, 3])
+def test_loader_start_epoch_resumes_the_epoch_order(start_epoch):
+    """A loader built with start_epoch=e yields, from its first batch on,
+    what an uninterrupted loader yields after e epochs; with the default
+    it is the JAX copy's loader, batch for batch."""
+    opt = {'batch_size_per_gpu': 2, 'num_worker_per_gpu': 2,
+           'dataset_enlarge_ratio': 2}
+    per_epoch = 6 * 2 // 2
+
+    def loader(ld, **kw):
+        return ld.build_dataloader(
+            _Numbered(), opt, sampler=ld.EnlargedSampler(6, 1, 0, 2), **kw)
+    whole = _first_batches(loader(ploader), per_epoch * (start_epoch + 2))
+    assert whole == _first_batches(loader(jloader), len(whole))
+    resumed = _first_batches(loader(ploader, start_epoch=start_epoch),
+                             2 * per_epoch)
+    assert resumed == whole[per_epoch * start_epoch:]

@@ -542,3 +542,44 @@ def test_train_entry_point_uses_only_the_port(tmp_path):
     assert loaded == '[]', loaded
     assert (tmp_path / 'experiments' / 'port_stage2_tiny' / 'models'
             / 'net_g_latest.pth').exists()
+
+
+def test_train_pipeline_resume_starts_the_loader_at_its_epoch(tmp_path):
+    """A resumed train_pipeline hands the saved epoch to the loader, so
+    its first batch is the first of that epoch's shuffle (the reference's
+    loop, basicsr/train.py:171-210), not epoch 0's again."""
+    from unittest import mock
+
+    from codeformer_tpu_torch.data import loader as ploader
+    from codeformer_tpu_torch.train import trainers
+    from codeformer_tpu_torch.train.train import train_pipeline
+    yml = _tiny_yml(tmp_path)
+    train_pipeline(str(tmp_path), ['-opt', str(yml)])
+    state = tmp_path / 'experiments' / 'port_stage2_tiny' / \
+        'training_states' / '2.state'
+    blob = torch.load(state, weights_only=True)
+    blob['epoch'] = 3                       # as if saved in epoch 3
+    torch.save(blob, state)
+    starts, fed = [], []
+    build = ploader.build_dataloader
+    feed = trainers.CodeFormerIdxModel.feed_data
+
+    def spy_build(*args, **kw):
+        starts.append(kw.get('start_epoch', 0))
+        return build(*args, **kw)
+
+    def spy_feed(self, data):
+        fed.append(list(data['gt_path']))
+        return feed(self, data)
+    with mock.patch.object(ploader, 'build_dataloader', spy_build), \
+            mock.patch.object(trainers.CodeFormerIdxModel, 'feed_data',
+                              spy_feed):
+        model = train_pipeline(str(tmp_path), [
+            '-opt', str(yml), '--force_yml', f'path:resume_state={state}',
+            'train:total_iter=3'])
+    assert starts == [3] and model.step == 3
+    sampler = ploader.EnlargedSampler(4)
+    sampler.set_epoch(3)
+    root = tmp_path / 'ffhq64'
+    want = [str(root / f'{i:05d}.png') for i in list(sampler)[:2]]
+    assert fed == [want]
