@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # one GPU; a few minutes on an H100
     python3 chip_smoke.py --profile  # plus torch.profiler breakdowns of a
-                                     # serving forward and a training step
+                                     # serving forward, the whole-image
+                                     # path and a training step
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. card and versions (needs a CUDA card of compute capability 9.0);
@@ -36,6 +37,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      (and with planted faults, which must fall outside the bounds), and
      faces/s of the kernel path and of the plain path over multi-second
      windows;
+  5b. the whole-image path (DeviceRestorePipeline: RetinaFace resnet50
+     and ParseNet in bf16, the serving restorer) on 32 seeded frames of
+     512x683 in chunks of 16, upscale 2, as bench.py's end-to-end
+     workload: the bf16 detector against fp32 on one chunk (and a shifted
+     anchor level, which must fail); the pipeline with K1/K2 on their
+     kernels against their plain versions (frames inside the face windows
+     within a bound, bit-identical outside, the restored crops equal to
+     restore_device on the same crops, every K1/K2 call on the crops'
+     own activations within the per-call bound, a planted K1 halo fault
+     failing it); exact launch counts a chunk at 1 and 4 faces a frame
+     (the detections handed on are injected at bench.py's offsets while
+     the detector's device graph runs on every chunk); frames/s at 1 and
+     4 faces a frame and in folder mode, kernel and plain paths in
+     alternating windows; peak memory; with --profile the device time of
+     each stage and the busy share;
   6. training: stage II (CodeFormerIdxModel) at the full width of
      options/CodeFormer_stage2.yml, bf16, B=4: 8 steps with exact launch
      counts (K1/K2/K3 in the frozen HQ encode only), a falling loss,
@@ -55,6 +71,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1743,6 +1760,445 @@ def phase_ops():
     return k4_rows, conv_rows, phase_ops_path()
 
 
+# the whole-image path (bench.py:111-216's end-to-end workload): frames of
+# 512x683, chunks of 16, upscale 2, w = 0.5, RetinaFace resnet50 and
+# ParseNet in bf16, the serving phase's restorer
+WI_FRAMES = 32
+WI_HW = (512, 683)
+WI_CHUNK = 16
+WI_OFFSETS = ((-140.0, -170.0), (60.0, -170.0), (-140.0, 30.0),
+              (60.0, 30.0))   # bench.py:132-135: 1..4 faces a frame
+# detector check, bf16 backbone vs fp32 (TF32 off) on one chunk: each
+# fp32 detection is matched to the bf16 detection of largest IoU. Read on
+# an H100 (PERF.md): 33 of 34 matched (a score crossing the 0.8 threshold
+# in bf16), median box error 0.015 px, landmarks 0.008 px; with the
+# stride-8 anchors one cell off, 0.24 matched and medians 0.25 / 0.18 px
+DET_MATCH_FLOOR = 0.75     # share of fp32 rows with an IoU >= 0.5 match
+DET_ERR_BOUND = 0.1        # px, median box and landmark error of matches
+# pipeline check, kernel path vs plain path (fp32 sums), mean |diff| of
+# the final frames inside the face windows, uint8 levels, with the plain
+# path held to the kernel path's codes (codes_held). Left to pick its own,
+# it flips 2-3% of them (random weights give 1024 close logits a token),
+# and the flips swamp the convs' rounding: a sound run read 2.89 and a K1
+# halo fault 5.30. With the codes held, read on an H100 (PERF.md): sound
+# 1.10 / 1.37 and the halo fault 4.15 / 5.01 at 1 / 4 faces a frame.
+WI_FRAME_DIFF_BOUND = 2.5
+
+
+def wi_landmarks(template, n_faces: int, h: int, w: int):
+    return [template * 0.45 + np.array([w / 2 + ox, h / 2 + oy], np.float32)
+            for ox, oy in WI_OFFSETS[:n_faces]]
+
+
+def wi_detector_class():
+    """A FaceDetector whose device graph runs and is waited for on every
+    chunk, while the landmarks handed on are `n_faces` synthetic faces a
+    frame at bench.py's offsets on `template` (random weights find no
+    real faces); with n_faces None it is the real detector."""
+    from codeformer_tpu_torch.pipeline.detector import FaceDetector
+
+    class BenchDetector(FaceDetector):
+        n_faces = None
+        template = None
+
+        def batched_detect_device_finish(self, frames_dev, det_hw, pending,
+                                         *args, **kw):
+            if self.n_faces is None:
+                return super().batched_detect_device_finish(
+                    frames_dev, det_hw, pending, *args, **kw)
+            outs, valids, done = pending
+            if done is not None:
+                done.synchronize()          # the detection's work is timed
+            b, h, w = frames_dev.shape[:3]
+            det_scale = det_hw[0] / h
+            dets = np.zeros((b, self.max_faces, 15), np.float32)
+            vmask = np.zeros((b, self.max_faces), bool)
+            for k, lm_f in enumerate(wi_landmarks(self.template,
+                                                  self.n_faces, h, w)):
+                lm = lm_f * det_scale
+                dets[:, k, 0:4] = [lm[:, 0].min() - 30, lm[:, 1].min() - 60,
+                                   lm[:, 0].max() + 30, lm[:, 1].max() + 40]
+                dets[:, k, 4] = 0.99
+                dets[:, k, 5:15] = lm.reshape(-1)
+                vmask[:, k] = True
+            return dets, vmask
+
+    return BenchDetector
+
+
+@torch.no_grad()
+def tame_heads(model, x, targets=(('BboxHead', 1.0), ('LandmarkHead', 1.0),
+                                  ('ClassHead', 2.0))):
+    """Scale RetinaFace's three heads so their largest output on `x` is
+    `target`: random weights give outputs in the 1e5s, so every score
+    saturates at 0 or 1 and every box overflows, and a detector check
+    would compare nothing. Trained weights keep heads in range."""
+    feats = model.fpn(model.body(x))
+    feats = [model.ssh1(feats[0]), model.ssh2(feats[1]),
+             model.ssh3(feats[2])]
+    for name, target in targets:
+        heads = getattr(model, name)
+        peak = max(float(h.conv1x1(f).float().abs().max())
+                   for h, f in zip(heads, feats))
+        for h in heads:
+            h.conv1x1.weight.mul_(target / peak)
+            h.conv1x1.bias.mul_(target / peak)
+
+
+def det_check(det, det32, frames, det_hw, label) -> bool:
+    """`det` (bf16) against `det32` (fp32, TF32 off) on one chunk: counts,
+    matched share, box and landmark error of the matched rows, keep-bucket
+    steps taken. Returns whether it is within the bounds."""
+    from codeformer_tpu_torch.ops.nms import iou_matrix
+    steps = []
+    graph = det._graph
+
+    def spy(hw, max_faces):
+        steps.append(max_faces)
+        return graph(hw, max_faces)
+
+    with mock.patch.object(det, '_graph', spy):
+        outs, valids = det.batched_detect_device(frames, det_hw)
+    outs32, valids32 = det32.batched_detect_device(frames, det_hw)
+    n, n32, matched, box_err, lm_err = 0, 0, 0, [], []
+    for o, v, o32, v32 in zip(outs, valids, outs32, valids32):
+        rows, rows32 = o[v], o32[v32]
+        n, n32 = n + len(rows), n32 + len(rows32)
+        if not len(rows) or not len(rows32):
+            continue
+        iou = iou_matrix(torch.from_numpy(rows32[:, :4]),
+                         torch.from_numpy(rows[:, :4])).numpy()
+        best = iou.argmax(1)
+        ok = iou[np.arange(len(rows32)), best] >= 0.5
+        matched += int(ok.sum())
+        box_err.extend(np.abs(rows32[ok, :4] - rows[best[ok], :4]).max(1))
+        lm_err.extend(np.abs(rows32[ok, 5:] - rows[best[ok], 5:]).max(1))
+    share = matched / max(n32, 1)
+    med_box = float(np.median(box_err)) if box_err else float('inf')
+    med_lm = float(np.median(lm_err)) if lm_err else float('inf')
+    inside = (n32 > 0 and share >= DET_MATCH_FLOOR
+              and max(med_box, med_lm) <= DET_ERR_BOUND)
+    print(f'  detector {label}: {n} detections (fp32 {n32}) in '
+          f'{len(outs)} frames, keep buckets {steps}; matched '
+          f'{share:.4f} (>= {DET_MATCH_FLOOR}); matched box error median '
+          f'{med_box:.4f} max {max(box_err, default=float("nan")):.3f} px, '
+          f'landmarks median {med_lm:.4f} max '
+          f'{max(lm_err, default=float("nan")):.3f} px (medians <= '
+          f'{DET_ERR_BOUND}): '
+          f'{"within bounds" if inside else "OUT of bounds"}', flush=True)
+    return inside
+
+
+def shifted_level_priors(h, w):
+    """Planted fault: the stride-8 level's anchors one cell to the right."""
+    from codeformer_tpu_torch.ops.anchors import prior_boxes
+    p = prior_boxes(h, w).copy()
+    n0 = 2 * math.ceil(h / 8) * math.ceil(w / 8)
+    p[:n0, 0] += 8.0 / w
+    return p
+
+
+def wi_rate(pipe, frames, collect: bool) -> float:
+    """Frames/s of restore_frames_device over one window of at least
+    RATE_WINDOW_S seconds (host clock, ending in a synchronize); in folder
+    mode (`collect`) the per-face crops are collected and a tiny piece
+    of each restored chunk is fetched, as bench.py does."""
+    def run():
+        faces = [] if collect else None
+        out = pipe.restore_frames_device(frames, collect_faces=faces)
+        for _, restored, _ in faces or ():
+            restored[:1, ::64, ::64, 0].cpu()
+        return out
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    iters = max(2, int(RATE_WINDOW_S / (time.perf_counter() - t0)) + 1)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        run()
+    torch.cuda.synchronize()
+    return len(frames) * iters / (time.perf_counter() - t0)
+
+
+@contextlib.contextmanager
+def codes_held(model, codes: list, replay: bool):
+    """Record the code indices of each forward of `model` into `codes`,
+    or (`replay`) look up the recorded ones in their place, printing the
+    share of the forward's own picks that agree."""
+    get = model.quantize.get_codebook_feat
+    calls = iter(codes) if replay else None
+
+    def feat(indices, *args, **kw):
+        if not replay:
+            codes.append(indices)
+            return get(indices, *args, **kw)
+        held = next(calls)
+        print(f"    codes held: the forward's own picks agree on "
+              f'{float((indices == held).float().mean()):.4f}', flush=True)
+        return get(held, *args, **kw)
+
+    with mock.patch.object(model.quantize, 'get_codebook_feat', feat):
+        yield
+
+
+def wi_pipeline_check(pipe, chunk, n_faces: int):
+    """One chunk, `n_faces` a frame, through the pipeline with K1/K2 on
+    their kernels and on their plain versions (fp32 sums), the same
+    frames and detections: the final frames within WI_FRAME_DIFF_BOUND
+    inside the face windows and bit-identical outside, the restored
+    crops equal to restore_device on the same crops, and every K1/K2
+    call of the restorer on those crops within REL_RMS_BOUND of its plain
+    version. A planted K1 halo fault must fail both the frames and the
+    per-call check. Raises SystemExit on a failure."""
+    from codeformer_tpu_torch.ops import conv3x3 as cv
+    restorer = pipe.restorer
+    pipe.detector.n_faces = n_faces
+
+    codes = []
+
+    def run(k1, k2):
+        with mock.patch.multiple(cv, conv3x3_dots=takes_prepared(k1),
+                                 downsample_dots=takes_prepared(k2)), \
+                codes_held(restorer.model, codes, replay=True):
+            return pipe.restore_frames_device(chunk)
+
+    faces_k = []
+    with codes_held(restorer.model, codes, replay=False):
+        out_k = pipe.restore_frames_device(chunk, collect_faces=faces_k)
+    plan = pipe.last_plan
+    inside = torch.from_numpy(plan.windows_mask(out_k.shape)).cuda()
+    crops, restored_k, counts = faces_k[0]
+    same_restore = bool(torch.equal(
+        restorer.restore_device(crops, w=0.5), restored_k))
+    print(f'  pipeline, {n_faces} face(s) a frame: {len(chunk)} frames, '
+          f'{sum(counts)} faces, m={plan.m}, w_edge {plan.w_edge}, windows '
+          f'{plan.roi}^2; restored crops == restore_device on the same '
+          f'crops: {same_restore}', flush=True)
+    out_p = run(cv.conv3x3_dots_ref, cv.downsample_dots_ref)
+    xn = restorer.normalize(crops)
+
+    def check(label, out, k1, k2):
+        """(frames within bounds, every call within bounds)"""
+        win = (out.float() - out_p.float()).abs()[inside]
+        same_out = bool(torch.equal(out[~inside], out_p[~inside]))
+        print(f'  pipeline, {n_faces} face(s) a frame, {label} vs plain path '
+              f'(fp32 sums): inside the windows mean |diff| '
+              f'{float(win.mean()):.4f} (<= {WI_FRAME_DIFF_BOUND}) max '
+              f'{float(win.max()):.0f} levels; outside bit-identical: '
+              f'{same_out}', flush=True)
+        worst = per_call(restorer.model, xn,
+                         f'whole-image crops (m={plan.m}), {label}', k1, k2)
+        return (same_out and float(win.mean()) <= WI_FRAME_DIFF_BOUND,
+                max(worst.values()) <= REL_RMS_BOUND)
+
+    if not (same_restore and all(check('kernels', out_k, cv.conv3x3_dots,
+                                       cv.downsample_dots))):
+        raise SystemExit(f'chip_smoke: the whole-image pipeline at '
+                         f'{n_faces} face(s) a frame disagrees with its '
+                         f'plain path')
+    halo = k1_fault('halo act(b)')
+    frames_ok, calls_ok = check('planted fault: K1 halo act(b)',
+                                run(halo, cv.downsample_dots_ref), halo,
+                                cv.downsample_dots_ref)
+    if frames_ok or calls_ok:
+        raise SystemExit(f'chip_smoke: the pipeline check at {n_faces} '
+                         f'face(s) a frame lets the planted fault K1 halo '
+                         f'act(b) pass ({"frames" if frames_ok else ""}'
+                         f'{" per call" if calls_ok else ""})')
+
+
+def phase_whole_image(restorer, profile: bool = False) -> dict:
+    """The fused whole-image path (DeviceRestorePipeline) at full width:
+    the detector check, the pipeline check at 1 and 4 faces a frame
+    (kernel vs plain path, per-call K1/K2 on the restorer's own
+    activations, planted faults), exact launch counts a chunk, frames/s
+    (video 1 and 4 faces a frame, folder) of the kernel and plain paths,
+    peak memory; with `profile` the device time a stage. Returns the
+    launch counts of the main-path run."""
+    from codeformer_tpu_torch.pipeline import detector as pdet
+    from codeformer_tpu_torch.pipeline.device_pipeline import \
+        DeviceRestorePipeline
+    from codeformer_tpu_torch.pipeline.face_helper import FaceRestoreHelper
+    t0 = time.perf_counter()
+    h, w = WI_HW
+    g = torch.Generator(device='cuda').manual_seed(0)
+    frames = torch.randint(0, 256, (WI_FRAMES, h, w, 3), generator=g,
+                           device='cuda', dtype=torch.uint8)
+    det = wi_detector_class()('retinaface_resnet50', allow_random=True,
+                              dtype=torch.bfloat16, device='cuda')
+    helper = FaceRestoreHelper(
+        2, face_size=512, det_model='retinaface_resnet50', use_parse=True,
+        device='cuda', allow_random_weights=True, detector=det,
+        det_dtype=torch.bfloat16, parse_dtype=torch.bfloat16)
+    det.template = helper.face_template
+    pipe = DeviceRestorePipeline(restorer, helper, upscale=2,
+                                 frame_chunk=WI_CHUNK, w=0.5)
+    _, det_hw = pipe._det_hw(h, w)
+    det32 = pdet.FaceDetector('retinaface_resnet50', allow_random=True,
+                              dtype=torch.float32, device='cuda')
+    x = torch.nn.functional.pad(
+        pdet.resize_linear(frames[:2].permute(0, 3, 1, 2).float(), det_hw),
+        (0, det32._bucket(det_hw[1]) - det_hw[1],
+         0, det32._bucket(det_hw[0]) - det_hw[0]))
+    tame_heads(det32.model, x - torch.tensor(
+        pdet._MEANS, device='cuda').reshape(1, 3, 1, 1))
+    det.model.load_state_dict(det32.model.state_dict())
+    print(f'whole-image path: {WI_FRAMES} frames of {h}x{w} (seeded, on the '
+          f'card), chunks of {WI_CHUNK}, upscale 2, w=0.5, RetinaFace '
+          f'resnet50 (heads tamed) and ParseNet bf16 at parse_res '
+          f'{pipe.parse_res}, the serving restorer; set up in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+
+    # 1. the detector: bf16 against fp32 on one chunk, and a planted fault
+    chunk = frames[:WI_CHUNK]
+    if not det_check(det, det32, chunk, det_hw, 'bf16 vs fp32'):
+        raise SystemExit('chip_smoke: the bf16 detector disagrees with fp32')
+    det._graphs.clear()
+    with mock.patch.object(pdet, 'prior_boxes', shifted_level_priors):
+        caught = not det_check(det, det32, chunk, det_hw,
+                               'planted fault: stride-8 anchors one cell off')
+    det._graphs.clear()
+    if not caught:
+        raise SystemExit('chip_smoke: the detector bounds let the planted '
+                         'fault (shifted anchors) pass')
+    del det32
+
+    # 2. the pipeline, kernel path vs plain path, one chunk at 1 and at 4
+    # faces a frame (m = 16 and 64)
+    for n_faces in (1, 4):
+        wi_pipeline_check(pipe, chunk, n_faces)
+
+    # 3. the main path: exact launch counts, 1 then 4 faces a frame
+    n_chunks = WI_FRAMES // WI_CHUNK
+    n_res = count_resblocks(restorer.model, enable_fuse=True)
+    counts = {}
+    for n_faces in (1, 4):
+        det.n_faces = n_faces
+        reset_all_counts()
+        out = pipe.restore_frames_device(frames)
+        torch.cuda.synchronize()
+        got = all_counts()
+        want = {'conv3x3_dots': n_chunks * (2 * n_res + 1),
+                'downsample_dots': n_chunks * 5}
+        print(f'  main path, {n_faces} face(s) a frame: m={pipe.last_plan.m} '
+              f'faces a chunk, one restorer forward a chunk; launches '
+              f'{got} (expected K1/K2 {want})', flush=True)
+        if {k: got[k] for k in want} != want or any(
+                v for k, v in got.items() if k not in want):
+            raise SystemExit('chip_smoke: whole-image launch counts differ')
+        if out.shape != (WI_FRAMES, 2 * h, 2 * w, 3) or \
+                out.dtype != torch.uint8:
+            raise SystemExit(f'chip_smoke: bad whole-image output '
+                             f'{tuple(out.shape)} {out.dtype}')
+        for k in want:
+            counts[k] = counts.get(k, 0) + got[k]
+    del out
+
+    # 4. frames/s, kernel and plain paths in alternating windows
+    print(f'  frames/s of restore_frames_device ({WI_FRAMES} frames, '
+          f'{n_chunks} chunks), TF32 off: {RATE_REPEATS} windows of >= '
+          f'{RATE_WINDOW_S} s per path, alternating; median [min, max]',
+          flush=True)
+    for key, n_faces, collect in (('video_frames_per_sec', 1, False),
+                                  ('video_frames_per_sec_4face', 4, False),
+                                  ('whole_image_images_per_sec', 1, True)):
+        det.n_faces = n_faces
+        torch.cuda.reset_peak_memory_stats()
+        got = {'kernel': [], 'plain': []}
+        for rep in range(RATE_REPEATS):
+            for path in (('kernel', 'plain') if rep % 2 == 0
+                         else ('plain', 'kernel')):
+                with (plain_ops() if path == 'plain'
+                      else contextlib.nullcontext()):
+                    got[path].append(wi_rate(pipe, frames, collect))
+        med = {k: statistics.median(v) for k, v in got.items()}
+        print(f'  {key} ({n_faces} face(s) a frame'
+              f'{", folder mode" if collect else ""}): kernel '
+              f'{med["kernel"]:.2f} [{min(got["kernel"]):.2f}, '
+              f'{max(got["kernel"]):.2f}]  plain {med["plain"]:.2f} '
+              f'[{min(got["plain"]):.2f}, {max(got["plain"]):.2f}]  ratio '
+              f'{med["kernel"] / med["plain"]:.3f}; peak memory '
+              f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB',
+              flush=True)
+    if profile:
+        phase_whole_image_profile(pipe, frames)
+    return counts
+
+
+class StageClock:
+    """CUDA events around each stage of a chunk (the pipeline's methods
+    wrapped), with a synchronize before each, so an event pair spans that
+    stage's device work alone."""
+    STAGES = {'_detect_start': 'detect', '_warp': 'warp',
+              '_parse_ids': 'parse', '_composite': 'composite'}
+
+    def __init__(self, pipe):
+        self.ms = {}
+        self.pipe = pipe
+
+    def wrap(self, name, fn):
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            end.synchronize()
+            self.ms.setdefault(name, []).append(start.elapsed_time(end))
+            return out
+        return timed
+
+    @contextlib.contextmanager
+    def on(self):
+        restorer = self.pipe.restorer
+        with contextlib.ExitStack() as stack:
+            for attr, name in self.STAGES.items():
+                stack.enter_context(mock.patch.object(
+                    self.pipe, attr, self.wrap(name, getattr(self.pipe,
+                                                             attr))))
+            stack.enter_context(mock.patch.object(
+                restorer, 'restore_device',
+                self.wrap('restore', restorer.restore_device)))
+            yield
+
+
+def phase_whole_image_profile(pipe, frames, iters: int = 2):
+    """Device time a stage (CUDA events, stages serialized) and the busy
+    share of the unserialized run (torch.profiler), 1 and 4 faces a
+    frame, kernel path."""
+    from torch.profiler import ProfilerActivity, profile
+    det = pipe.detector
+    for n_faces in (1, 4):
+        det.n_faces = n_faces
+        clock = StageClock(pipe)
+        with clock.on():
+            for _ in range(iters):
+                pipe.restore_frames_device(frames)
+        chunks = iters * (WI_FRAMES // WI_CHUNK)
+        per = {k: sum(v) / chunks for k, v in clock.ms.items()}
+        total = sum(per.values())
+        print(f'profile, whole-image path, {n_faces} face(s) a frame, per '
+              f'chunk of {WI_CHUNK} (stages serialized, CUDA events): ' +
+              ', '.join(f'{k} {v:.2f} ms ({100 * v / total:.1f}%)'
+                        for k, v in per.items()) + f'; sum {total:.2f} ms',
+              flush=True)
+        pipe.restore_frames_device(frames)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                pipe.restore_frames_device(frames)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / iters * 1e3
+        print_profile(f'whole-image path, {n_faces} face(s) a frame, '
+                      f'{WI_FRAMES} frames', prof, iters, wall)
+
+
 KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
     'conv3x3_dots': ('codeformer_tpu_torch/csrc/conv3x3_dots.cu',
                      'codeformer_tpu/ops/colpack_conv.py:376'),
@@ -1771,13 +2227,16 @@ def main():
     serve_counts, restorer = phase_slice()
     if '--profile' in sys.argv[1:]:
         phase_profile(restorer)
+    whole_counts = phase_whole_image(restorer,
+                                     profile='--profile' in sys.argv[1:])
     del restorer
     torch.cuda.empty_cache()
     train_counts, trainer = phase_train()
     if '--profile' in sys.argv[1:]:
         phase_train_profile(trainer)
-    print(f'main-path launches: serving {serve_counts}; stage-II training '
-          f'{train_counts}; ops path {ops_counts}')
+    print(f'main-path launches: serving {serve_counts}; whole-image path '
+          f'{whole_counts}; stage-II training {train_counts}; ops path '
+          f'{ops_counts}')
     phase_k3_activities(k3_calls)
     del k3_calls
     # head row of each kernel: K1/K2 the 512^2 shape, K3 the path's T,
@@ -1798,7 +2257,8 @@ def main():
             'name': name, 'route': 'cuda', 'source': KERNEL_SOURCES[name][0],
             'replaces': KERNEL_SOURCES[name][1],
             'launches': sum(c.get(name, 0) for c in
-                            (serve_counts, train_counts, ops_counts)),
+                            (serve_counts, whole_counts, train_counts,
+                             ops_counts)),
             'max_abs_err': max(r['max_abs_err'] for r in rows),
             'ms': head['ms'], 'plain_ms': head['plain_ms'],
             'bound_ms': head['bound_ms'], 'bound_by': head['bound_by'],
@@ -1810,7 +2270,8 @@ def main():
     if not all(k['launches'] > 0 for k in kernels):
         raise SystemExit('chip_smoke: a kernel of the path never launched')
     if train_counts['nearest_code'] == 0 or not all(
-            serve_counts[k] > 0 for k in ('conv3x3_dots', 'downsample_dots')) \
+            c[k] > 0 for c in (serve_counts, whole_counts)
+            for k in ('conv3x3_dots', 'downsample_dots')) \
             or not all(ops_counts[k] > 0 for k in (
                 'conv3x3_bias', 'fused_lrelu_fwd', 'fused_lrelu_bwd')):
         raise SystemExit('chip_smoke: a kernel never launched on its path')

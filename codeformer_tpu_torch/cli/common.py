@@ -9,19 +9,24 @@ import sys
 from typing import List, Optional, Tuple
 
 IMG_EXTS = ('jpg', 'jpeg', 'png', 'JPG', 'JPEG', 'PNG')
+VIDEO_EXTS = ('mp4', 'mov', 'avi', 'MP4', 'MOV', 'AVI')
 
 # the released restoration checkpoint (weights/README.md of the reference)
 DEFAULT_WEIGHTS = 'weights/CodeFormer/codeformer.pth'
 
 
-def list_inputs(input_path: str, w: float) -> Tuple[List[str], str]:
-    """An image or a folder of images -> (image paths, result root)."""
+def list_inputs(input_path: str, w: float) -> Tuple[List[str], str, bool]:
+    """An image, a video or a folder of images -> (inputs, result root,
+    is_video)."""
     suffix = f'_{w}'
     if input_path.endswith(IMG_EXTS):
-        return [input_path], f'results/test_img{suffix}'
+        return [input_path], f'results/test_img{suffix}', False
+    if input_path.endswith(VIDEO_EXTS):
+        video_name = os.path.splitext(os.path.basename(input_path))[0]
+        return [input_path], f'results/{video_name}{suffix}', True
     input_path = input_path.rstrip('/')
     imgs = sorted(glob.glob(os.path.join(input_path, '*.[jpJP][pnPN]*[gG]')))
-    return imgs, f'results/{os.path.basename(input_path)}{suffix}'
+    return imgs, f'results/{os.path.basename(input_path)}{suffix}', False
 
 
 def resolve_checkpoint(explicit: Optional[str],

@@ -1,5 +1,7 @@
 """Model architectures."""
 from .codeformer import CodeFormer
+from .parsenet import ParseNet
+from .retinaface import RetinaFace
 from .vqgan import VQAutoEncoder
 
-__all__ = ['CodeFormer', 'VQAutoEncoder']
+__all__ = ['CodeFormer', 'ParseNet', 'RetinaFace', 'VQAutoEncoder']

@@ -211,7 +211,7 @@ class VQAutoEncoder(nn.Module):
     """The VQGAN backbone: encoder, codebook, generator
     (vqgan_arch.py:326-389), with the 'nearest' quantizer. Its
     encode -> quantize -> decode forward and the Gumbel quantizer wait for
-    stage I (ROADMAP.md Queue 1 item 3)."""
+    stage I (ROADMAP.md Queue 1 item 4.1)."""
 
     def __init__(self, img_size=512, nf=64, ch_mult=(1, 2, 2, 4, 4, 8),
                  res_blocks=2, attn_resolutions=(16,), codebook_size=1024,
@@ -220,7 +220,7 @@ class VQAutoEncoder(nn.Module):
         if quantizer != 'nearest':
             raise NotImplementedError(
                 f'quantizer {quantizer!r} is not ported yet (GumbelQuantizer, '
-                f'ROADMAP.md Queue 1 item 3)')
+                f'ROADMAP.md Queue 1 item 4.1)')
         self.ch_mult, self.emb_dim = tuple(ch_mult), emb_dim
         self.encoder = Encoder(nf, emb_dim, ch_mult, res_blocks, img_size,
                                attn_resolutions)

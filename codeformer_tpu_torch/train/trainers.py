@@ -52,7 +52,7 @@ def build_model(opt: Dict):
         raise NotImplementedError(
             f'model_type {model_type!r} is not ported yet: stage I '
             f'(VQGANModel) and stage III (CodeFormerJointModel, '
-            f'CodeFormerModel) are ROADMAP.md Queue 1 item 10')
+            f'CodeFormerModel) are ROADMAP.md Queue 1 item 4')
     return MODEL_REGISTRY.get(model_type)(opt)
 
 
@@ -109,13 +109,13 @@ class BaseTrainer:
         if self.train_opt.get('remat'):
             raise NotImplementedError(
                 'remat: true is not ported yet (torch.utils.checkpoint, '
-                'ROADMAP.md Queue 1 item 10)')
+                'ROADMAP.md Queue 1 item 4)')
         val = [p for p in (opt.get('datasets') or {})
                if p.split('_')[0] == 'val']
         if val:
             raise NotImplementedError(
                 f'validation datasets {val} are not ported yet (ROADMAP.md '
-                f'Queue 1 item 10)')
+                f'Queue 1 item 4)')
         self.device = torch.device(opt.get('device') or 'cuda')
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError(
@@ -125,7 +125,7 @@ class BaseTrainer:
         if int(opt.get('num_devices') or 1) > 1 or (
                 self.device.type == 'cuda' and torch.cuda.device_count() > 1):
             logger.info(f'training on one device, {self.device}: data '
-                        f'parallelism (DDP) is ROADMAP.md Queue 1 item 10')
+                        f'parallelism (DDP) is ROADMAP.md Queue 1 item 4')
         self.step = 0            # optimizer updates so far (0-based lr step)
         self._log_metrics: Dict[str, torch.Tensor] = {}
         self._log_cache: Optional[Dict[str, float]] = None

@@ -11,13 +11,15 @@ _ZEROS = ('bias', 'in_proj_bias', 'position_emb')
 @torch.no_grad()
 def init_params_fast(model: nn.Module, seed: int = 0) -> nn.Module:
     """Fill every parameter from one seeded torch.Generator with the JAX
-    package's random-init scheme: norm scales 1, biases and position
+    package's random-init scheme: norm scales 1 (BatchNorm's running
+    statistics stay at mean 0, variance 1), biases and position
     embeddings 0, codebooks uniform(+-1/K), other weights
     normal(0, sqrt(2 / fan_in)). Returns the model."""
     g = torch.Generator().manual_seed(seed)
     for mod in model.modules():
         for name, p in mod.named_parameters(recurse=False):
-            if isinstance(mod, (nn.GroupNorm, nn.LayerNorm)) \
+            if isinstance(mod, (nn.GroupNorm, nn.LayerNorm,
+                                nn.modules.batchnorm._BatchNorm)) \
                     and name == 'weight':
                 p.fill_(1.0)
             elif name in _ZEROS:

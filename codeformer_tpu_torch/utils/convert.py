@@ -6,7 +6,12 @@ kernels -> (O, I), the packed attention `in_proj_weight` (E, 3E) ->
 (3E, E), norm `scale` -> `weight`, `blocks_3` -> `blocks.3`, and the
 flax names of the torch Sequential heads back to their indices
 (`idx_pred_norm` -> `idx_pred_layer.0`, `scale_0` -> `scale.0`), and a
-raw 4-d `weight` param (DCNv2Pack's, HWIO) -> OIHW. The
+raw 4-d `weight` param (DCNv2Pack's, HWIO) -> OIHW. Where flax
+merged a Sequential index into a name that itself ends in digits
+(RetinaFace's `layer1_0`, `stage1_0_0`, `conv5X5_1_0`), the split is
+ambiguous: `like=` (the target's state-dict keys) resolves each key to
+the target key that reads the same with '.' taken for '_', and adds the
+BatchNorm `num_batches_tracked` counters flax does not keep. The
 port's modules use the reference `.pth` names, so the result loads with
 `load_state_dict` and a released `.pth` needs no conversion at all.
 `load_flax_trainer` carries a JAX trainer's weights into a port trainer.
@@ -14,7 +19,7 @@ port's modules use the reference `.pth` names, so the result loads with
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Iterable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -44,9 +49,12 @@ def _flatten(tree: Mapping, prefix=()):
             yield prefix + (k,), v
 
 
-def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def flax_to_state_dict(variables: Mapping[str, Any],
+                       like: Optional[Iterable[str]] = None
+                       ) -> Dict[str, torch.Tensor]:
     """flax variables {'params': ..., ['batch_stats': ...]} (leaves
-    array-like) -> {reference .pth key: fp32 torch tensor}."""
+    array-like) -> {reference .pth key: fp32 torch tensor}. With `like`,
+    the keys are those of `like` (see the module docstring)."""
     sd: Dict[str, torch.Tensor] = {}
     for path, leaf in _flatten(variables['params']):
         arr = np.array(leaf, dtype=np.float32)      # a writable copy
@@ -79,7 +87,19 @@ def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         name = {'mean': 'running_mean', 'var': 'running_var'}[path[-1]]
         sd[f'{_module_path(path[:-1])}.{name}'] = torch.from_numpy(
             np.array(leaf, dtype=np.float32))
-    return sd
+    if like is None:
+        return sd
+    target = {k.replace('.', '_'): k for k in like}
+    out = {}
+    for key, value in sd.items():
+        flat = key.replace('.', '_')
+        if flat not in target:
+            raise KeyError(f'{key}: no key of the target reads {flat}')
+        out[target[flat]] = value
+    for key in target.values():
+        if key.endswith('num_batches_tracked') and key not in out:
+            out[key] = torch.tensor(0, dtype=torch.long)
+    return out
 
 
 def load_flax_trainer(trainer, params_g: Mapping[str, Any],

@@ -149,3 +149,21 @@ def test_registry_holds_the_port_archs():
         reg.register()(CodeFormer)
     with pytest.raises(KeyError, match='No object named'):
         reg.get('Missing')
+
+
+def test_whole_image_modules_are_scanned():
+    """The import probe and the source scan cover the whole-image path's
+    modules (they are found by the scan, not listed): the probe imported
+    them without cv2 or jax, and the registry holds their archs."""
+    names = {str(p.relative_to(ROOT)) for p in
+             Path(ROOT, 'codeformer_tpu_torch').rglob('*.py')}
+    assert {f'codeformer_tpu_torch/{m}.py' for m in (
+        'ops/anchors', 'ops/nms', 'ops/geometry', 'ops/filters',
+        'models/retinaface', 'models/parsenet', 'pipeline/detector',
+        'pipeline/compositor', 'pipeline/face_helper',
+        'pipeline/device_pipeline', 'cli/whole_image',
+        'utils/img_util')} <= names
+    from codeformer_tpu_torch.models import ParseNet, RetinaFace
+    from codeformer_tpu_torch.utils.registry import ARCH_REGISTRY
+    assert ARCH_REGISTRY.get('RetinaFace') is RetinaFace
+    assert ARCH_REGISTRY.get('ParseNet') is ParseNet

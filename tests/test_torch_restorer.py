@@ -147,8 +147,9 @@ def test_cli_run_aligned_writes_restored_faces(restorers, tmp_path):
     faces[1] = np.repeat(faces[1][..., :1], 3, axis=-1)     # a gray face
     for i, f in enumerate(faces):
         cv2.imwrite(str(src / f'{i:04d}.png'), f)
-    paths, root = list_inputs(str(src), 0.5)
+    paths, root, is_video = list_inputs(str(src), 0.5)
     assert root == 'results/faces_0.5' and len(paths) == 2
+    assert not is_video
     args = cli.build_parser().parse_args(
         ['--has_aligned', '-i', str(src), '--suffix', 'x'])
     cli.run_aligned(args, paths, str(tmp_path / 'out'), pr)
