@@ -52,6 +52,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      4 faces a frame and in folder mode, kernel and plain paths in
      alternating windows; peak memory; with --profile the device time of
      each stage and the busy share;
+  5c. the classic per-stage path's device stages (a 512x683 frame, canvas
+     1024x1366, 1 and 4 faces at bench.py's offsets): the crops through
+     restore_batch with exact launch counts, `_parse_masks` in fp32
+     against a CPU copy, `paste_faces` with use_parse and draw_box on and
+     off against the same call on CPU copies (inside the face windows
+     within a bound, outside bit-identical to the canvas; an inverse
+     affine shifted by one pixel must fail), ms a frame and peak memory;
+  5d. the colorization and inpainting models (codebook 1024 / 512,
+     connect 32/64/128, w=0 with AdaIN / w=1 without) at full width:
+     exact launch counts through restore_batch, inpainting's white-mask
+     composite keeping every other pixel, the whole forward against the
+     plain path with the codes held, every K1/K2 call of one forward on
+     its own activations, a planted K1 halo fault failing both checks,
+     faces/s at B=1 and 8;
+  5e. VQAutoEncoder.forward at full width, B=2: exact launches (K1, K2,
+     one K3), the reconstruction against the plain path with the codes
+     held, one device activity for its K3 call (checked at the end);
   6. training: stage II (CodeFormerIdxModel) at the full width of
      options/CodeFormer_stage2.yml, bf16, B=4: 8 steps with exact launch
      counts (K1/K2/K3 in the frozen HQ encode only), a falling loss,
@@ -1317,15 +1334,19 @@ def phase_slice():
         if worst['conv3x3_dots'] <= REL_RMS_BOUND:
             raise SystemExit(f'chip_smoke: the per-call bound lets the '
                              f'planted fault K1 {fault} pass')
-    phase_rates(restorer, rng)
+    phase_rates(restorer, [
+        torch.from_numpy(np.stack(_faces(rng, bsz, size))).cuda()
+        for bsz in (1, 8, 16)])
     return main_counts, restorer
 
 
-def per_call(model, xn, label, k1, k2) -> dict:
-    """Run one forward with K1/K2 served by (k1, k2) and hold every call
-    against the plain version on that call's own inputs: the main path's
-    real activations, where the whole-forward comparison sees only
-    compounded rounding noise. Returns the worst rel RMS by op."""
+def per_call(model, xn, label, k1, k2, w=0.5, adain=True,
+             enable_fuse=True) -> dict:
+    """Run one forward (w, adain, enable_fuse) with K1/K2 served by (k1,
+    k2) and hold every call against the plain version on that call's own
+    inputs: the main path's real activations, where the whole-forward
+    comparison sees only compounded rounding noise. Returns the worst rel
+    RMS by op."""
     from codeformer_tpu_torch.ops import conv3x3 as cv
     errs = {'conv3x3_dots': [], 'downsample_dots': []}
     # the kernels take the modules' kept operands; a plain stand-in
@@ -1347,7 +1368,7 @@ def per_call(model, xn, label, k1, k2) -> dict:
 
     with torch.inference_mode(), mock.patch.multiple(
             cv, conv3x3_dots=shadow1, downsample_dots=shadow2):
-        model(xn, 0.5, adain=True)
+        model(xn, w, adain=adain, enable_fuse=enable_fuse)
     worst = {k: max(v) for k, v in errs.items()}
     print(f'  per call, {label} vs plain on the same inputs: ' + '; '.join(
         f'{k} {len(v)} calls, rel_rms {min(v):.3g}..{max(v):.3g}, '
@@ -1356,19 +1377,19 @@ def per_call(model, xn, label, k1, k2) -> dict:
     return worst
 
 
-def _rate(restorer, xb) -> float:
+def _rate(restorer, xb, w=0.5, adain=True) -> float:
     """Faces/s through restore_device over one window of at least
     RATE_WINDOW_S seconds (host clock, ends in a synchronize)."""
     for _ in range(2):
-        restorer.restore_device(xb, w=0.5)
+        restorer.restore_device(xb, w=w, adain=adain)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    restorer.restore_device(xb, w=0.5)
+    restorer.restore_device(xb, w=w, adain=adain)
     torch.cuda.synchronize()
     iters = max(2, int(RATE_WINDOW_S / (time.perf_counter() - t0)) + 1)
     t0 = time.perf_counter()
     for _ in range(iters):
-        restorer.restore_device(xb, w=0.5)
+        restorer.restore_device(xb, w=w, adain=adain)
     torch.cuda.synchronize()
     return len(xb) * iters / (time.perf_counter() - t0)
 
@@ -1384,30 +1405,26 @@ def plain_ops():
             cv.downsample_dots_ref, compute_dtype=torch.bfloat16)))
 
 
-def phase_rates(restorer, rng):
-    """Aligned faces/s, kernel path and plain path in alternating windows
-    (kernel, plain, plain, kernel, ...); median and range of each."""
-    size = restorer.face_size
-    print(f'  faces/s through restore_device, w=0.5, TF32 off: '
-          f'{RATE_REPEATS} windows of >= {RATE_WINDOW_S} s per path, '
+def phase_rates(restorer, batches, w=0.5, adain=True, label='aligned'):
+    """Faces/s of each uint8 RGB batch on the card, kernel path and plain
+    path in alternating windows (kernel, plain, plain, kernel, ...);
+    median and range of each."""
+    print(f'  faces/s through restore_device, w={w}, adain={adain}, TF32 '
+          f'off: {RATE_REPEATS} windows of >= {RATE_WINDOW_S} s per path, '
           f'alternating; median [min, max]', flush=True)
-    for bsz in (1, 8, 16):
-        xb = torch.from_numpy(np.stack(_faces(rng, bsz, size))) \
-            .to(restorer.device)
+    for xb in batches:
         got = {'kernel': [], 'plain': []}
         for rep in range(RATE_REPEATS):
             for path in (('kernel', 'plain') if rep % 2 == 0
                          else ('plain', 'kernel')):
-                if path == 'plain':
-                    with plain_ops():
-                        got[path].append(_rate(restorer, xb))
-                else:
-                    got[path].append(_rate(restorer, xb))
+                with (plain_ops() if path == 'plain'
+                      else contextlib.nullcontext()):
+                    got[path].append(_rate(restorer, xb, w, adain))
         med = {k: statistics.median(v) for k, v in got.items()}
-        print(f'  aligned faces/s at B={bsz}: kernel {med["kernel"]:.2f} '
-              f'[{min(got["kernel"]):.2f}, {max(got["kernel"]):.2f}]  plain '
-              f'{med["plain"]:.2f} [{min(got["plain"]):.2f}, '
-              f'{max(got["plain"]):.2f}]  ratio '
+        print(f'  {label} faces/s at B={len(xb)}: kernel '
+              f'{med["kernel"]:.2f} [{min(got["kernel"]):.2f}, '
+              f'{max(got["kernel"]):.2f}]  plain {med["plain"]:.2f} '
+              f'[{min(got["plain"]):.2f}, {max(got["plain"]):.2f}]  ratio '
               f'{med["kernel"] / med["plain"]:.3f}', flush=True)
 
 
@@ -2199,6 +2216,412 @@ def phase_whole_image_profile(pipe, frames, iters: int = 2):
                       f'{WI_FRAMES} frames', prof, iters, wall)
 
 
+# the colorization and inpainting models at full width: the released
+# configurations (codebook 1024 / 512, connect 32/64/128) as their CLIs
+# call them (cli/inference_colorization.py, cli/inference_inpainting.py)
+TASKS = {  # task: (codebook size, w, adain)
+    'colorization': (1024, 0.0, True),
+    'inpainting': (512, 1.0, False),
+}
+TASK_FACES = 8
+# whole forward, kernel path vs plain path (fp32 sums) with the plain path
+# held to the kernel path's codes (codes_held): mean |diff| of the
+# restored images, uint8 levels. The serving bound. Read on an H100
+# (PERF.md): sound 1.52 / 1.24 (colorization / inpainting), the K1 halo
+# fault 11.70 / 4.49.
+TASK_IMAGE_DIFF_BOUND = IMAGE_DIFF_BOUND
+
+
+def task_faces(g, task: str, n: int) -> torch.Tensor:
+    """Seeded uint8 RGB faces made on the card, (n, 512, 512, 3): smooth
+    noise; gray (three equal channels) for colorization, with two pure
+    white rectangles a face (the masked regions) for inpainting."""
+    lo = torch.rand((n, 3, 16, 16), generator=g, device='cuda') * 255.0
+    img = torch.nn.functional.interpolate(lo, scale_factor=32.0)
+    img = img + 12.0 * torch.randn(img.shape, generator=g, device='cuda')
+    img = img.clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1)
+    if task == 'colorization':
+        return img[..., 1:2].expand(-1, -1, -1, 3).contiguous()
+    img = img.contiguous()
+    corners = torch.randint(64, 384, (n, 2, 2), generator=g, device='cuda')
+    for i, rects in enumerate(corners.tolist()):
+        for y, x in rects:
+            img[i, y:y + 64, x:x + 96] = 255
+    return img
+
+
+def held_forward(model, xn, fwd: dict, k1, k2, codes: list, replay: bool):
+    """One forward (fwd: w, adain, enable_fuse) with K1/K2 served by (k1,
+    k2), its code picks recorded into `codes` or (`replay`) replaced by
+    the recorded ones. Returns (out, logits, lq_feat)."""
+    from codeformer_tpu_torch.ops import conv3x3 as cv
+    k1 = k1 if k1 is cv.conv3x3_dots else takes_prepared(k1)
+    k2 = k2 if k2 is cv.downsample_dots else takes_prepared(k2)
+    with torch.inference_mode(), mock.patch.multiple(
+            cv, conv3x3_dots=k1, downsample_dots=k2), \
+            codes_held(model, codes, replay):
+        return model(xn, **fwd)
+
+
+def task_forward_check(restorer, label, got, ref) -> bool:
+    """`got` (out, logits, lq_feat) against the plain path's `ref`, both
+    on the same codes: lq_feat and logits rel RMS, the restored images'
+    mean |diff|. Returns whether all are within bounds."""
+    img = restorer.denormalize(got[0]).float()
+    diff = (img - restorer.denormalize(ref[0]).float()).abs()
+    r = dict(lq=rel_rms(got[2], ref[2]), logits=rel_rms(got[1], ref[1]),
+             diff=float(diff.mean()))
+    inside = (max(r['lq'], r['logits']) <= SLICE_REL_BOUND
+              and r['diff'] <= TASK_IMAGE_DIFF_BOUND)
+    print(f'  whole forward, {label} vs plain (fp32 sums, codes held): '
+          f'lq_feat rel_rms {r["lq"]:.3g}, logits rel_rms {r["logits"]:.3g} '
+          f'(<= {SLICE_REL_BOUND}); image diff mean {r["diff"]:.4f} (<= '
+          f'{TASK_IMAGE_DIFF_BOUND}) max {float(diff.max()):.0f} levels, '
+          f'{float((diff > 2).float().mean()):.4f} of values off by > 2: '
+          f'{"within bounds" if inside else "OUT of bounds"}', flush=True)
+    return inside
+
+
+def phase_tasks() -> dict:
+    """The colorization and inpainting restorers at full width (dim_embd
+    512, 9 layers, 8 heads, nf 64), seeded random weights, SFT tamed,
+    bf16: exact launch counts through restore_batch (and, for
+    inpainting, the white-mask composite keeping every other pixel of
+    the input), the whole forward kernel vs plain with the codes held,
+    every K1/K2 call of one forward on its own activations, the planted
+    K1 halo fault failing both checks, and faces/s at B=1 and 8. Returns
+    the launch counts of the restore_batch runs."""
+    from codeformer_tpu_torch.cli.inference_inpainting import \
+        white_mask_composite
+    from codeformer_tpu_torch.ops import conv3x3 as cv
+    from codeformer_tpu_torch.pipeline.restorer import CodeFormerRestorer
+    g = torch.Generator(device='cuda').manual_seed(2)
+    counts = {}
+    for task, (codebook, w, adain) in TASKS.items():
+        t0 = time.perf_counter()
+        restorer = CodeFormerRestorer(device='cuda', codebook_size=codebook,
+                                      connect_list=('32', '64', '128'),
+                                      seed=1)
+        tame_sft(restorer.model)
+        model = restorer.model
+        fwd = dict(w=w, adain=adain, enable_fuse=w > 0)
+        n_res = count_resblocks(model, enable_fuse=w > 0)
+        faces = task_faces(g, task, TASK_FACES)
+        print(f'{task}: full width (dim_embd 512, 9 layers, 8 heads, nf 64, '
+              f'{codebook} codes, connect 32/64/128), bf16, seeded random '
+              f'init, SFT tamed, in {time.perf_counter() - t0:.1f} s; w={w}, '
+              f'adain={adain}: {n_res} ResBlocks a forward', flush=True)
+
+        # 1. the CLI's call: restore_batch, exact launches
+        bgr = [f[..., ::-1].copy() for f in faces[:3].cpu().numpy()]
+        reset_all_counts()
+        out = restorer.restore_batch(bgr, w=w, adain=adain)
+        torch.cuda.synchronize()
+        got = all_counts()
+        want = {'conv3x3_dots': 2 * n_res + 1, 'downsample_dots': 5}
+        print(f'  restore_batch, 3 faces: launches {got} (expected K1/K2 '
+              f'{want})', flush=True)
+        if {k: got[k] for k in want} != want or any(
+                v for k, v in got.items() if k not in want):
+            raise SystemExit(f'chip_smoke: {task} launch counts differ (a '
+                             f'failed chunk passes through)')
+        for k in want:
+            counts[k] = counts.get(k, 0) + got[k]
+        for face, o in zip(bgr, out):
+            if o.shape != face.shape or o.dtype != np.uint8 or \
+                    np.array_equal(o, face):
+                raise SystemExit(f'chip_smoke: bad {task} output')
+        if task == 'inpainting':
+            kept, white_px = True, 0
+            for face, o in zip(bgr, out):
+                white = (face == 255).all(axis=-1)
+                comp = white_mask_composite(face, o)
+                white_px += int(white.sum())
+                kept &= bool(np.array_equal(comp[~white], face[~white])
+                             and np.array_equal(comp[white], o[white]))
+            print(f'  white-mask composite: {white_px} masked pixels take '
+                  f'the output, every other pixel equals the input bit for '
+                  f'bit: {kept}', flush=True)
+            if not kept or not white_px:
+                raise SystemExit('chip_smoke: the inpainting composite '
+                                 'changed an unmasked pixel')
+
+        # 2. the whole forward and every call of it, kernels vs plain
+        xn = restorer.normalize(faces[:2])
+        codes = []
+        kern = held_forward(model, xn, fwd, cv.conv3x3_dots,
+                            cv.downsample_dots, codes, replay=False)
+        img_std = float(restorer.denormalize(kern[0]).float().std())
+        print(f'  kernel-path forward, B=2: image std {img_std:.2f} levels '
+              f'(>= {MIN_IMAGE_STD})', flush=True)
+        if img_std < MIN_IMAGE_STD or not all(
+                torch.isfinite(t.float()).all() for t in kern):
+            raise SystemExit(f'chip_smoke: the {task} forward is constant '
+                             f'or not finite')
+        plain = held_forward(model, xn, fwd, cv.conv3x3_dots_ref,
+                             cv.downsample_dots_ref, codes, replay=True)
+        worst = per_call(model, xn, f'{task} B=2, kernels', cv.conv3x3_dots,
+                         cv.downsample_dots, **fwd)
+        if not task_forward_check(restorer, 'kernels', kern, plain) \
+                or max(worst.values()) > REL_RMS_BOUND:
+            raise SystemExit(f'chip_smoke: the {task} forward disagrees with '
+                             f'its plain version')
+        halo = k1_fault('halo act(b)')
+        faulty = held_forward(model, xn, fwd, halo, cv.downsample_dots_ref,
+                              codes, replay=True)
+        whole_ok = task_forward_check(restorer,
+                                      'planted fault: K1 halo act(b)',
+                                      faulty, plain)
+        worst = per_call(model, xn, f'{task} B=2, planted fault: K1 halo '
+                         f'act(b)', halo, cv.downsample_dots_ref, **fwd)
+        if whole_ok or worst['conv3x3_dots'] <= REL_RMS_BOUND:
+            raise SystemExit(f'chip_smoke: the {task} checks let the planted '
+                             f'fault K1 halo act(b) pass')
+        del kern, plain, faulty
+
+        # 3. faces/s
+        phase_rates(restorer, [faces[:1], faces], w=w, adain=adain,
+                    label=task)
+        del restorer, model
+        torch.cuda.empty_cache()
+    return counts
+
+
+# the classic per-stage path's device stages (cli/whole_image.py
+# _run_classic): the whole-image phase's frame size, upscale 2, 1 and 4
+# faces at bench.py's offsets; parse in fp32 (the classic path's dtype)
+CLASSIC_UP = 2
+# share of class ids equal to the CPU copy's; read 0.999996 on an H100
+PARSE_AGREE_FLOOR = 0.999
+# paste_faces on the card against the same call on CPU copies (both fp32):
+# mean |diff| inside the face windows, uint8 levels (the results are
+# truncated, so a sum in another order can move a pixel by one level).
+# Read on an H100 (PERF.md): under 5e-5 (max 1 level) in all eight
+# configurations; an inverse affine 1 px off reads 1.72 to 3.25.
+PASTE_DIFF_BOUND = 0.05
+PASTE_MARGIN = 8           # px around each face's box: its window
+
+
+def paste_windows(inv_affines, face: int, hw) -> np.ndarray:
+    """(h, w) bool: inside some face's bounding box on the canvas, plus
+    PASTE_MARGIN. Outside it paste_faces returns the canvas (the soft
+    edge stays inside the warped face, device_pipeline.py's argument)."""
+    inside = np.zeros(hw, bool)
+    corners = np.array([[0, 0, 1], [face, 0, 1], [0, face, 1],
+                        [face, face, 1]], np.float64)
+    for ia in inv_affines:
+        c = corners @ np.asarray(ia, np.float64).T
+        y0, x0 = (np.floor(c.min(0)) - PASTE_MARGIN).astype(int)[::-1]
+        y1, x1 = (np.ceil(c.max(0)) + PASTE_MARGIN).astype(int)[::-1]
+        inside[max(y0, 0):max(y1, 0), max(x0, 0):max(x1, 0)] = True
+    return inside
+
+
+def phase_classic(restorer) -> dict:
+    """The classic path's device stages on the card: the crops through
+    restore_batch (exact launches), `_parse_masks` in fp32 against a CPU
+    copy, `paste_faces` with use_parse and draw_box on and off against
+    the same call on CPU copies (inside the face windows within
+    PASTE_DIFF_BOUND, outside bit-identical to the upscaled canvas; an
+    inverse affine shifted by one pixel must fail), ms a frame and peak
+    memory. Returns the launch counts of the restore_batch runs."""
+    from codeformer_tpu_torch.ops.geometry import (estimate_similarity,
+                                                   invert_affine,
+                                                   resize_linear, warp_affine)
+    from codeformer_tpu_torch.pipeline.compositor import paste_faces
+    from codeformer_tpu_torch.pipeline.face_helper import FaceRestoreHelper
+    t0 = time.perf_counter()
+    h, w = WI_HW
+    up = CLASSIC_UP
+    g = torch.Generator(device='cuda').manual_seed(3)
+    lo = torch.rand((1, 3, h // 16, w // 16), generator=g, device='cuda')
+    frame = torch.nn.functional.interpolate(lo * 255.0, size=(h, w),
+                                            mode='bilinear')
+    frame = frame + 8.0 * torch.randn(frame.shape, generator=g,
+                                      device='cuda')
+    frame = frame.clamp(0, 255).round()
+    # the classic path upscales with cv2 on the host; the card's machine
+    # has no cv2, so the canvas here is the same linear upscale on the card
+    canvas = resize_linear(frame, (h * up, w * up)).round().clamp(0, 255) \
+        .to(torch.uint8)[0].permute(1, 2, 0).contiguous()
+    frame = frame.to(torch.uint8).permute(0, 2, 3, 1).contiguous()
+    canvas_np = canvas.cpu().numpy()
+    kw = dict(use_parse=True, allow_random_weights=True, detector=object(),
+              parse_dtype=torch.float32)
+    helper = FaceRestoreHelper(up, device='cuda', **kw)
+    helper_cpu = FaceRestoreHelper(up, device='cpu', **kw)
+    helper_cpu._parse_model.load_state_dict(helper._parse_model.state_dict())
+    template = helper.face_template
+    n_res = count_resblocks(restorer.model, enable_fuse=True)
+    print(f'classic path: a {h}x{w} frame (seeded, on the card), canvas '
+          f'{h * up}x{w * up}, 1 and 4 faces at bench.py\'s offsets, the '
+          f'serving restorer, ParseNet fp32; set up in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    counts = {}
+    for n_faces in (1, 4):
+        lms = wi_landmarks(template, n_faces, h, w)
+        affines = [estimate_similarity(lm, template) for lm in lms]
+        crops = warp_affine(frame, np.stack(affines), (512, 512),
+                            border_value=(135.0, 133.0, 132.0),
+                            img_idx=torch.zeros(n_faces, dtype=torch.long,
+                                                device='cuda'))
+        crops = list(torch.round(crops).clamp(0, 255).to(torch.uint8)
+                     .cpu().numpy())
+        reset_all_counts()
+        restored = restorer.restore_batch(crops, w=0.5, adain=True)
+        torch.cuda.synchronize()
+        got = all_counts()
+        want = {'conv3x3_dots': 2 * n_res + 1, 'downsample_dots': 5}
+        print(f'  {n_faces} face(s): restore_batch launches {got} (expected '
+              f'K1/K2 {want})', flush=True)
+        if {k: got[k] for k in want} != want or any(
+                v for k, v in got.items() if k not in want) or any(
+                np.array_equal(r, c) for r, c in zip(restored, crops)):
+            raise SystemExit('chip_smoke: classic-path launch counts differ '
+                             '(a failed chunk passes through)')
+        for k in want:
+            counts[k] = counts.get(k, 0) + got[k]
+
+        pids = helper._parse_masks(restored)
+        if n_faces == 4:
+            pids_cpu = helper_cpu._parse_masks(restored)
+            agree = float((pids == pids_cpu).mean())
+            print(f'  _parse_masks fp32, card vs CPU copy, {n_faces} faces: '
+                  f'class ids agree on {agree:.6f} (>= {PARSE_AGREE_FLOOR})',
+                  flush=True)
+            if agree < PARSE_AGREE_FLOOR:
+                raise SystemExit('chip_smoke: _parse_masks on the card '
+                                 'disagrees with its CPU copy')
+        ias = []
+        for a in affines:
+            ia = invert_affine(a, up)
+            ia[:, 2] += 0.5 * up       # the helper's extra offset
+            ias.append(ia.astype(np.float32))
+        inside = paste_windows(ias, 512, canvas_np.shape[:2])
+        for use_parse in (False, True):
+            for draw_box in (False, True):
+                args = (restored, ias, pids if use_parse else None, up,
+                        draw_box)
+                out_c = paste_faces(canvas_np, *args, device='cpu')
+                label = (f'{n_faces} face(s), use_parse {use_parse}, '
+                         f'draw_box {draw_box}')
+                for fault in (False, True):
+                    shifted = [ia + np.float32([[0, 0, 1], [0, 0, 0]])
+                               for ia in ias] if fault else ias
+                    out_g = paste_faces(canvas_np, restored, shifted,
+                                        *args[2:], device='cuda')
+                    d = np.abs(out_g.astype(np.float32)
+                               - out_c.astype(np.float32))
+                    same = bool(np.array_equal(out_g[~inside],
+                                               canvas_np[~inside])
+                                and np.array_equal(out_c[~inside],
+                                                   canvas_np[~inside]))
+                    ok = same and float(d[inside].mean()) <= PASTE_DIFF_BOUND
+                    print(f'  paste_faces, {label}'
+                          f'{", planted fault: inverse affine 1 px off" if fault else ""}'
+                          f': card vs CPU copy inside the windows mean |diff| '
+                          f'{float(d[inside].mean()):.6f} (<= '
+                          f'{PASTE_DIFF_BOUND}) max {d.max():.0f} levels; '
+                          f'outside == the canvas: {same}', flush=True)
+                    if ok == fault:
+                        raise SystemExit(
+                            f'chip_smoke: paste_faces ({label}) '
+                            f'{"lets the planted fault pass" if fault else "disagrees with its CPU copy"}')
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: paste_faces(canvas_np, restored, ias, pids, up,
+                                         device='cuda'), iters=5, runs=5)
+        print(f'  paste_faces on the card, {n_faces} face(s), use_parse, '
+              f'canvas {h * up}x{w * up}: {ms:.3f} ms a frame '
+              f'{ms.spread()} (the whole call: faces and parse ids up, the '
+              f'frame back); peak memory '
+              f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB',
+              flush=True)
+    return counts
+
+
+def phase_vqgan():
+    """VQAutoEncoder.forward (encode -> quantize -> decode) at full width
+    (nf 64, ch_mult 1,2,2,4,4,8, 1024 codes of 256), bf16, B=2, seeded:
+    exact launches (K1, K2, one K3), the reconstruction against the plain
+    path's (K1/K2 plain with fp32 sums, K3 plain, the codes held to the
+    kernel path's). Returns
+    (launch counts, the quantizer's input and codebook, for the one
+    device activity of its K3 call taken at the end)."""
+    from codeformer_tpu_torch.models.vqgan import VQAutoEncoder
+    from codeformer_tpu_torch.nn.blocks import ResBlock
+    from codeformer_tpu_torch.ops import conv3x3 as cv
+    from codeformer_tpu_torch.ops import vq
+    from codeformer_tpu_torch.utils.checkpoint import init_params_fast
+    model = init_params_fast(VQAutoEncoder(), 4).cuda().eval() \
+        .requires_grad_(False)
+    n_res = sum(isinstance(m, ResBlock) for m in model.modules())
+    x = torch.from_numpy(np.stack(_faces(np.random.default_rng(4), 2))) \
+        .cuda()
+    xn = (x.float() / 127.5 - 1.0).to(torch.bfloat16).permute(0, 3, 1, 2)
+    reset_all_counts()
+    with torch.inference_mode():
+        out_k, loss_k, stats_k = model(xn)
+    torch.cuda.synchronize()
+    got = all_counts()
+    want = {'conv3x3_dots': 2 * n_res + 1, 'downsample_dots': 5,
+            'nearest_code': 1}
+    print(f'VQAutoEncoder.forward, full width, bf16, B=2: launches {got} '
+          f'(expected {want}); codebook loss {float(loss_k):.5g}, '
+          f'perplexity {float(stats_k["perplexity"]):.4g}', flush=True)
+    if {k: got[k] for k in want} != want or any(
+            v for k, v in got.items() if k not in want):
+        raise SystemExit('chip_smoke: VQAutoEncoder launch counts differ')
+    idx_k = stats_k['min_encoding_indices']
+    agree = []
+
+    def held(z, e):
+        agree.append(float((vq._nearest_code_ref(z, e) == idx_k)
+                           .float().mean()))
+        return idx_k
+
+    with torch.inference_mode(), mock.patch.multiple(
+            cv, conv3x3_dots=takes_prepared(cv.conv3x3_dots_ref),
+            downsample_dots=takes_prepared(cv.downsample_dots_ref)), \
+            mock.patch.object(vq, 'nearest_code_indices', held):
+        out_r, loss_r, _ = model(xn)
+    img_k = (out_k.float().clamp(-1, 1) + 1) * 127.5
+    diff = (img_k - (out_r.float().clamp(-1, 1) + 1) * 127.5).abs()
+    std = float(img_k.std())
+    inside = (float(diff.mean()) <= IMAGE_DIFF_BOUND and std >= MIN_IMAGE_STD
+              and agree[0] >= INDEX_AGREEMENT_FLOOR
+              and bool(torch.isfinite(out_k.float()).all()))
+    print(f'  reconstruction vs plain (K1/K2 fp32 sums, K3 plain; codes '
+          f'held): mean |diff| {float(diff.mean()):.4f} (<= '
+          f'{IMAGE_DIFF_BOUND}) max {float(diff.max()):.0f} levels, image std '
+          f'{std:.2f} (>= {MIN_IMAGE_STD}); the plain path\'s own picks agree '
+          f'on {agree[0]:.4f} (>= {INDEX_AGREEMENT_FLOOR}); codebook loss '
+          f'{float(loss_k):.5g} vs {float(loss_r):.5g}: '
+          f'{"within bounds" if inside else "OUT of bounds"}', flush=True)
+    if not inside:
+        raise SystemExit('chip_smoke: VQAutoEncoder disagrees with its plain '
+                         'version')
+    with torch.inference_mode():
+        z, _ = model.encoder(xn)
+    z_flat = z.float().permute(0, 2, 3, 1).reshape(-1, z.shape[1]) \
+        .contiguous()
+    return got, (z_flat, model.quantize.embedding.weight)
+
+
+def vqgan_activities(probe) -> None:
+    """One device activity a K3 call of VQAutoEncoder.forward's quantizer
+    (its input and kept codebook), by torch.profiler."""
+    from codeformer_tpu_torch.ops import vq
+    z_flat, codebook = probe
+    acts, ms = device_launches(
+        lambda: vq.nearest_code_indices(z_flat, codebook))
+    print(f'VQAutoEncoder quantizer, T={len(z_flat)}: {acts:.2f} device '
+          f'activities a K3 call (expected 1), {ms:.4f} ms a launch '
+          f'(profiler)', flush=True)
+    if acts != 1.0:
+        raise SystemExit('chip_smoke: the VQAutoEncoder K3 call is more than '
+                         'one device activity')
+
+
 KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
     'conv3x3_dots': ('codeformer_tpu_torch/csrc/conv3x3_dots.cu',
                      'codeformer_tpu/ops/colpack_conv.py:376'),
@@ -2229,16 +2652,21 @@ def main():
         phase_profile(restorer)
     whole_counts = phase_whole_image(restorer,
                                      profile='--profile' in sys.argv[1:])
+    classic_counts = phase_classic(restorer)
     del restorer
     torch.cuda.empty_cache()
+    task_counts = phase_tasks()
+    vq_counts, vq_probe = phase_vqgan()
     train_counts, trainer = phase_train()
     if '--profile' in sys.argv[1:]:
         phase_train_profile(trainer)
     print(f'main-path launches: serving {serve_counts}; whole-image path '
-          f'{whole_counts}; stage-II training {train_counts}; ops path '
-          f'{ops_counts}')
+          f'{whole_counts}; classic path {classic_counts}; colorization and '
+          f'inpainting {task_counts}; VQAutoEncoder {vq_counts}; stage-II '
+          f'training {train_counts}; ops path {ops_counts}')
     phase_k3_activities(k3_calls)
-    del k3_calls
+    vqgan_activities(vq_probe)
+    del k3_calls, vq_probe
     # head row of each kernel: K1/K2 the 512^2 shape, K3 the path's T,
     # K4 and the bare conv the ops path's shape
     results['nearest_code'] = [r for r in k3_rows
@@ -2257,7 +2685,8 @@ def main():
             'name': name, 'route': 'cuda', 'source': KERNEL_SOURCES[name][0],
             'replaces': KERNEL_SOURCES[name][1],
             'launches': sum(c.get(name, 0) for c in
-                            (serve_counts, whole_counts, train_counts,
+                            (serve_counts, whole_counts, classic_counts,
+                             task_counts, vq_counts, train_counts,
                              ops_counts)),
             'max_abs_err': max(r['max_abs_err'] for r in rows),
             'ms': head['ms'], 'plain_ms': head['plain_ms'],
@@ -2269,9 +2698,11 @@ def main():
               for name, rows in results.items() if 'call_ms' in rows[0]))
     if not all(k['launches'] > 0 for k in kernels):
         raise SystemExit('chip_smoke: a kernel of the path never launched')
-    if train_counts['nearest_code'] == 0 or not all(
-            c[k] > 0 for c in (serve_counts, whole_counts)
-            for k in ('conv3x3_dots', 'downsample_dots')) \
+    if train_counts['nearest_code'] == 0 or vq_counts['nearest_code'] == 0 \
+            or not all(c[k] > 0 for c in (serve_counts, whole_counts,
+                                          classic_counts, task_counts,
+                                          vq_counts)
+                       for k in ('conv3x3_dots', 'downsample_dots')) \
             or not all(ops_counts[k] > 0 for k in (
                 'conv3x3_bias', 'fused_lrelu_fwd', 'fused_lrelu_bwd')):
         raise SystemExit('chip_smoke: a kernel never launched on its path')

@@ -1,20 +1,24 @@
 """Face restoration CLI of the PyTorch port, counterpart of
 codeformer_tpu/cli/inference_codeformer.py:
 
-    # whole images: detect -> align -> restore -> parse -> paste back,
-    # on the device (pipeline/device_pipeline.py)
-    python -m codeformer_tpu_torch.cli.inference_codeformer \\
+    # whole images or a video: detect -> align -> restore -> parse ->
+    # paste back (cli/whole_image.py)
+    python -m codeformer_tpu_torch.cli.inference_codeformer \
         -i inputs/whole_imgs --random-init [-w 0.5] [-s 2] [-o DIR]
+    python -m codeformer_tpu_torch.cli.inference_codeformer \
+        -i clip.mp4 --random-init [--save_video_fps 24]
     # aligned 512x512 faces
-    python -m codeformer_tpu_torch.cli.inference_codeformer --has_aligned \\
+    python -m codeformer_tpu_torch.cli.inference_codeformer --has_aligned \
         -i inputs/cropped_faces --random-init
 
-Whole images go through the fused device pipeline (cli/whole_image.py)
-and are written to <output>/{cropped_faces,restored_faces,final_results}/;
-aligned faces are restored in device batches and written to
-<output>/restored_faces/. Inputs the port cannot serve yet (videos, mixed
-sizes, gray images, other detectors, upsamplers) raise and name the
-ROADMAP item. cv2 is imported only where images are read and written.
+Whole images and videos go through the fused device pipeline where it
+can serve them, else the classic per-stage path (--fused_pipeline), and
+are written to <output>/{cropped_faces,restored_faces,final_results}/
+(and <output>/<video>.mp4); aligned faces are restored in device batches
+and written to <output>/restored_faces/. The other detectors and the
+upsamplers raise and name the ROADMAP item. cv2 is imported only where
+images and videos are read and written, and by the classic path's host
+steps.
 """
 from __future__ import annotations
 
@@ -44,7 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help='Only restore the center face.')
     p.add_argument('--draw_box', action='store_true',
                    help='Draw the bounding box for the detected faces '
-                        '(the classic path; not ported yet).')
+                        '(the classic path).')
     p.add_argument('--detection_model', type=str,
                    default='retinaface_resnet50',
                    help='Face detector: retinaface_resnet50, '
@@ -59,20 +63,30 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--suffix', type=str, default=None,
                    help='Suffix of the restored faces.')
     p.add_argument('--save_video_fps', type=float, default=None,
-                   help='Frame rate for saving video (the video path is '
-                        'not ported yet).')
+                   help='Frame rate for saving video.')
     p.add_argument('--fused_pipeline', nargs='?', const='on',
                    default='auto', choices=['auto', 'on', 'off'],
-                   help='Fused device pipeline for whole images '
-                        '(pipeline/device_pipeline.py). auto (default) '
-                        'and on: use it; an input it cannot serve raises, '
-                        'since the classic per-stage path is not ported '
-                        'yet. off: the classic path (raises).')
+                   help='Fused device pipeline '
+                        '(pipeline/device_pipeline.py): frames stay on the '
+                        'device between detect/align/restore/parse/'
+                        'composite. auto (default): use it whenever it can '
+                        'serve the input (RetinaFace detector, no '
+                        'draw_box, same-size colour folder images or a '
+                        'video), else the classic per-stage path. on: '
+                        'require it (error if it cannot serve the input). '
+                        'off: always classic.')
+    p.add_argument('--compositor', type=str, default='xla',
+                   choices=['cv2', 'xla'],
+                   help='Paste-back compositor of the classic path: xla '
+                        '(default; on the device, pipeline/compositor.py, '
+                        'named as the JAX CLI names it) or cv2 (pixel '
+                        'parity with the reference, on the host).')
     p.add_argument('--parse_res', type=int, default=256, choices=[256, 512],
                    help='ParseNet resolution in the fused pipeline: 512 is '
                         'the reference (the parser sees the whole restored '
                         'face); 256 (default) parses and shapes the blend '
-                        'mask at half size and resizes it.')
+                        'mask at half size and resizes it. The classic '
+                        'path always parses at 512.')
     p.add_argument('--checkpoint', type=str, default=None,
                    help='Path to a reference .pth. Default: '
                         'weights/CodeFormer/codeformer.pth')
@@ -83,6 +97,8 @@ def build_parser() -> argparse.ArgumentParser:
                         'Default: 8')
     p.add_argument('--device', type=str, default='cuda',
                    help="Torch device, e.g. 'cuda' (default) or 'cpu'.")
+    p.add_argument('--profile', action='store_true',
+                   help='Print per-stage host timings at the end.')
     return p
 
 
@@ -118,10 +134,18 @@ def main(argv=None):
         args.input_path, args.fidelity_weight)
     if args.output_path is not None:
         result_root = args.output_path
-    if not input_img_list:
-        raise FileNotFoundError(f'no input image found at {args.input_path}')
+    video_meta = None
+    if input_video:
+        # a lazy frame stream: the fused pipeline takes it chunk by chunk
+        # (bounded memory for any length); the classic path lists it
+        input_img_list, video_meta = _open_video_stream(args.input_path)
+    elif not input_img_list:
+        raise FileNotFoundError(
+            f'no input image or video found at {args.input_path} (a video '
+            f'path should end with .mp4|.mov|.avi)')
     from codeformer_tpu_torch.pipeline import CodeFormerRestorer
-    ckpt = resolve_checkpoint(args.checkpoint, args.random_init)
+    ckpt = resolve_checkpoint(args.checkpoint, 'restoration',
+                              args.random_init)
     restorer = CodeFormerRestorer(
         device=args.device, checkpoint=ckpt,
         batch_buckets=sorted({1, 2, 4, args.batch}))
@@ -130,8 +154,59 @@ def main(argv=None):
     else:
         from .whole_image import run_whole_images
         run_whole_images(args, input_img_list, result_root, restorer,
-                         input_video)
+                         input_video, video_meta=video_meta)
+    if args.profile:
+        from codeformer_tpu_torch.utils.profiler import TIMER
+        print('\n' + TIMER.report())
     print(f'\nAll results are saved in {result_root}')
+
+
+def _open_video_stream(path):
+    """A lazy frame generator and the video's meta: an ffmpeg pipe if
+    ffmpeg is installed, else cv2.VideoCapture. The first frame is
+    decoded at once, so an empty or unreadable video fails here and not
+    mid-pipeline; the rest stream on demand (the reference decodes the
+    whole video into memory first, inference_codeformer.py:90-103)."""
+    import cv2
+
+    from codeformer_tpu_torch.utils.video_util import VideoReader, have_ffmpeg
+    if have_ffmpeg():
+        reader = VideoReader(path)
+        meta = {'fps': reader.get_fps(), 'audio': reader.get_audio()}
+        first = reader.get_frame()
+        if first is None:
+            reader.close()
+            raise FileNotFoundError(f'no decodable frames in {path}')
+
+        def gen():
+            frame = first
+            while frame is not None:
+                yield frame
+                frame = reader.get_frame()
+            reader.close()
+
+        return gen(), meta
+    cap = cv2.VideoCapture(path)
+    if not cap.isOpened():
+        raise RuntimeError(f'cannot open video {path} (no ffmpeg and '
+                           f'cv2.VideoCapture failed)')
+    fps = cap.get(cv2.CAP_PROP_FPS) or 24.0
+    ok, first = cap.read()
+    if not ok:
+        cap.release()
+        raise FileNotFoundError(f'no decodable frames in {path}')
+
+    def gen():
+        frame, good = first, True
+        while good:
+            yield frame
+            good, frame = cap.read()
+        cap.release()
+
+    # cv2 cannot demux audio; the source path is still recorded: the
+    # ffmpeg writer muxes from it ('-map 1:a?', missing audio is not an
+    # error) and the cv2 writer warns that audio is dropped
+    return gen(), {'fps': fps, 'audio': path}
 
 
 if __name__ == '__main__':

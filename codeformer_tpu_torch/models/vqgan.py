@@ -209,9 +209,8 @@ class Generator(nn.Module):
 @ARCH_REGISTRY.register()
 class VQAutoEncoder(nn.Module):
     """The VQGAN backbone: encoder, codebook, generator
-    (vqgan_arch.py:326-389), with the 'nearest' quantizer. Its
-    encode -> quantize -> decode forward and the Gumbel quantizer wait for
-    stage I (ROADMAP.md Queue 1 item 4.1)."""
+    (vqgan_arch.py:326-389), with the 'nearest' quantizer. The Gumbel
+    quantizer waits for stage I (ROADMAP.md Queue 1 item 4.1)."""
 
     def __init__(self, img_size=512, nf=64, ch_mult=(1, 2, 2, 4, 4, 8),
                  res_blocks=2, attn_resolutions=(16,), codebook_size=1024,
@@ -227,3 +226,10 @@ class VQAutoEncoder(nn.Module):
         self.quantize = VectorQuantizer(codebook_size, emb_dim)
         self.generator = Generator(nf, emb_dim, ch_mult, res_blocks,
                                    img_size, attn_resolutions)
+
+    def forward(self, x: torch.Tensor):
+        """Encode -> quantize -> decode (codeformer_tpu/models/vqgan.py:
+        359-363): (reconstruction, codebook_loss, quantizer stats)."""
+        x, _ = self.encoder(x)
+        quant, codebook_loss, quant_stats = self.quantize(x)
+        return self.generator(quant), codebook_loss, quant_stats

@@ -182,6 +182,24 @@ class FaceDetector:
                 f'(MAX_FACES_CEILING={self.MAX_FACES_CEILING})')
         return _rows(outs[0], valids[0], h, w)
 
+    def align_multi(self, img_bgr: np.ndarray, conf_threshold: float = 0.8,
+                    limit: Optional[int] = None):
+        """Detect + warp each face to the canonical 112x112 crop
+        (reference retinaface.py:241-264 align_multi; the warp is cv2's,
+        on the host). Returns ((n, 5) boxes and scores, the crops)."""
+        from .align_trans import get_reference_facial_points, \
+            warp_and_crop_face
+        det = self.detect_faces(img_bgr, conf_threshold)
+        if limit:
+            det = det[:limit]
+        reference = get_reference_facial_points(default_square=True)
+        faces = []
+        for row in det:
+            landmark = row[5:15].reshape(5, 2)
+            faces.append(warp_and_crop_face(
+                img_bgr, landmark, reference, crop_size=(112, 112)))
+        return det[:, :5], faces
+
     def batched_detect_faces(self, frames, conf_threshold: float = 0.8,
                              nms_threshold: float = 0.4):
         """Detect over a batch of SAME-SIZE frames (the video path,

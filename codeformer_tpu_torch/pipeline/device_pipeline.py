@@ -33,22 +33,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from codeformer_tpu_torch.ops.filters import erode, gaussian_blur
 from codeformer_tpu_torch.ops.geometry import (estimate_similarity,
                                                invert_affine, resize_linear,
                                                warp_affine)
-from .compositor import _shape_parse_masks
+from .compositor import (_pow2_bucket, _round_up, _shape_parse_masks, blend,
+                         edge_width, soft_paste)
 
 # cv2 constant-border gray of align_warp_face (BGR)
 _BORDER_BGR = (135.0, 133.0, 132.0)
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-def _pow2_bucket(n: int) -> int:
-    return 1 << max(0, (n - 1).bit_length())
 
 
 @dataclass
@@ -152,15 +144,13 @@ class DeviceRestorePipeline:
         With plan.roi > 0 each face warps and filters into a (roi, roi)
         window of the canvas; else into the whole canvas. Round k blends
         the k-th face of every frame, so later faces blend over earlier
-        ones as in the reference's per-face loop."""
+        ones as in the reference's per-face loop. The warp and the blend
+        weights are compositor.soft_paste, shared with paste_faces."""
         c, h, w = frames.shape[:3]
         up = self.upscale
         h_up, w_up = h * up, w * up
         hc, wc = _round_up(h_up, 128), _round_up(w_up, 128)
         face = restored.shape[1]
-        k_erode = max(int(2 * up), 1)
-        erosion_radius = max(plan.w_edge * 2, 1)
-        blur_size = plan.w_edge * 2 + 1
         roi, f = plan.roi, plan.fpf
         out_hw = (roi, roi) if roi else (hc, wc)
         dev = self.device
@@ -181,17 +171,11 @@ class DeviceRestorePipeline:
         def paste_pieces(sel):
             """Warp + filter the slots `sel`: (soft blend weights (n, oh,
             ow, 1), eroded pasted faces (n, oh, ow, 3) BGR)."""
-            warped, cov = warp_affine(src, inv_affines[sel], out_hw,
-                                      return_coverage=True,
-                                      img_idx=face_map[sel])
-            inv_restored = warped[..., :3].flip(-1)     # RGB -> BGR
-            erosion1 = erode(cov.permute(0, 3, 1, 2), k_erode)
-            pasted = erosion1.permute(0, 2, 3, 1) * inv_restored
-            soft = gaussian_blur(erode(erosion1, erosion_radius), blur_size)
-            if pids is not None:
-                inv_parse = warped[..., 3:4].permute(0, 3, 1, 2) / 255.0
-                soft = torch.where(inv_parse < soft, inv_parse, soft)
-            return soft.permute(0, 2, 3, 1), pasted
+            soft, pasted, _ = soft_paste(
+                src, inv_affines[sel], out_hw, up, plan.w_edge,
+                parse_div=255.0 if pids is not None else None,
+                img_idx=face_map[sel])
+            return soft, pasted
 
         out = canv
         frame_ids = torch.arange(c, device=dev)
@@ -204,13 +188,13 @@ class DeviceRestorePipeline:
                 rows = (roi_pos[sel, 1, None] + span)[:, :, None]
                 cols = (roi_pos[sel, 2, None] + span)[:, None, :]
                 at = (frame_ids[:, None, None], rows, cols)
-                out[at] = soft * pasted + (1 - soft) * out[at]
+                out[at] = blend(soft, pasted, out[at])
         else:
             soft, pasted = paste_pieces(torch.arange(c * f, device=dev))
             soft = soft.reshape(c, f, hc, wc, 1)
             pasted = pasted.reshape(c, f, hc, wc, 3)
             for k in range(f):
-                out = soft[:, k] * pasted[:, k] + (1 - soft[:, k]) * out
+                out = blend(soft[:, k], pasted[:, k], out)
         out = torch.round(out).clamp(0, 255).to(torch.uint8)
         return out[:, :h_up, :w_up]
 
@@ -310,8 +294,7 @@ class DeviceRestorePipeline:
                 cc = corners_face @ inv_affines[j].T  # (4, 2) = (x, y)
                 bboxes[slot] = (cc[:, 1].min(), cc[:, 1].max(),
                                 cc[:, 0].min(), cc[:, 0].max())
-        w_edge = int(max(areas, default=float(face * face)) ** 0.5) // 20
-        w_edge = min(max((w_edge + 4) // 8 * 8, 4), 64)
+        w_edge = edge_width(max(areas, default=float(face * face)))
 
         # per-face windows when every face (+ margin) fits one. The soft
         # edge cannot spill past the warped face's coverage: the erosion

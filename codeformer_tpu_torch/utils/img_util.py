@@ -1,14 +1,28 @@
-"""Host-side image helpers of the whole-image path, copied from
-codeformer_tpu/utils/img_util.py (`imwrite`, `is_gray`, `bgr2gray3`,
-`adain_color_transfer`; facelib/utils/misc.py:146-202 and
-basicsr/utils/img_util.py:135-151 of the reference). numpy only; cv2 is
-imported inside the functions that need it, so the card's path, which
-never reads or writes files, does not need it."""
+"""Host-side image helpers of the whole-image paths, copied from
+codeformer_tpu/utils/img_util.py (`normalize_img_dtype`, `imwrite`,
+`is_gray`, `bgr2gray3`, `adain_color_transfer`; the reference's
+basicsr/utils/img_util.py and facelib/utils/misc.py:146-202). numpy
+only; cv2 is imported inside the functions that need it, so the card's
+path, which never reads or writes files, does not need it."""
 from __future__ import annotations
 
 import os
 
 import numpy as np
+
+
+def normalize_img_dtype(img: np.ndarray) -> np.ndarray:
+    """uint16->uint8, gray->BGR, BGRA->BGR."""
+    import cv2
+    if img.dtype == np.uint16:
+        img = (img / 65535.0 * 255.0).round().astype(np.uint8)
+    elif img.dtype != np.uint8:
+        img = np.clip(img.astype(np.float32), 0, 255).astype(np.uint8)
+    if img.ndim == 2:
+        img = cv2.cvtColor(img, cv2.COLOR_GRAY2BGR)
+    elif img.shape[2] == 4:
+        img = cv2.cvtColor(img, cv2.COLOR_BGRA2BGR)
+    return img
 
 
 def imwrite(img: np.ndarray, file_path: str, auto_mkdir: bool = True):

@@ -1,10 +1,11 @@
 """Routing of the port's whole-image CLI (codeformer_tpu_torch/cli/
 whole_image.py), after tests/test_whole_image_batched.py: a uniform
-folder takes the fused device pipeline; what only the classic per-stage
-or the video path could serve raises "not ported yet" instead of being
-routed elsewhere; and one run of the CLI end to end on the CPU writes
-cropped_faces/, restored_faces/ and final_results/ with the JAX CLI's
-names."""
+folder and a video take the fused device pipeline; gray images, mixed
+sizes, --draw_box and --fused_pipeline off take the classic per-stage
+path (auto says why, on raises); the other detectors and the upsamplers
+raise "not ported yet"; and runs of the CLI end to end on the CPU, fused
+and classic, write cropped_faces/, restored_faces/ and final_results/
+with the JAX CLI's names."""
 import os
 from types import SimpleNamespace
 
@@ -26,8 +27,49 @@ TEMPLATE = np.array(
 
 
 class _StubHelper:
+    """The classic surface of FaceRestoreHelper: one face a image (its
+    top-left 64 x 64 corner, resized to 512), pasted back by a plain 2x
+    upscale; records each paste's draw_box and the gray flags."""
+    pastes = []
+
     def __init__(self, upscale_factor, **kw):
         self.kw = kw
+        self.upscale_factor = upscale_factor
+        self.use_parse = True
+        self.is_gray = False
+        self._precomputed_parse_ids = None
+        self.clean_all()
+
+    def clean_all(self):
+        self.cropped_faces = []
+        self.restored_faces = []
+        self.inverse_affine_matrices = []
+
+    def read_image(self, img):
+        self.input_img = img
+        self.is_gray = bool((img[..., 0] == img[..., 1]).all())
+
+    def get_face_landmarks_5(self, **kw):
+        return 1
+
+    def align_warp_face(self, *a, **kw):
+        self.cropped_faces = [cv2.resize(self.input_img[:64, :64],
+                                         (512, 512))]
+
+    def get_inverse_affine(self, _):
+        self.inverse_affine_matrices = [np.eye(2, 3, dtype=np.float32)]
+
+    def add_restored_face(self, face, input_face=None):
+        self.restored_faces.append(face)
+
+    def _parse_masks(self, faces):
+        return np.ones((len(faces), 512, 512), np.int64)
+
+    def paste_faces_to_input_image(self, upsample_img=None, draw_box=False,
+                                   face_upsampler=None):
+        _StubHelper.pastes.append((draw_box, self.is_gray,
+                                   self._precomputed_parse_ids.shape))
+        return np.repeat(np.repeat(self.input_img, 2, 0), 2, 1)
 
 
 class _StubPipeline:
@@ -44,17 +86,28 @@ class _StubPipeline:
         faces = [[(f[:64, :64].copy(), 255 - f[:64, :64])] for f in frames]
         return (up, faces) if return_faces else up
 
+    def restore_frames_stream(self, frames_iter):
+        frames = list(frames_iter)
+        _StubPipeline.calls.append(len(frames))
+        for f in frames:
+            yield np.repeat(np.repeat(f, 2, 0), 2, 1)
+
 
 class _StubRestorer:
     """The restorer's device surface: inverts the crops."""
     device = torch.device('cpu')
     face_size = 512
+    calls = []
 
     def __init__(self, **kw):
         pass
 
     def restore_device(self, x, w=0.5, adain=True, enable_fuse=None):
         return 255 - torch.as_tensor(x)
+
+    def restore_batch(self, faces, w=0.5, adain=True, enable_fuse=None):
+        _StubRestorer.calls.append(len(faces))
+        return [255 - f for f in faces]
 
 
 def _args(in_dir, fused='auto', detection='retinaface_resnet50', **kw):
@@ -84,6 +137,8 @@ def stubs(monkeypatch):
     monkeypatch.setattr(pfh, 'FaceRestoreHelper', _StubHelper)
     monkeypatch.setattr(pdp, 'DeviceRestorePipeline', _StubPipeline)
     _StubPipeline.calls = []
+    _StubHelper.pastes = []
+    _StubRestorer.calls = []
 
 
 def test_fused_auto_routes_uniform_folder(tmp_path, stubs):
@@ -110,25 +165,82 @@ def test_suffix_names(tmp_path, stubs):
     assert os.listdir(out / 'cropped_faces') == ['00_00.png']
 
 
-@pytest.mark.parametrize('case', ['mixed_sizes', 'gray', 'video', 'off',
-                                  'draw_box', 'yolo_on', 'realesrgan'])
+@pytest.mark.parametrize('case', ['yolo_on', 'yolo_auto', 'realesrgan',
+                                  'face_upsample'])
 def test_unported_inputs_raise(tmp_path, stubs, case):
     """Nothing falls back silently: each raises and names the ROADMAP
-    item; the fused pipeline never runs."""
-    shapes = [(80, 96), (96, 80)] if case == 'mixed_sizes' else [(80, 96)]
-    in_dir, paths = _folder(tmp_path, shapes, gray=case == 'gray')
-    kw = {'off': dict(fused='off'), 'draw_box': dict(draw_box=True),
-          'yolo_on': dict(fused='on', detection='YOLOv5n'),
-          'realesrgan': dict(bg_upsampler='realesrgan')}.get(case, {})
-    video = case == 'video'
-    if video:
-        paths = [str(tmp_path / 'clip.mp4')]
+    item; neither path runs."""
+    in_dir, paths = _folder(tmp_path, [(80, 96)])
+    kw = {'yolo_on': dict(fused='on', detection='YOLOv5n'),
+          'yolo_auto': dict(detection='YOLOv5l'),
+          'realesrgan': dict(bg_upsampler='realesrgan'),
+          'face_upsample': dict(face_upsample=True)}[case]
     with pytest.raises(NotImplementedError, match='not ported yet') as e:
         wi.run_whole_images(_args(in_dir, **kw), paths,
                             str(tmp_path / 'out'), _StubRestorer(),
-                            input_video=video)
-    assert 'ROADMAP.md Queue 1 item' in str(e.value)
+                            input_video=False)
+    assert 'ROADMAP.md Queue 1 item 3' in str(e.value)
+    assert _StubPipeline.calls == [] and _StubRestorer.calls == []
+
+
+@pytest.mark.parametrize('case', ['mixed_sizes', 'gray', 'off', 'draw_box'])
+def test_classic_path_serves(tmp_path, stubs, capsys, case):
+    """What the fused pipeline cannot take goes the classic per-stage
+    way: ONE restoration stream over every image's faces, one parse
+    stream, a paste a image (with draw_box when asked, the gray flag
+    carried), the JAX CLI's names; auto prints why it fell back."""
+    shapes = [(80, 96), (96, 80), (80, 96)] if case == 'mixed_sizes' \
+        else [(80, 96)] * 3
+    in_dir, paths = _folder(tmp_path, shapes, gray=case == 'gray')
+    kw = {'off': dict(fused='off'),
+          'draw_box': dict(draw_box=True)}.get(case, {})
+    out = tmp_path / 'out'
+    wi.run_whole_images(_args(in_dir, **kw), paths, str(out),
+                        _StubRestorer(), input_video=False)
     assert _StubPipeline.calls == []
+    assert _StubRestorer.calls == [3]
+    assert _StubHelper.pastes == [(case == 'draw_box', case == 'gray',
+                                   (1, 512, 512))] * 3
+    reason = {'mixed_sizes': 'differ in size', 'gray': 'grayscale',
+              'draw_box': 'draw_box'}.get(case)
+    said = capsys.readouterr().out
+    assert ('using the classic per-stage path' in said) == (reason is not None)
+    if reason:
+        assert reason in said
+    for sub, names in (('final_results', ['{i:02d}.png']),
+                       ('cropped_faces', ['{i:02d}_00.png']),
+                       ('restored_faces', ['{i:02d}_00.png'])):
+        assert sorted(os.listdir(out / sub)) == \
+            [n.format(i=i) for i in range(3) for n in names]
+    img0 = cv2.imread(paths[0])
+    np.testing.assert_array_equal(
+        cv2.imread(str(out / 'final_results' / '00.png')),
+        np.repeat(np.repeat(img0, 2, 0), 2, 1))
+
+
+def test_fused_on_raises_for_what_it_cannot_serve(tmp_path, stubs):
+    in_dir, paths = _folder(tmp_path, [(80, 96), (96, 80)])
+    with pytest.raises(RuntimeError, match='differ in size'):
+        wi.run_whole_images(_args(in_dir, fused='on'), paths,
+                            str(tmp_path / 'out'), _StubRestorer(),
+                            input_video=False)
+    assert _StubPipeline.calls == [] and _StubRestorer.calls == []
+
+
+def test_video_takes_the_fused_stream(tmp_path, stubs):
+    """A video with auto takes the fused pipeline's stream, a PNG a frame
+    and the video."""
+    rng = np.random.default_rng(0)
+    frames = (rng.integers(0, 255, (96, 128, 3), dtype=np.uint8)
+              for _ in range(3))
+    out = tmp_path / 'out'
+    wi.run_whole_images(_args(tmp_path / 'clip.mp4'), frames, str(out),
+                        _StubRestorer(), input_video=True,
+                        video_meta={'fps': 10.0, 'audio': None})
+    assert _StubPipeline.calls == [3]
+    assert sorted(os.listdir(out / 'final_results')) == \
+        [f'{i:06d}.png' for i in range(3)]
+    assert (out / 'clip.mp4').exists()
 
 
 def test_fused_mode_and_list_inputs():
@@ -197,3 +309,69 @@ def test_cli_end_to_end_on_cpu(tmp_path, monkeypatch):
     assert final.shape == (1024, 1366, 3)
     assert crop.shape == restored.shape == (512, 512, 3)
     np.testing.assert_array_equal(restored, 255 - crop)
+
+
+class _HostInjected:
+    """The classic path's detector: one face a image, centred, in the
+    coordinates of the image it is handed."""
+
+    def __init__(self, *a, **kw):
+        pass
+
+    def detect_faces(self, img, conf_threshold=0.8):
+        h, w = img.shape[:2]
+        s = min(h, w) / 512.0
+        lm = TEMPLATE * 0.45 * s + np.array([w / 2 - 115 * s,
+                                             h / 2 - 140 * s], np.float32)
+        return np.concatenate([[lm[:, 0].min() - 20 * s,
+                                lm[:, 1].min() - 40 * s,
+                                lm[:, 0].max() + 20 * s,
+                                lm[:, 1].max() + 30 * s, 0.99],
+                               lm.reshape(-1)]).astype(np.float32)[None]
+
+
+@pytest.mark.parametrize('compositor', ['xla', 'cv2'])
+def test_cli_classic_end_to_end_on_cpu(tmp_path, monkeypatch, capsys,
+                                       compositor):
+    """python -m codeformer_tpu_torch.cli.inference_codeformer -i <folder
+    of mixed sizes, one gray> --draw_box --compositor <c> --device cpu:
+    the classic path with the real helper and ParseNet (random weights),
+    a stub restorer and injected detections. The gray image's restored
+    face comes back gray; the box is drawn; --profile reports the
+    stages."""
+    import codeformer_tpu_torch.pipeline as pipeline
+    monkeypatch.setattr(pipeline, 'CodeFormerRestorer', _StubRestorer)
+    monkeypatch.setattr(pdet, 'init_detection_model',
+                        lambda *a, **kw: _HostInjected())
+    in_dir = tmp_path / 'in'
+    in_dir.mkdir()
+    rng = np.random.default_rng(1)
+    for name, (h, w) in (('a', (96, 128)), ('b', (128, 112))):
+        lo = rng.uniform(30, 220, (h // 8, w // 8, 3))
+        img = np.repeat(np.repeat(lo, 8, 0), 8, 1).astype(np.uint8)
+        if name == 'b':
+            img = np.repeat(img[..., :1], 3, axis=-1)
+        cv2.imwrite(str(in_dir / f'{name}.png'), img)
+    out = tmp_path / 'out'
+    _StubRestorer.calls = []
+    cli.main(['-i', str(in_dir), '-o', str(out), '--random-init',
+              '--device', 'cpu', '--draw_box', '--compositor', compositor,
+              '--profile'])
+    assert _StubRestorer.calls == [2]
+    said = capsys.readouterr().out
+    assert 'draw_box requested' in said and 'Grayscale input: True' in said
+    assert 'folder_restore' in said and 'folder_paste' in said
+    assert sorted(os.listdir(out / 'final_results')) == ['a.png', 'b.png']
+    assert sorted(os.listdir(out / 'restored_faces')) == \
+        ['a_00.png', 'b_00.png']
+    a = cv2.imread(str(out / 'final_results' / 'a.png'))
+    b = cv2.imread(str(out / 'final_results' / 'b.png'))
+    assert a.shape == (1024, 1366, 3) and b.shape == (1170, 1024, 3)
+    for img in (a, b):   # the green box
+        assert ((img[..., 1] == 255) & (img[..., 0] == 0)
+                & (img[..., 2] == 0)).sum() > 100
+    face_b = cv2.imread(str(out / 'restored_faces' / 'b_00.png'))
+    assert (face_b[..., 0] == face_b[..., 1]).all()
+    face_a = cv2.imread(str(out / 'restored_faces' / 'a_00.png'))
+    crop_a = cv2.imread(str(out / 'cropped_faces' / 'a_00.png'))
+    np.testing.assert_array_equal(face_a, 255 - crop_a)
