@@ -59,6 +59,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      off against the same call on CPU copies (inside the face windows
      within a bound, outside bit-identical to the canvas; an inverse
      affine shifted by one pixel must fail), ms a frame and peak memory;
+  5f. Real-ESRGAN: set_realesrgan's x2 upsampler (RRDBNet x2plus, bf16,
+     tiles of 400 with a pad of 40, 4 a batch; seeded weights, tamed so
+     the output spans levels) on a 512x683 frame and a 512^2 face against
+     the same calls in fp32 (a seam one pixel off and a dense block
+     without its residual scale must fail), tiled against whole at 320^2,
+     ms a call, tiles/s, peak memory;
+  5g. the classic path with both upsamplers (5c's frame, 1 and 4 faces):
+     restore_batch with exact launches, each face upsampled to 1024 and
+     the frame to 1024x1366, paste_faces with the upsampler's inverse
+     affines on the card against CPU copies (an affine 1 px off must
+     fail), ms a frame and its split between restore, upsample and
+     parse + paste;
+  5h. YOLOv5n and YOLOv5l (seeded, fp32) on a 512x683 frame: raw
+     predictions and detect_faces against CPU copies (a BatchNorm
+     epsilon and reversed anchors must fail), ms a frame;
+  5i. BiSeNet (seeded, fp32) at 512^2, B=1 and 4, against a CPU copy, ms;
   5d. the colorization and inpainting models (codebook 1024 / 512,
      connect 32/64/128, w=0 with AdaIN / w=1 without) at full width:
      exact launch counts through restore_batch, inpainting's white-mask
@@ -2539,6 +2555,431 @@ def phase_classic(restorer) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# 5f-5i: the Real-ESRGAN upsampler, the classic path with both upsamplers,
+# the YOLOv5-face detectors, BiSeNet
+# ---------------------------------------------------------------------------
+ESR_FACE = 512
+# enhance in bf16 (set_realesrgan's upsampler) against the same call in
+# fp32 with TF32 off, uint8 levels over the whole output. Read on an H100
+# (PERF.md): mean 0.353 / 0.354, max 2 / 2 on the frame / the face; a
+# seam one pixel off read mean 1.023, max 10
+ESR_MEAN_BOUND = 0.9
+ESR_MAX_BOUND = 6
+# tiled (tile 160, pad 40) against whole at 320^2, both fp32: mean |diff|
+# over the tile cores, 40 px (80 output px) clear of every seam and edge.
+# Read on an H100: 0.0000 (near the seams 0.8977); a seam one pixel off
+# read 1.0140 there
+ESR_TILE_BOUND = 0.05
+ESR_TILE_HW = (320, 320)
+# random RRDB weights, tamed (tame_rrdb): conv_last's scale. Read on an
+# H100 on 5f's frame: 0.18 left 33% of the output at 0 or 255, 0.08 left
+# 10.5% (std 59 levels)
+ESR_LAST_SCALE = 0.04
+ESR_MAX_SATURATED = 0.05   # share of output values at 0 or 255
+
+
+@torch.no_grad()
+def tame_rrdb(model):
+    """Random RRDB weights: an RRDB returns about 1.2 x its input (its
+    three dense blocks are near identity and it adds 0.2 of their output
+    to its input), so 23 of them grow the features about 66x and 99% of
+    the output saturates at 0 or 255 (a comparison of saturated outputs
+    proves nothing). conv_body is scaled by 1.2^-num_block, conv_last by
+    ESR_LAST_SCALE with its bias at 0.5, so the output sits mid-range;
+    trained weights keep it in range."""
+    damp = 1.2 ** -len(model.body)
+    model.conv_body.weight.mul_(damp)
+    model.conv_body.bias.mul_(damp)
+    model.conv_last.weight.mul_(ESR_LAST_SCALE)
+    model.conv_last.bias.fill_(0.5)
+
+
+def smooth_frame(seed: int, hw) -> np.ndarray:
+    """A seeded (h, w, 3) uint8 BGR frame made on the card: smooth colour
+    fields (a 1/16 noise map, bilinear) plus noise of 8 levels."""
+    h, w = hw
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    lo = torch.rand((1, 3, -(-h // 16), -(-w // 16)), generator=g,
+                    device='cuda')
+    frame = torch.nn.functional.interpolate(lo * 255.0, size=(h, w),
+                                            mode='bilinear')
+    frame = frame + 8.0 * torch.randn(frame.shape, generator=g,
+                                      device='cuda')
+    return frame.clamp(0, 255).round().to(torch.uint8)[0] \
+        .permute(1, 2, 0).contiguous().cpu().numpy()
+
+
+def level_diff(got: np.ndarray, ref: np.ndarray):
+    d = np.abs(got.astype(np.float32) - ref.astype(np.float32))
+    return float(d.mean()), float(d.max())
+
+
+def rdb_fault(rdb):
+    """A dense block without its 0.2 residual scale: a planted fault."""
+    import torch.nn.functional as F
+
+    def forward(x):
+        feats = [x]
+        for conv in (rdb.conv1, rdb.conv2, rdb.conv3, rdb.conv4):
+            feats.append(F.leaky_relu(conv(torch.cat(feats, 1)), 0.2))
+        return rdb.conv5(torch.cat(feats, 1)) + x
+
+    return mock.patch.object(rdb, 'forward', forward)
+
+
+def seam_fault(up):
+    """Each upscaled tile moved one pixel right before its core is cut:
+    the cores land one pixel off in the assembly (a planted fault)."""
+    fwd = up._fwd
+    return mock.patch.object(up, '_fwd',
+                             lambda t: torch.roll(fwd(t), 1, dims=3))
+
+
+def phase_realesrgan():
+    """5f. set_realesrgan's x2 upsampler (RRDBNet x2plus: 64 features, 23
+    blocks, growth 32; bf16; tiles of 400, pad 40, 4 a batch) with seeded
+    tamed weights: enhance on a 512x683 frame (2x2 tiles) and on a 512^2
+    face (--face_upsample's call, 2x2 tiles) against the same calls in
+    fp32 (TF32 off), a seam shifted by one pixel and a dense block
+    without its residual scale that must fail; tiled (160, pad 40)
+    against whole at 320^2; the output not saturated; ms a call, tiles/s
+    and peak memory. Returns the upsampler for 5g."""
+    from codeformer_tpu_torch.models.rrdbnet import RRDBNet
+    from codeformer_tpu_torch.pipeline.realesrgan import (RealESRGANer,
+                                                          set_realesrgan)
+    from codeformer_tpu_torch.utils.checkpoint import init_params_fast
+    torch.backends.cudnn.allow_tf32 = False      # the fp32 reference
+    t0 = time.perf_counter()
+    ref_model = init_params_fast(RRDBNet(scale=2), 5)
+    tame_rrdb(ref_model)
+    up = set_realesrgan(tile=400, allow_random=True, device='cuda')
+    up.model.load_state_dict(ref_model.state_dict())
+    up32 = RealESRGANer(scale=2, model=ref_model, tile=up.tile_size,
+                        tile_pad=up.tile_pad, tile_batch=up.tile_batch,
+                        dtype=torch.float32, device='cuda')
+    frame = smooth_frame(11, WI_HW)
+    face = smooth_frame(12, (ESR_FACE, ESR_FACE))
+    print(f'Real-ESRGAN (set_realesrgan: RRDBNet x2plus, {up.dtype}, tile '
+          f'{up.tile_size} pad {up.tile_pad}, {up.tile_batch} a batch; '
+          f'seeded, tamed): set up in {time.perf_counter() - t0:.1f} s',
+          flush=True)
+    outs = {}
+    for label, img in (('frame', frame), ('face', face)):
+        got, mode = up.enhance(img, outscale=2)
+        ref, _ = up32.enhance(img, outscale=2)
+        want_shape = (2 * img.shape[0], 2 * img.shape[1], 3)
+        mean, mx = level_diff(got, ref)
+        sat = float(((got == 0) | (got == 255)).mean())
+        std = float(got.std())
+        ok = (got.shape == want_shape and mode == 'RGB'
+              and mean <= ESR_MEAN_BOUND and mx <= ESR_MAX_BOUND)
+        print(f'  enhance, {label} {img.shape[0]}x{img.shape[1]} -> '
+              f'{got.shape[0]}x{got.shape[1]}: bf16 vs fp32 mean |diff| '
+              f'{mean:.4f} (<= {ESR_MEAN_BOUND}) max {mx:.0f} (<= '
+              f'{ESR_MAX_BOUND}) levels; output std {std:.2f} (>= '
+              f'{MIN_IMAGE_STD}), saturated share {sat:.4f} (<= '
+              f'{ESR_MAX_SATURATED})', flush=True)
+        if not ok:
+            raise SystemExit(f'chip_smoke: Real-ESRGAN bf16 disagrees with '
+                             f'fp32 on the {label}')
+        if std < MIN_IMAGE_STD or sat > ESR_MAX_SATURATED:
+            raise SystemExit(f'chip_smoke: the Real-ESRGAN {label} output is '
+                             f'saturated or flat: the check compares nothing')
+        outs[label] = ref
+    for fault, patch in (('a seam one pixel off', seam_fault(up)),
+                         ('body.11.rdb2 without its 0.2 residual scale',
+                          rdb_fault(up.model.body[11].rdb2))):
+        with patch:
+            got, _ = up.enhance(frame, outscale=2)
+        mean, mx = level_diff(got, outs['frame'])
+        caught = mean > ESR_MEAN_BOUND or mx > ESR_MAX_BOUND
+        print(f'  planted fault, {fault}: frame mean |diff| {mean:.4f} max '
+              f'{mx:.0f} levels: {"caught" if caught else "MISSED"}',
+              flush=True)
+        if not caught:
+            raise SystemExit(f'chip_smoke: the Real-ESRGAN bounds let the '
+                             f'planted fault ({fault}) pass')
+
+    # tiled against whole, fp32
+    tiled = RealESRGANer(scale=2, model=ref_model, tile=160, tile_pad=40,
+                         tile_batch=4, dtype=torch.float32, device='cuda')
+    whole = RealESRGANer(scale=2, model=ref_model, tile=0,
+                         dtype=torch.float32, device='cuda')
+    img = smooth_frame(13, ESR_TILE_HW)
+    core = np.zeros((2 * ESR_TILE_HW[0], 2 * ESR_TILE_HW[1]), bool)
+    core[80:-80, 80:-80] = True
+    for seam in range(160 * 2, 2 * ESR_TILE_HW[0], 160 * 2):
+        core[seam - 80:seam + 80] = False
+        core[:, seam - 80:seam + 80] = False
+    ref = whole.enhance(img, outscale=2)[0]
+    for fault in (False, True):
+        with (seam_fault(tiled) if fault else contextlib.nullcontext()):
+            got = tiled.enhance(img, outscale=2)[0]
+        d = np.abs(got.astype(np.float32) - ref.astype(np.float32))
+        inside = float(d[core].mean())
+        ok = inside <= ESR_TILE_BOUND
+        print(f'  tiled (160, pad 40) vs whole at {ESR_TILE_HW[0]}^2, fp32'
+              f'{", planted fault: a seam one pixel off" if fault else ""}: '
+              f'mean |diff| {inside:.6f} (<= {ESR_TILE_BOUND}), max '
+              f'{d[core].max():.0f} levels over the tile cores '
+              f'({int(core.sum())} px); near the seams and edges mean '
+              f'{float(d[~core].mean()):.4f}, max {d.max():.0f}', flush=True)
+        if ok == fault:
+            raise SystemExit(
+                'chip_smoke: tiled Real-ESRGAN '
+                f'{"lets the seam fault pass" if fault else "disagrees with the whole image"}')
+    del tiled, whole, up32
+
+    for label, img in (('frame', frame), ('face', face)):
+        n_tiles = math.ceil(img.shape[0] / up.tile_size) * math.ceil(
+            img.shape[1] / up.tile_size)
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: up.enhance(img, outscale=2), iters=3, runs=3,
+                     warmup=1)
+        print(f'  enhance on the card, {label} {img.shape[0]}x{img.shape[1]} '
+              f'({n_tiles} tiles of {up.tile_size + 2 * up.tile_pad}^2): '
+              f'{ms:.3f} ms a call {ms.spread()}, '
+              f'{n_tiles / ms * 1e3:.1f} tiles/s (the whole call: the '
+              f'image up, uint8 back); peak memory '
+              f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB',
+              flush=True)
+    return up
+
+
+def phase_classic_upsample(restorer, up) -> dict:
+    """5g. The classic path's device stages with both upsamplers: 5c's
+    512x683 frame and faces (1 and 4 at bench.py's offsets) through
+    restore_batch (exact K1/K2 launches, nothing else launched by the
+    upsampler or the paste), each restored face upsampled to 1024
+    (--face_upsample) and the frame to 1024x1366 (--bg_upsampler), the
+    upsampled faces parsed on the card, then paste_faces with the
+    upsampler's inverse affines on the card against the same call on CPU
+    copies (a shifted affine must fail); ms a frame and its split.
+    Returns the launch counts."""
+    from codeformer_tpu_torch.ops.geometry import (estimate_similarity,
+                                                   invert_affine, warp_affine)
+    from codeformer_tpu_torch.pipeline.compositor import paste_faces
+    from codeformer_tpu_torch.pipeline.face_helper import FaceRestoreHelper
+    h, w = WI_HW
+    s = CLASSIC_UP
+    frame = smooth_frame(3, WI_HW)
+    helper = FaceRestoreHelper(s, device='cuda', use_parse=True,
+                               allow_random_weights=True, detector=object(),
+                               parse_dtype=torch.float32)
+    template = helper.face_template
+    n_res = count_resblocks(restorer.model, enable_fuse=True)
+    frame_dev = torch.from_numpy(frame).cuda()[None]
+    counts = {}
+    print(f'classic path with both upsamplers: a {h}x{w} frame, faces '
+          f'restored, upsampled to 1024, the frame to {h * s}x{w * s}, '
+          f'pasted at upscale {s}', flush=True)
+    for n_faces in (1, 4):
+        lms = wi_landmarks(template, n_faces, h, w)
+        affines = [estimate_similarity(lm, template) for lm in lms]
+        crops = warp_affine(frame_dev, np.stack(affines), (512, 512),
+                            border_value=(135.0, 133.0, 132.0),
+                            img_idx=torch.zeros(n_faces, dtype=torch.long,
+                                                device='cuda'))
+        crops = list(torch.round(crops).clamp(0, 255).to(torch.uint8)
+                     .cpu().numpy())
+        ias = []
+        for a in affines:     # the helper's face-upsampler inverse affine
+            ia = invert_affine(a, s) / s
+            ia[:, 2] *= s
+            ias.append(ia.astype(np.float32))
+
+        def run():
+            restored = restorer.restore_batch(crops, w=0.5, adain=True)
+            faces = [up.enhance(f, outscale=s)[0] for f in restored]
+            canvas = up.enhance(frame, outscale=s)[0]
+            rgb = torch.from_numpy(np.stack(faces)[..., ::-1].copy()).cuda()
+            pids = helper._parse(rgb, res=512).cpu().numpy()
+            return restored, faces, canvas, pids
+
+        reset_all_counts()
+        restored, faces, canvas, pids = run()
+        torch.cuda.synchronize()
+        got = all_counts()
+        want = {'conv3x3_dots': 2 * n_res + 1, 'downsample_dots': 5}
+        print(f'  {n_faces} face(s): launches {got} (expected K1/K2 {want} '
+              f'from restore_batch, none from the upsampler); faces '
+              f'{faces[0].shape}, canvas {canvas.shape}', flush=True)
+        if {k: got[k] for k in want} != want or any(
+                v for k, v in got.items() if k not in want) or any(
+                np.array_equal(r, c) for r, c in zip(restored, crops)) or \
+                faces[0].shape != (1024, 1024, 3) or \
+                canvas.shape != (h * s, w * s, 3):
+            raise SystemExit('chip_smoke: the classic path with upsamplers '
+                             'launched other than expected')
+        for k in want:
+            counts[k] = counts.get(k, 0) + got[k]
+        inside = paste_windows(ias, 1024, canvas.shape[:2])
+        out_c = paste_faces(canvas, faces, ias, pids, s, device='cpu')
+        for fault in (False, True):
+            shifted = [ia + np.float32([[0, 0, 1], [0, 0, 0]])
+                       for ia in ias] if fault else ias
+            out_g = paste_faces(canvas, faces, shifted, pids, s,
+                                device='cuda')
+            d = np.abs(out_g.astype(np.float32) - out_c.astype(np.float32))
+            same = bool(np.array_equal(out_g[~inside], canvas[~inside]))
+            ok = same and float(d[inside].mean()) <= PASTE_DIFF_BOUND
+            print(f'  paste_faces, {n_faces} 1024 face(s), use_parse'
+                  f'{", planted fault: inverse affine 1 px off" if fault else ""}'
+                  f': card vs CPU copy inside the windows mean |diff| '
+                  f'{float(d[inside].mean()):.6f} (<= {PASTE_DIFF_BOUND}) max '
+                  f'{d.max():.0f} levels; outside == the canvas: {same}',
+                  flush=True)
+            if ok == fault:
+                raise SystemExit(
+                    'chip_smoke: paste_faces with upsampled faces '
+                    f'{"lets the planted fault pass" if fault else "disagrees with its CPU copy"}')
+        torch.cuda.reset_peak_memory_stats()
+        split = {
+            'restore': time_ms(lambda: restorer.restore_batch(
+                crops, w=0.5, adain=True), iters=3, runs=3, warmup=1),
+            'upsample': time_ms(lambda: ([up.enhance(f, outscale=s)
+                                          for f in restored],
+                                         up.enhance(frame, outscale=s)),
+                                iters=2, runs=3, warmup=1),
+            'parse+paste': time_ms(lambda: paste_faces(
+                canvas, faces, ias, helper._parse(
+                    torch.from_numpy(np.stack(faces)[..., ::-1].copy())
+                    .cuda(), res=512).cpu().numpy(), s, device='cuda'),
+                iters=3, runs=3, warmup=1)}
+        total = sum(split.values())
+        print(f'  {n_faces} face(s) a frame: {total:.2f} ms a frame '
+              f'({1e3 / total:.2f} frames/s): ' + ', '.join(
+                  f'{k} {v:.2f} ms {v.spread()} ({v / total:.1%})'
+                  for k, v in split.items())
+              + f'; peak memory '
+              f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB',
+              flush=True)
+    return counts
+
+
+YOLO_VARIANTS = ('YOLOv5n', 'YOLOv5l')
+# YoloFace's raw (N, 16) predictions on the card (fp32, TF32 off) against
+# a CPU copy: max |diff| of each column over its largest value. Read on an
+# H100 (PERF.md): 3.13e-7 (n) and 2.33e-6 (l); BatchNorm eps 1e-5 in the
+# Conv blocks 1.07e-3 / 2.33e-2, the anchors reversed 0.565 / 0.568
+YOLO_PRED_RTOL = 1e-5
+YOLO_DET_ATOL = 0.05       # px and score, a matched detection's columns
+
+
+def yolo_verdict(pred, ref) -> float:
+    return float((np.abs(pred - ref).max(axis=0)
+                  / np.abs(ref).max(axis=0).clip(1e-6)).max())
+
+
+def detect_sorted(det, frame, thr):
+    rows = det.detect_faces(frame, conf_threshold=thr)
+    return rows[np.lexsort(rows[:, ::-1].T)] if len(rows) else rows
+
+
+def phase_yolo():
+    """5h. YOLOv5n and YOLOv5l (seeded) on the card in fp32 (the classic
+    path's numerics; TF32 off) against a CPU copy on a seeded 512x683
+    frame: the raw (N, 16) predictions within YOLO_PRED_RTOL; detect_faces
+    at a threshold between two scores that lets some rows through, the
+    same rows as sets; planted faults (BatchNorm eps 1e-5 in the Conv
+    blocks, the anchors of each level reversed) that must fail; ms a
+    frame."""
+    import copy
+    from codeformer_tpu_torch.models import yolov5face
+    from codeformer_tpu_torch.pipeline.detector import YoloFaceDetector
+    torch.backends.cudnn.allow_tf32 = False
+    frame = smooth_frame(21, WI_HW)
+    for name in YOLO_VARIANTS:
+        det = YoloFaceDetector(name, allow_random=True, device='cuda')
+        cpu = YoloFaceDetector(name, allow_random=True, device='cpu')
+        cpu.model.load_state_dict(det.model.state_dict())
+        with torch.no_grad():
+            ref = cpu.model(cpu._host_batch(frame[None])[0])[0].numpy()
+            pred = det.model(det._host_batch(frame[None])[0])[0] \
+                .cpu().numpy()
+        err = yolo_verdict(pred, ref)
+        scores = np.sort(ref[:, 4] * ref[:, 15])[::-1]
+        k = 20 + int(np.argmax(scores[20:60] - scores[21:61]))
+        thr = float(scores[k] + scores[k + 1]) / 2
+        got = detect_sorted(det, frame, thr)
+        want = detect_sorted(cpu, frame, thr)
+        same = got.shape == want.shape and len(got) > 0 and bool(
+            np.abs(got - want).max() <= YOLO_DET_ATOL)
+        print(f'{name} ({sum(p.numel() for p in det.model.parameters())} '
+              f'parameters), fp32, a {WI_HW[0]}x{WI_HW[1]} frame: raw '
+              f'{pred.shape} predictions, card vs CPU max rel |diff| '
+              f'{err:.3g} (<= {YOLO_PRED_RTOL}); detect_faces at '
+              f'{thr:.5f}: {len(got)} rows on the card, {len(want)} on the '
+              f'CPU, equal as sets: {same}', flush=True)
+        if err > YOLO_PRED_RTOL or not same:
+            raise SystemExit(f'chip_smoke: {name} on the card disagrees with '
+                             f'its CPU copy')
+        bad_eps = copy.deepcopy(det.model)
+        for m in bad_eps.modules():
+            if isinstance(m, torch.nn.BatchNorm2d) and m.eps == 1e-3:
+                m.eps = 1e-5
+        head = det.model.model[-1]
+        for fault, model, patch in (
+                ('BatchNorm eps 1e-5 in the Conv blocks', bad_eps,
+                 contextlib.nullcontext()),
+                ('anchors of each level reversed', det.model,
+                 mock.patch.object(head, 'anchors', tuple(
+                     sum(reversed([a[i:i + 2] for i in range(0, 6, 2)]),
+                         ()) for a in head.anchors)))):
+            with patch, torch.no_grad():
+                bad = model(det._host_batch(frame[None])[0])[0].cpu().numpy()
+            e = yolo_verdict(bad, ref)
+            print(f'  planted fault, {fault}: max rel |diff| {e:.3g}: '
+                  f'{"caught" if e > YOLO_PRED_RTOL else "MISSED"}',
+                  flush=True)
+            if e <= YOLO_PRED_RTOL:
+                raise SystemExit(f'chip_smoke: the {name} bound lets the '
+                                 f'planted fault ({fault}) pass')
+        del bad_eps
+        ms = time_ms(lambda: det.detect_faces(frame), iters=5, runs=3)
+        print(f'  detect_faces on the card, fp32: {ms:.3f} ms a frame '
+              f'{ms.spread()} (the frame up, the rows back)', flush=True)
+
+
+# each head's max |diff| over its largest value, card (fp32, TF32 off)
+# against a CPU copy; read on an H100: 3.38e-6 / 3.55e-6 at B=1 / 4
+BISENET_RTOL = 1.5e-5
+
+
+def phase_bisenet():
+    """5i. BiSeNet (seeded, fp32, TF32 off) at 512^2, B=1 and 4: the card
+    against a CPU copy (all three heads), and ms a forward."""
+    from codeformer_tpu_torch.models.bisenet import BiSeNet
+    from codeformer_tpu_torch.utils.checkpoint import init_params_fast
+    torch.backends.cudnn.allow_tf32 = False
+    model = init_params_fast(BiSeNet(), 6).eval().requires_grad_(False)
+    cpu = BiSeNet().eval().requires_grad_(False)
+    cpu.load_state_dict(model.state_dict())
+    model = model.cuda().to(memory_format=torch.channels_last)
+    for bsz in (1, 4):
+        x = torch.from_numpy(np.stack(
+            [smooth_frame(30 + i, (512, 512)) for i in range(bsz)])) \
+            .permute(0, 3, 1, 2).float() / 127.5 - 1.0
+        with torch.no_grad():
+            ref = cpu(x)
+            got = model(x.cuda())
+        err = max(float((g.cpu() - r).abs().max() / r.abs().max())
+                  for g, r in zip(got, ref))
+        agree = float((got[0].argmax(1).cpu() == ref[0].argmax(1)).float()
+                      .mean())
+        xc = x.cuda().contiguous(memory_format=torch.channels_last)
+        with torch.no_grad():
+            ms = time_ms(lambda: model(xc), iters=5, runs=3)
+        print(f'BiSeNet fp32 512^2 B={bsz}: card vs CPU max rel |diff| '
+              f'{err:.3g} (<= {BISENET_RTOL}) over the three heads, parse ids '
+              f'agree on {agree:.6f}; {ms:.3f} ms a forward {ms.spread()}',
+              flush=True)
+        if err > BISENET_RTOL:
+            raise SystemExit('chip_smoke: BiSeNet on the card disagrees with '
+                             'its CPU copy')
+
+
 def phase_vqgan():
     """VQAutoEncoder.forward (encode -> quantize -> decode) at full width
     (nf 64, ch_mult 1,2,2,4,4,8, 1024 codes of 256), bf16, B=2, seeded:
@@ -2653,17 +3094,22 @@ def main():
     whole_counts = phase_whole_image(restorer,
                                      profile='--profile' in sys.argv[1:])
     classic_counts = phase_classic(restorer)
-    del restorer
+    upsampler = phase_realesrgan()
+    upsample_counts = phase_classic_upsample(restorer, upsampler)
+    del restorer, upsampler
     torch.cuda.empty_cache()
+    phase_yolo()
+    phase_bisenet()
     task_counts = phase_tasks()
     vq_counts, vq_probe = phase_vqgan()
     train_counts, trainer = phase_train()
     if '--profile' in sys.argv[1:]:
         phase_train_profile(trainer)
     print(f'main-path launches: serving {serve_counts}; whole-image path '
-          f'{whole_counts}; classic path {classic_counts}; colorization and '
-          f'inpainting {task_counts}; VQAutoEncoder {vq_counts}; stage-II '
-          f'training {train_counts}; ops path {ops_counts}')
+          f'{whole_counts}; classic path {classic_counts}; classic path with '
+          f'the upsamplers {upsample_counts}; colorization and inpainting '
+          f'{task_counts}; VQAutoEncoder {vq_counts}; stage-II training '
+          f'{train_counts}; ops path {ops_counts}')
     phase_k3_activities(k3_calls)
     vqgan_activities(vq_probe)
     del k3_calls, vq_probe
@@ -2686,8 +3132,8 @@ def main():
             'replaces': KERNEL_SOURCES[name][1],
             'launches': sum(c.get(name, 0) for c in
                             (serve_counts, whole_counts, classic_counts,
-                             task_counts, vq_counts, train_counts,
-                             ops_counts)),
+                             upsample_counts, task_counts, vq_counts,
+                             train_counts, ops_counts)),
             'max_abs_err': max(r['max_abs_err'] for r in rows),
             'ms': head['ms'], 'plain_ms': head['plain_ms'],
             'bound_ms': head['bound_ms'], 'bound_by': head['bound_by'],
@@ -2700,8 +3146,8 @@ def main():
         raise SystemExit('chip_smoke: a kernel of the path never launched')
     if train_counts['nearest_code'] == 0 or vq_counts['nearest_code'] == 0 \
             or not all(c[k] > 0 for c in (serve_counts, whole_counts,
-                                          classic_counts, task_counts,
-                                          vq_counts)
+                                          classic_counts, upsample_counts,
+                                          task_counts, vq_counts)
                        for k in ('conv3x3_dots', 'downsample_dots')) \
             or not all(ops_counts[k] > 0 for k in (
                 'conv3x3_bias', 'fused_lrelu_fwd', 'fused_lrelu_bwd')):

@@ -6,6 +6,9 @@ codeformer_tpu/cli/inference_codeformer.py:
     python -m codeformer_tpu_torch.cli.inference_codeformer \
         -i inputs/whole_imgs --random-init [-w 0.5] [-s 2] [-o DIR]
     python -m codeformer_tpu_torch.cli.inference_codeformer \
+        -i inputs/whole_imgs --random-init --bg_upsampler realesrgan \
+        --face_upsample [--detection_model YOLOv5n]
+    python -m codeformer_tpu_torch.cli.inference_codeformer \
         -i clip.mp4 --random-init [--save_video_fps 24]
     # aligned 512x512 faces
     python -m codeformer_tpu_torch.cli.inference_codeformer --has_aligned \
@@ -15,10 +18,12 @@ Whole images and videos go through the fused device pipeline where it
 can serve them, else the classic per-stage path (--fused_pipeline), and
 are written to <output>/{cropped_faces,restored_faces,final_results}/
 (and <output>/<video>.mp4); aligned faces are restored in device batches
-and written to <output>/restored_faces/. The other detectors and the
-upsamplers raise and name the ROADMAP item. cv2 is imported only where
-images and videos are read and written, and by the classic path's host
-steps.
+and written to <output>/restored_faces/. The YOLOv5 detectors
+(--detection_model YOLOv5l|YOLOv5n) and the Real-ESRGAN upsamplers
+(--bg_upsampler realesrgan, --face_upsample; weights/realesrgan/
+RealESRGAN_x2plus.pth, or seeded with --random-init) take the classic
+path. cv2 is imported only where images and videos are read and
+written, and by the classic path's host steps.
 """
 from __future__ import annotations
 
@@ -52,14 +57,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--detection_model', type=str,
                    default='retinaface_resnet50',
                    help='Face detector: retinaface_resnet50, '
-                        'retinaface_mobile0.25 (YOLOv5l/YOLOv5n not '
-                        'ported yet)')
+                        'retinaface_mobile0.25, YOLOv5l, YOLOv5n (the '
+                        'YOLOv5 detectors take the classic path)')
     p.add_argument('--bg_upsampler', type=str, default='None',
-                   help='Background upsampler. Optional: realesrgan '
-                        '(not ported yet)')
+                   help='Background upsampler. Optional: realesrgan (x2 '
+                        'Real-ESRGAN, the classic path)')
     p.add_argument('--face_upsample', action='store_true',
-                   help='Face upsampler after enhancement (not ported '
-                        'yet).')
+                   help='Face upsampler after enhancement (the same '
+                        'Real-ESRGAN, the classic path).')
+    p.add_argument('--bg_tile', type=int, default=400,
+                   help='Tile size for background sampler. Default: 400')
     p.add_argument('--suffix', type=str, default=None,
                    help='Suffix of the restored faces.')
     p.add_argument('--save_video_fps', type=float, default=None,
@@ -71,8 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
                         'device between detect/align/restore/parse/'
                         'composite. auto (default): use it whenever it can '
                         'serve the input (RetinaFace detector, no '
-                        'draw_box, same-size colour folder images or a '
-                        'video), else the classic per-stage path. on: '
+                        'upsampler, no draw_box, same-size colour folder '
+                        'images or a video), else the classic per-stage '
+                        'path. on: '
                         'require it (error if it cannot serve the input). '
                         'off: always classic.')
     p.add_argument('--compositor', type=str, default='xla',

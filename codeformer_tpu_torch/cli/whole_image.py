@@ -4,20 +4,21 @@ inference_codeformer.py:160-272).
 
 Two routes, chosen as the JAX CLI chooses them (`--fused_pipeline`):
 - the fused device pipeline (pipeline/device_pipeline.py) for a folder of
-  same-size colour images or a video with a RetinaFace detector: frames
-  stay on the device between detect, align, restore, parse and paste;
-  a video streams through it chunk by chunk to the writer;
+  same-size colour images or a video with a RetinaFace detector and no
+  upsampler: frames stay on the device between detect, align, restore,
+  parse and paste; a video streams through it chunk by chunk to the
+  writer;
 - the classic per-stage path for everything else it serves (gray
-  images, mixed sizes, --draw_box, --fused_pipeline off): per image,
-  read, detect and align on the host (cv2); ONE restoration stream over
-  the faces of every image; gray adaptation, then ONE parsing stream;
-  per image, paste back (the device compositor, or cv2 with
-  --compositor cv2) and save. A video on the classic path goes through
-  pipeline/video.py's batched stages (with --draw_box, through the
-  per-image passes).
-
-The other detectors and the upsamplers (YOLOv5, Real-ESRGAN,
---face_upsample) raise, naming their ROADMAP item.
+  images, mixed sizes, --draw_box, a YOLOv5 detector, the Real-ESRGAN
+  upsamplers, --fused_pipeline off): per image, read, detect and align
+  on the host (cv2); ONE restoration stream over the faces of every
+  image; gray adaptation, then ONE parsing stream (with --face_upsample
+  each image's upsampled faces are parsed at its paste, as the
+  reference parses them); per image, the background upsample
+  (--bg_upsampler realesrgan), paste back (the device compositor, or
+  cv2 with --compositor cv2) and save. A video on the classic path goes
+  through pipeline/video.py's batched stages (with --draw_box or an
+  upsampler, through the per-image passes).
 """
 from __future__ import annotations
 
@@ -28,9 +29,6 @@ import torch
 
 from codeformer_tpu_torch.utils import img_util
 from codeformer_tpu_torch.utils.profiler import stage
-
-UPSAMPLERS = 'ROADMAP.md Queue 1 item 3, the other detectors and upsamplers'
-
 
 def _fused_mode(args) -> str:
     """Normalize --fused_pipeline to 'auto' | 'on' | 'off' (older callers
@@ -43,22 +41,16 @@ def _fused_mode(args) -> str:
     return v
 
 
-def _unported(args):
-    """What of this invocation the port cannot serve yet, or None."""
-    if args.bg_upsampler == 'realesrgan' or args.face_upsample:
-        return 'the Real-ESRGAN upsampler (--bg_upsampler realesrgan, ' \
-               '--face_upsample)'
-    if not args.detection_model.startswith('retinaface'):
-        return f'the {args.detection_model} detector'
-    return None
-
-
 def _fused_ineligibility(args, input_video, input_img_list):
     """Why the fused device pipeline cannot serve this invocation, or
     None if it can. Folder images must already be loaded (size and gray
     checks)."""
+    if args.bg_upsampler == 'realesrgan' or args.face_upsample:
+        return 'bg/face upsampler requested'
     if args.draw_box:
         return 'draw_box requested'
+    if not args.detection_model.startswith('retinaface'):
+        return f'detector {args.detection_model} keeps host preprocessing'
     if not input_video:
         shapes = {im.shape for im in input_img_list}
         if len(shapes) != 1:
@@ -74,9 +66,7 @@ def run_whole_images(args, input_img_list, result_root, restorer,
     """Restore whole images or a video's frames and write
     cropped_faces/, restored_faces/ and final_results/ (and the video)
     under result_root."""
-    reason = _unported(args)
-    if reason is not None:
-        raise NotImplementedError(f'{reason}: not ported yet ({UPSAMPLERS})')
+    bg_upsampler, face_upsampler = _upsamplers(args, restorer.device)
 
     # fused or classic, decided before the helper is built (the fused
     # pipeline detects and parses in bf16 on the card; the classic path
@@ -125,7 +115,8 @@ def run_whole_images(args, input_img_list, result_root, restorer,
     if use_fused:
         _run_fused(args, input_img_list, names, result_root, restorer,
                    face_helper, input_video, video_name, video_meta)
-    elif input_video and not args.draw_box:
+    elif input_video and not args.draw_box and bg_upsampler is None \
+            and face_upsampler is None:
         # the classic batched video path: frames flow through each stage
         # in batches (pipeline/video.py)
         from codeformer_tpu_torch.pipeline.video import restore_video_frames
@@ -142,9 +133,22 @@ def run_whole_images(args, input_img_list, result_root, restorer,
             input_img_list = list(input_img_list)
             names = [str(i).zfill(6) for i in range(len(input_img_list))]
         _run_classic(args, input_img_list, names, result_root, restorer,
-                     face_helper)
+                     face_helper, bg_upsampler, face_upsampler)
         if input_video:
             _write_video(args, result_root, video_name, video_meta)
+
+
+def _upsamplers(args, device):
+    """(bg_upsampler, face_upsampler): the x2 Real-ESRGAN upsampler for
+    --bg_upsampler realesrgan and for --face_upsample, one shared
+    upsampler when both are asked (tile --bg_tile), else None."""
+    if args.bg_upsampler != 'realesrgan' and not args.face_upsample:
+        return None, None
+    from codeformer_tpu_torch.pipeline.realesrgan import set_realesrgan
+    upsampler = set_realesrgan(tile=getattr(args, 'bg_tile', 400),
+                               allow_random=args.random_init, device=device)
+    return (upsampler if args.bg_upsampler == 'realesrgan' else None,
+            upsampler if args.face_upsample else None)
 
 
 def _save_faces(args, result_root, basename, cropped, restored):
@@ -212,7 +216,7 @@ def _run_fused(args, input_img_list, names, result_root, restorer,
 
 
 def _run_classic(args, input_img_list, names, result_root, restorer,
-                 face_helper):
+                 face_helper, bg_upsampler=None, face_upsampler=None):
     """The classic per-stage folder path, in four passes."""
     w = args.fidelity_weight
     # pass 1 (per image): read + detect + align, collect all faces
@@ -254,12 +258,14 @@ def _run_classic(args, input_img_list, names, result_root, restorer,
                                           cropped)
         rec['restored'] = list(face_helper.restored_faces)
         processed.extend(face_helper.restored_faces)
+    # with a face upsampler the reference parses the upsampled faces:
+    # then each image's paste parses its own
     parse_ids_all = None
-    if face_helper.use_parse and processed:
+    if face_helper.use_parse and processed and face_upsampler is None:
         with stage('folder_parse'):
             parse_ids_all = face_helper._parse_masks(processed)
 
-    # pass 4 (per image): paste + save
+    # pass 4 (per image): background upsample + paste + save
     for rec in records:
         face_helper.clean_all()
         face_helper.input_img = rec['input_img']
@@ -267,13 +273,19 @@ def _run_classic(args, input_img_list, names, result_root, restorer,
         face_helper.restored_faces = rec['restored']
         face_helper.inverse_affine_matrices = rec['inv_affines']
         n = len(rec['cropped'])
+        bg_img = None
+        if bg_upsampler is not None:
+            with stage('folder_bg_upsample'):
+                bg_img = bg_upsampler.enhance(rec['input_img'],
+                                              outscale=args.upscale)[0]
         if parse_ids_all is not None:
             face_helper._precomputed_parse_ids = \
                 parse_ids_all[rec['start']:rec['start'] + n]
         try:
             with stage('folder_paste'):
                 restored_img = face_helper.paste_faces_to_input_image(
-                    draw_box=args.draw_box)
+                    upsample_img=bg_img, draw_box=args.draw_box,
+                    face_upsampler=face_upsampler)
         finally:
             face_helper._precomputed_parse_ids = None
         _save_faces(args, result_root, rec['basename'], rec['cropped'],

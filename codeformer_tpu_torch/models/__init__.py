@@ -1,7 +1,11 @@
 """Model architectures."""
+from .bisenet import BiSeNet
 from .codeformer import CodeFormer
 from .parsenet import ParseNet
 from .retinaface import RetinaFace
+from .rrdbnet import RRDBNet
 from .vqgan import VQAutoEncoder
+from .yolov5face import YoloFace
 
-__all__ = ['CodeFormer', 'ParseNet', 'RetinaFace', 'VQAutoEncoder']
+__all__ = ['BiSeNet', 'CodeFormer', 'ParseNet', 'RRDBNet', 'RetinaFace',
+           'VQAutoEncoder', 'YoloFace']

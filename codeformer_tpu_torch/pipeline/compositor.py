@@ -125,7 +125,7 @@ _GREEN = (0.0, 255.0, 0.0)
 def paste_faces(upsample_img, restored_faces: Sequence[np.ndarray],
                 inverse_affines: Sequence[np.ndarray],
                 parse_ids: Optional[np.ndarray], upscale: int,
-                draw_box: bool = False, device='cpu') -> np.ndarray:
+                draw_box: bool = False, device='cuda') -> np.ndarray:
     """Paste restored faces onto one upscaled image on `device`, the
     counterpart of paste_faces_xla (compositor_xla.py:158-210).
 

@@ -94,7 +94,8 @@ class DeviceRestorePipeline:
         from .detector import FaceDetector
         if not isinstance(face_helper.face_detector, FaceDetector):
             raise NotImplementedError(
-                'DeviceRestorePipeline requires a RetinaFace detector')
+                'DeviceRestorePipeline requires a RetinaFace detector '
+                '(YOLO keeps its own host preprocessing)')
         self.restorer = restorer
         self.device = restorer.device
         self.helper = face_helper

@@ -12,7 +12,9 @@ transcription of the reference's per-face compositing stays as the
 pixel-parity oracle (compositor='cv2') and as the automatic fallback for
 inputs the device compositor does not cover (16-bit, an alpha canvas, a
 non-square crop_ratio). cv2 is imported inside the methods that use it.
-The dlib detector is not ported (ROADMAP.md Queue 1 item 3).
+With det_model='dlib' the faces come from dlib's CNN detector and its
+5-point shape predictor (the `dlib` package and its .dat weights, on the
+host), aligned to the 1024-scale FFHQ template.
 """
 from __future__ import annotations
 
@@ -85,10 +87,6 @@ class FaceRestoreHelper:
                  detector=None, compositor: str = 'xla',
                  det_dtype: torch.dtype = torch.float32,
                  parse_dtype: torch.dtype = torch.float32):
-        if det_model == 'dlib':
-            raise NotImplementedError(
-                'the dlib detector is not ported yet (ROADMAP.md Queue 1 '
-                'item 3)')
         if compositor not in ('xla', 'cv2'):
             raise ValueError(f'compositor must be xla or cv2, got '
                              f'{compositor!r}')
@@ -103,9 +101,17 @@ class FaceRestoreHelper:
         self.det_model = det_model
         self.device = torch.device(device)
 
-        # the facexlib FFHQ templates at 512 (face_restoration_helper.py:
-        # 76-93), shifted for crop_ratio > 1
-        if self.template_3points:
+        # FFHQ 5-point templates (face_restoration_helper.py:76-93),
+        # shifted for crop_ratio > 1: dlib's is the 1024-scale one (eye
+        # corners + nose bottom), the NN detectors' the 512-scale
+        # facexlib one
+        if self.det_model == 'dlib':
+            self.face_template = np.array(
+                [[686.77227723, 488.62376238], [586.77227723, 493.59405941],
+                 [337.91089109, 488.38613861], [437.95049505, 493.51485149],
+                 [513.58415842, 678.5049505]], np.float32)
+            self.face_template = self.face_template / (1024 // face_size)
+        elif self.template_3points:
             self.face_template = np.array(
                 [[192, 240], [319, 240], [257, 371]], np.float32)
         else:
@@ -135,10 +141,13 @@ class FaceRestoreHelper:
         self.is_gray = False
         self._precomputed_parse_ids = None  # batched folder / video paths
 
-        from .detector import init_detection_model
-        self.face_detector = detector or init_detection_model(
-            det_model, allow_random=allow_random_weights, dtype=det_dtype,
-            device=self.device)
+        if det_model == 'dlib':
+            self.face_detector, self.shape_predictor_5 = self._init_dlib()
+        else:
+            from .detector import init_detection_model
+            self.face_detector = detector or init_detection_model(
+                det_model, allow_random=allow_random_weights,
+                dtype=det_dtype, device=self.device)
 
         self.use_parse = use_parse
         parser = ParseNet()
@@ -177,13 +186,66 @@ class FaceRestoreHelper:
             self.input_img = cv2.resize(self.input_img, (0, 0), fx=f, fy=f,
                                         interpolation=cv2.INTER_LINEAR)
 
+    # ---- the dlib path (face_restoration_helper.py:152-193) ----
+    DLIB_DETECTOR_WEIGHTS = \
+        'weights/dlib/mmod_human_face_detector-4cb19393.dat'
+    DLIB_SHAPE5_WEIGHTS = \
+        'weights/dlib/shape_predictor_5_face_landmarks-c4b1e980.dat'
+
+    def _init_dlib(self):
+        """dlib's CNN face detector and 5-point shape predictor. The dlib
+        package and its .dat weights must be present (place them under
+        weights/dlib; scripts/download_pretrained_models.py dlib)."""
+        try:
+            import dlib
+        except ImportError as e:
+            raise ImportError(
+                'det_model="dlib" needs the dlib package: '
+                'conda install -c conda-forge dlib') from e
+        for path in (self.DLIB_DETECTOR_WEIGHTS, self.DLIB_SHAPE5_WEIGHTS):
+            if not os.path.exists(path):
+                raise FileNotFoundError(
+                    f'dlib weights not found at {path}; fetch them with '
+                    f'scripts/download_pretrained_models.py dlib')
+        face_detector = dlib.cnn_face_detection_model_v1(
+            self.DLIB_DETECTOR_WEIGHTS)
+        shape_predictor_5 = dlib.shape_predictor(self.DLIB_SHAPE5_WEIGHTS)
+        return face_detector, shape_predictor_5
+
+    def get_face_landmarks_5_dlib(self, only_keep_largest=False,
+                                  scale=1) -> int:
+        """dlib's detections (upsampled `scale` times) and each face's 5
+        landmarks; with only_keep_largest, the face of largest box."""
+        det_faces = self.face_detector(self.input_img, scale)
+        if len(det_faces) == 0:
+            print('No face detected. Try to increase upsample_num_times.')
+            return 0
+        if only_keep_largest:
+            print('Detect several faces and only keep the largest.')
+            face_areas = [
+                (d.rect.right() - d.rect.left())
+                * (d.rect.bottom() - d.rect.top()) for d in det_faces]
+            largest_idx = face_areas.index(max(face_areas))
+            self.det_faces = [det_faces[largest_idx]]
+        else:
+            self.det_faces = list(det_faces)
+        for face in self.det_faces:
+            shape = self.shape_predictor_5(self.input_img, face.rect)
+            landmark = np.array([[part.x, part.y]
+                                 for part in shape.parts()])
+            self.all_landmarks_5.append(landmark)
+        return len(self.all_landmarks_5)
+
     def get_face_landmarks_5(self, only_keep_largest=False,
                              only_center_face=False, resize=None,
                              blur_ratio=0.01,
                              eye_dist_threshold=None) -> int:
         """Detect, filter and keep each face's 5 landmarks
         (face_restoration_helper.py:195-317); with pad_blur, the
-        reference's reflect + blur padded input a face."""
+        reference's reflect + blur padded input a face. With dlib, its
+        own path (only_keep_largest only)."""
+        if self.det_model == 'dlib':
+            return self.get_face_landmarks_5_dlib(only_keep_largest)
         import cv2
         if resize is None:
             scale = 1.0
@@ -407,7 +469,7 @@ class FaceRestoreHelper:
                 elif self.upscale_factor > 1:
                     ia[:, 2] += 0.5 * self.upscale_factor
                 inv_affines.append(ia)
-            faces = (upsampled_faces if face_upsampler is not None
+            faces = (upsampled_faces if upsampled_faces is not None
                      else self.restored_faces)
             out = paste_faces(
                 upsample_img, faces, inv_affines,

@@ -8,7 +8,8 @@ the restorer's device.
 
 Stages:
   1. detection: same-size frames run through the detector in chunks
-     (FaceDetector.batched_detect_faces)
+     (FaceDetector.batched_detect_faces; the YOLOv5 detector, which has
+     no batched entry point, frame by frame)
   2. alignment: host-side 5-landmark similarity solves + warps (cheap)
   3. restoration: ALL faces of the chunk in one CodeFormer batch
   4. parsing: all faces in one ParseNet batch
@@ -59,7 +60,10 @@ def restore_video_frames(frames: List[np.ndarray], restorer,
             small = np.stack([
                 cv2.resize(f, (dw, dh), interpolation=interp)
                 for f in chunk])
-            dets = detector.batched_detect_faces(small)
+            if hasattr(detector, 'batched_detect_faces'):
+                dets = detector.batched_detect_faces(small)
+            else:   # the YOLOv5 detector: frame by frame
+                dets = [detector.detect_faces(f) for f in small]
             all_dets.extend(d / scale for d in dets)
 
     # ---- stage 2: per-frame landmark filtering + alignment (host) ----

@@ -11,6 +11,9 @@ are held equal bit for bit. The device compositors sum fp32 blurs and
 warps in another order, and the result is truncated to uint8 as JAX's
 astype does, so a pixel may land one level apart: held within 1 level.
 """
+import sys
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -35,6 +38,9 @@ torch.set_num_threads(2)
 TEMPLATE = np.array(
     [[192.98138, 239.94708], [318.90277, 240.1936], [256.63416, 314.01935],
      [201.26117, 371.41043], [313.08905, 371.15118]], np.float32)
+# the paste of a Real-ESRGAN-upsampled face, port vs JAX: faces a level
+# apart where a rounding flips, then the device compositors' own level
+REALESRGAN_PASTE_MAX = 2
 
 
 # ---------------------------------------------------------------------------
@@ -359,11 +365,133 @@ def test_save_cropped_and_read_path(tmp_path):
     np.testing.assert_array_equal(cv2.imread(str(tmp_path / 'o.png')), out)
 
 
-def test_helper_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1'):
-        pfh.FaceRestoreHelper(2, det_model='dlib', device='cpu')
+def test_helper_refuses_what_is_not_ported(monkeypatch):
+    """det_model='dlib' without the dlib package raises ImportError with
+    JAX's message; an unknown compositor raises ValueError."""
+    monkeypatch.setitem(sys.modules, 'dlib', None)
+    said = []
+    for mod, kw in ((jfh, {}), (pfh, {'device': 'cpu'})):
+        with pytest.raises(ImportError, match='needs the dlib package') as e:
+            mod.FaceRestoreHelper(2, det_model='dlib',
+                                  allow_random_weights=True, **kw)
+        said.append(str(e.value))
+    assert said[0] == said[1]
     with pytest.raises(ValueError):
         pfh.FaceRestoreHelper(2, compositor='numpy', device='cpu')
+
+
+# ---------------------------------------------------------------------------
+# the dlib path, with one stub `dlib` module for both packages
+# ---------------------------------------------------------------------------
+# the FFHQ 1024-scale 5-point template (eye corners + nose bottom)
+TEMPLATE_1024 = np.array(
+    [[686.77227723, 488.62376238], [586.77227723, 493.59405941],
+     [337.91089109, 488.38613861], [437.95049505, 493.51485149],
+     [513.58415842, 678.5049505]], np.float32)
+# two faces: (scale of the template, offset); the first is the larger
+DLIB_FACES = [(0.30, (60.0, 90.0)), (0.22, (420.0, 340.0))]
+
+
+def _dlib_stub():
+    """A `dlib` module: the CNN detector returns a box around each face
+    of DLIB_FACES, the shape predictor that face's template landmarks
+    (fractional, as dlib's parts are integers only after rounding)."""
+    class Rect:
+        def __init__(self, box):
+            self.box = box
+
+        def left(self):
+            return self.box[0]
+
+        def top(self):
+            return self.box[1]
+
+        def right(self):
+            return self.box[2]
+
+        def bottom(self):
+            return self.box[3]
+
+    def landmarks(k):
+        scale, off = DLIB_FACES[k]
+        return TEMPLATE_1024 * scale + np.asarray(off, np.float32)
+
+    def box(k):
+        lm = landmarks(k)
+        return (lm[:, 0].min() - 20, lm[:, 1].min() - 40,
+                lm[:, 0].max() + 20, lm[:, 1].max() + 30)
+
+    def cnn_face_detection_model_v1(path):
+        def detect(img, upsample):
+            assert upsample == 1
+            return [types.SimpleNamespace(rect=Rect(box(k)))
+                    for k in range(len(DLIB_FACES))]
+        return detect
+
+    def shape_predictor(path):
+        def predict(img, rect):
+            k = [box(j) for j in range(len(DLIB_FACES))].index(rect.box)
+            parts = [types.SimpleNamespace(x=float(x), y=float(y))
+                     for x, y in landmarks(k)]
+            return types.SimpleNamespace(parts=lambda: parts)
+        return predict
+
+    mod = types.ModuleType('dlib')
+    mod.cnn_face_detection_model_v1 = cnn_face_detection_model_v1
+    mod.shape_predictor = shape_predictor
+    return mod
+
+
+@pytest.fixture
+def stub_dlib(monkeypatch, tmp_path):
+    monkeypatch.setitem(sys.modules, 'dlib', _dlib_stub())
+    for name in ('DLIB_DETECTOR_WEIGHTS', 'DLIB_SHAPE5_WEIGHTS'):
+        path = tmp_path / f'{name}.dat'
+        path.write_bytes(b'stub')
+        for mod in (jfh, pfh):
+            monkeypatch.setattr(mod.FaceRestoreHelper, name, str(path))
+
+
+@pytest.mark.parametrize('only_keep_largest', [False, True])
+def test_dlib_path_matches_jax(stub_dlib, only_keep_largest):
+    """The 1024-scale template at 512, the landmarks (all faces, or the
+    largest box's), the affines and crops: equal to JAX's."""
+    img = np.random.default_rng(9).integers(0, 255, (820, 900, 3),
+                                            np.uint8)
+    helpers = []
+    for mod, kw in ((jfh, {}), (pfh, {'device': 'cpu'})):
+        h = mod.FaceRestoreHelper(1, face_size=512, det_model='dlib',
+                                  use_parse=False, allow_random_weights=True,
+                                  **kw)
+        h.read_image(img)
+        n = h.get_face_landmarks_5(only_keep_largest=only_keep_largest)
+        assert n == (1 if only_keep_largest else 2)
+        h.align_warp_face()
+        helpers.append(h)
+    jh, ph = helpers
+    np.testing.assert_allclose(ph.face_template, TEMPLATE_1024 / 2.0,
+                               rtol=1e-6)
+    np.testing.assert_array_equal(ph.face_template, jh.face_template)
+    for name in ('all_landmarks_5', 'affine_matrices', 'cropped_faces'):
+        for g, w in zip(getattr(ph, name), getattr(jh, name)):
+            np.testing.assert_array_equal(g, w)
+    np.testing.assert_allclose(
+        ph.all_landmarks_5[0], TEMPLATE_1024 * DLIB_FACES[0][0]
+        + np.asarray(DLIB_FACES[0][1]), atol=1e-3)
+    # each crop puts its face's landmarks on the template
+    for lm, aff in zip(ph.all_landmarks_5, ph.affine_matrices):
+        mapped = np.concatenate([lm, np.ones((5, 1))], 1) @ aff.T
+        np.testing.assert_allclose(mapped, ph.face_template, atol=0.5)
+
+
+def test_dlib_missing_weights_raise_as_jax(monkeypatch, tmp_path):
+    monkeypatch.setitem(sys.modules, 'dlib', _dlib_stub())
+    for mod, kw in ((jfh, {}), (pfh, {'device': 'cpu'})):
+        monkeypatch.setattr(mod.FaceRestoreHelper, 'DLIB_DETECTOR_WEIGHTS',
+                            str(tmp_path / 'absent.dat'))
+        with pytest.raises(FileNotFoundError, match='absent.dat'):
+            mod.FaceRestoreHelper(1, det_model='dlib',
+                                  allow_random_weights=True, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -455,7 +583,8 @@ def test_paste_faces_matches_jax(case):
 def test_paste_faces_without_faces():
     img = _synthetic(1)[0]
     from codeformer_tpu_torch.pipeline.compositor import paste_faces
-    np.testing.assert_array_equal(paste_faces(img, [], [], None, 1), img)
+    np.testing.assert_array_equal(
+        paste_faces(img, [], [], None, 1, device='cpu'), img)
 
 
 def _oracle_pair(use_parse, upscale, **kw):
@@ -482,6 +611,27 @@ def test_device_compositor_face_upsampler_close_to_cv2(use_parse):
     assert outs['cv2'].shape == outs['xla'].shape == (400, 520, 3)
     assert diff.mean() < 2.0, diff.mean()
     assert np.median(diff) == 0.0
+
+
+@pytest.mark.parametrize('use_parse', [False, True])
+def test_paste_with_realesrgan_face_upsampler_matches_jax(use_parse):
+    """--face_upsample on the classic path: each package's helper with
+    its own RealESRGANer (narrow RRDBNet, the same weights, fp32, the
+    face whole; the tile walk is held in test_torch_realesrgan.py)
+    upsamples the restored face to 1024 and pastes it at upscale 2:
+    within REALESRGAN_PASTE_MAX levels."""
+    from test_torch_realesrgan import _pair
+    ju, pu = _pair(tile=0)
+    img, faces, inv, parse = _synthetic(1)
+    outs = [_Stub(mod.FaceRestoreHelper, 2, use_parse, 'xla', parse).paste(
+        img, faces, inv, face_upsampler=up).astype(np.float32)
+        for mod, up in ((jfh, ju), (pfh, pu))]
+    assert outs[0].shape == outs[1].shape == (400, 520, 3)
+    diff = np.abs(outs[0] - outs[1])
+    assert diff.max() <= REALESRGAN_PASTE_MAX, diff.max()
+    # the face went in: the image is not the plain upscale
+    plain = cv2.resize(img, (520, 400), interpolation=cv2.INTER_LINEAR)
+    assert np.abs(outs[1] - plain).max() > 30
 
 
 @pytest.mark.parametrize('use_parse', [False, True])

@@ -229,6 +229,40 @@ def test_restore_video_frames_matches_jax(tmp_path, restorers, compositor):
     assert np.abs(got[0].astype(int) - plain.astype(int)).max() > 30
 
 
+class _FrameDet:
+    """The same faces through detect_faces only: no batched entry point,
+    as the YOLOv5 detector."""
+
+    def __init__(self, faces):
+        self.det, self.calls = _Det(faces), 0
+
+    def detect_faces(self, img, conf_threshold=0.8):
+        self.calls += 1
+        return self.det.detect_faces(img)
+
+
+def test_restore_video_frames_detects_frame_by_frame(tmp_path, restorers):
+    """A detector without batched_detect_faces is called a frame at a
+    time (JAX's video.py does the same), with the batched path's
+    frames."""
+    _, pr = restorers
+    frames = _clip(tmp_path / 'clip.avi', n=3)
+    det = _FrameDet(VIDEO_FACES)
+    h = pfh.FaceRestoreHelper(2, face_size=FACE, use_parse=True,
+                              allow_random_weights=True, detector=det,
+                              device='cpu')
+    h._parse_masks = _parse_stub
+    got = pvideo.restore_video_frames(list(frames), pr, h, w=0.5,
+                                      upscale=2, detect_chunk=2)
+    assert det.calls == 3
+    want = pvideo.restore_video_frames(
+        list(frames), pr, _helper(pfh, 'xla', device='cpu'), w=0.5,
+        upscale=2, detect_chunk=2)
+    assert len(got) == len(want) == 3
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g, w_)
+
+
 def test_restore_video_frames_only_center_and_empty(restorers):
     _, pr = restorers
     h = _helper(pfh, 'xla', device='cpu')

@@ -1,11 +1,11 @@
 """Routing of the port's whole-image CLI (codeformer_tpu_torch/cli/
 whole_image.py), after tests/test_whole_image_batched.py: a uniform
 folder and a video take the fused device pipeline; gray images, mixed
-sizes, --draw_box and --fused_pipeline off take the classic per-stage
-path (auto says why, on raises); the other detectors and the upsamplers
-raise "not ported yet"; and runs of the CLI end to end on the CPU, fused
-and classic, write cropped_faces/, restored_faces/ and final_results/
-with the JAX CLI's names."""
+sizes, --draw_box, a YOLOv5 detector, the Real-ESRGAN upsamplers and
+--fused_pipeline off take the classic per-stage path (auto says why, on
+raises), the upsamplers' routes against the JAX CLI's; and runs of the
+CLI end to end on the CPU, fused and classic, write cropped_faces/,
+restored_faces/ and final_results/ with the JAX CLI's names."""
 import os
 from types import SimpleNamespace
 
@@ -165,22 +165,106 @@ def test_suffix_names(tmp_path, stubs):
     assert os.listdir(out / 'cropped_faces') == ['00_00.png']
 
 
-@pytest.mark.parametrize('case', ['yolo_on', 'yolo_auto', 'realesrgan',
-                                  'face_upsample'])
-def test_unported_inputs_raise(tmp_path, stubs, case):
-    """Nothing falls back silently: each raises and names the ROADMAP
-    item; neither path runs."""
-    in_dir, paths = _folder(tmp_path, [(80, 96)])
-    kw = {'yolo_on': dict(fused='on', detection='YOLOv5n'),
-          'yolo_auto': dict(detection='YOLOv5l'),
-          'realesrgan': dict(bg_upsampler='realesrgan'),
-          'face_upsample': dict(face_upsample=True)}[case]
-    with pytest.raises(NotImplementedError, match='not ported yet') as e:
-        wi.run_whole_images(_args(in_dir, **kw), paths,
-                            str(tmp_path / 'out'), _StubRestorer(),
-                            input_video=False)
-    assert 'ROADMAP.md Queue 1 item 3' in str(e.value)
-    assert _StubPipeline.calls == [] and _StubRestorer.calls == []
+class _UpsamplingStubHelper(_StubHelper):
+    """_StubHelper's surface for both CLIs, whose paste takes the
+    background upsampler's image as its canvas (else a plain 2x), and
+    with a face upsampler writes each upsampled face, subsampled to 64
+    x 64, into the canvas's corner. Records the detector it was built
+    for and what each paste was handed."""
+    built = []
+
+    def __init__(self, upscale_factor, **kw):
+        super().__init__(upscale_factor, **kw)
+        _UpsamplingStubHelper.built.append(kw.get('det_model'))
+
+    def paste_faces_to_input_image(self, upsample_img=None, draw_box=False,
+                                   face_upsampler=None):
+        _StubHelper.pastes.append((upsample_img is not None,
+                                   face_upsampler is not None,
+                                   self._precomputed_parse_ids is None))
+        canvas = np.repeat(np.repeat(self.input_img, 2, 0), 2, 1) \
+            if upsample_img is None else upsample_img.copy()
+        if face_upsampler is not None:
+            for face in self.restored_faces:
+                up, _ = face_upsampler.enhance(face,
+                                               outscale=self.upscale_factor)
+                assert up.shape == (1024, 1024, 3)
+                canvas[:64, :64] = up[::16, ::16]
+        return canvas
+
+
+ROUTES = {  # case: (CLI arguments, what the JAX CLI does)
+    'yolo_on': (dict(fused='on', detection='YOLOv5n'), 'raises'),
+    'yolo_auto': (dict(detection='YOLOv5l'), 'classic'),
+    'realesrgan': (dict(bg_upsampler='realesrgan', bg_tile=64), 'classic'),
+    'face_upsample': (dict(face_upsample=True, bg_tile=256), 'classic'),
+}
+
+
+@pytest.mark.parametrize('case', sorted(ROUTES))
+def test_detectors_and_upsamplers_route_as_jax(tmp_path, stubs, monkeypatch,
+                                               capsys, case):
+    """A YOLOv5 detector or an upsampler keeps the fused pipeline out:
+    with --fused_pipeline on both CLIs raise RuntimeError, with auto both
+    say why and take the classic path; the upsamplers (a narrow RRDBNet
+    with the same weights in both CLIs' set_realesrgan, tiles of
+    --bg_tile) are called there, and the port writes the JAX CLI's files, the final
+    images within 1 level."""
+    import codeformer_tpu.cli.whole_image as jwi
+    from codeformer_tpu.pipeline import realesrgan as jesr
+    from codeformer_tpu_torch.pipeline import realesrgan as pesr
+    from test_torch_realesrgan import _pair
+    kw, route = ROUTES[case]
+    ju, pu = _pair(tile=kw.get('bg_tile', 64), tile_pad=8)
+    made = []
+    monkeypatch.setattr(jesr, 'set_realesrgan',
+                        lambda **a: made.append('jax') or ju)
+    monkeypatch.setattr(pesr, 'set_realesrgan',
+                        lambda **a: made.append('port') or pu)
+    monkeypatch.setattr(jwi, 'FaceRestoreHelper', _UpsamplingStubHelper)
+    monkeypatch.setattr(pfh, 'FaceRestoreHelper', _UpsamplingStubHelper)
+    _UpsamplingStubHelper.built = []
+    in_dir, paths = _folder(tmp_path, [(80, 96)] * 2)
+    outs = {}
+    for name, run in (('jax', jwi.run_whole_images),
+                      ('port', wi.run_whole_images)):
+        out = tmp_path / name
+        args = _args(in_dir, **kw)
+        if route == 'raises':
+            with pytest.raises(RuntimeError,
+                               match='YOLOv5n keeps host preprocessing'):
+                run(args, paths, str(out), _StubRestorer(),
+                    input_video=False)
+            continue
+        run(args, paths, str(out), _StubRestorer(), input_video=False)
+        said = capsys.readouterr().out
+        reason = 'keeps host preprocessing' if case == 'yolo_auto' \
+            else 'bg/face upsampler requested'
+        assert reason in said and 'using the classic per-stage path' in said
+        outs[name] = out
+    assert _StubPipeline.calls == []
+    if route == 'raises':
+        assert _StubRestorer.calls == [] and _StubHelper.pastes == []
+        return
+    assert _StubRestorer.calls == [2, 2]       # one stream a CLI
+    assert _UpsamplingStubHelper.built == [kw.get('detection',
+                                                  'retinaface_resnet50')] * 2
+    bg, face = case == 'realesrgan', case == 'face_upsample'
+    # with a face upsampler the faces are parsed at their paste
+    assert _StubHelper.pastes == [(bg, face, face)] * 4
+    assert made == (['jax', 'port'] if bg or face else [])
+    for sub in ('final_results', 'restored_faces', 'cropped_faces'):
+        names = sorted(os.listdir(outs['jax'] / sub))
+        assert sorted(os.listdir(outs['port'] / sub)) == names and names
+        for n in names:
+            want = cv2.imread(str(outs['jax'] / sub / n)).astype(int)
+            got = cv2.imread(str(outs['port'] / sub / n)).astype(int)
+            assert got.shape == want.shape
+            assert np.abs(got - want).max() <= (1 if sub == 'final_results'
+                                                 else 0), (sub, n)
+    final = cv2.imread(str(outs['port'] / 'final_results' / '00.png'))
+    plain = np.repeat(np.repeat(cv2.imread(paths[0]), 2, 0), 2, 1)
+    assert (np.abs(final.astype(int) - plain).max() > 30) == (bg or face)
 
 
 @pytest.mark.parametrize('case', ['mixed_sizes', 'gray', 'off', 'draw_box'])
@@ -375,3 +459,43 @@ def test_cli_classic_end_to_end_on_cpu(tmp_path, monkeypatch, capsys,
     face_a = cv2.imread(str(out / 'restored_faces' / 'a_00.png'))
     crop_a = cv2.imread(str(out / 'cropped_faces' / 'a_00.png'))
     np.testing.assert_array_equal(face_a, 255 - crop_a)
+
+
+def test_cli_yolo_and_upsamplers_end_to_end_matches_jax(tmp_path,
+                                                        monkeypatch):
+    """run_whole_images with --detection_model YOLOv5n --bg_upsampler
+    realesrgan --face_upsample in both CLIs: the real helpers and YOLOv5n
+    (the JAX detector's seeded weights in both; they find no face in a
+    noise image at the 0.8 threshold), the narrow RRDBNet in both
+    set_realesrgan (tiles of 400), a stub restorer. The port writes the
+    JAX CLI's final image within 1 level: the background upsampled
+    from 512 x 683 to 1024 x 1366."""
+    import codeformer_tpu.cli.whole_image as jwi
+    from codeformer_tpu.pipeline import detector as jdet
+    from codeformer_tpu.pipeline import realesrgan as jesr
+    from codeformer_tpu_torch.pipeline import realesrgan as pesr
+    from codeformer_tpu_torch.utils.convert import flax_to_state_dict
+    from test_torch_realesrgan import _pair
+    jd = jdet.YoloFaceDetector('YOLOv5n', allow_random=True)
+    pd = pdet.YoloFaceDetector('YOLOv5n', allow_random=True, device='cpu')
+    pd.model.load_state_dict(flax_to_state_dict(
+        jd.variables, like=pd.model.state_dict()))
+    monkeypatch.setattr(jdet, 'init_detection_model', lambda *a, **k: jd)
+    monkeypatch.setattr(pdet, 'init_detection_model', lambda *a, **k: pd)
+    ju, pu = _pair(tile=400, tile_pad=40)
+    monkeypatch.setattr(jesr, 'set_realesrgan', lambda **a: ju)
+    monkeypatch.setattr(pesr, 'set_realesrgan', lambda **a: pu)
+    in_dir, paths = _folder(tmp_path, [(96, 128)])
+    finals = []
+    for name, run in (('jax', jwi.run_whole_images),
+                      ('port', wi.run_whole_images)):
+        out = tmp_path / name
+        run(_args(in_dir, detection='YOLOv5n', bg_upsampler='realesrgan',
+                  face_upsample=True, bg_tile=400, compositor='xla'),
+            paths, str(out), _StubRestorer(), input_video=False)
+        finals.append(cv2.imread(str(out / 'final_results' / '00.png')))
+        assert sorted(os.listdir(out)) == ['final_results']   # no face
+    want, got = finals
+    assert got.shape == want.shape == (1024, 1366, 3)
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+    assert want.std() > 10
