@@ -90,7 +90,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      counts (K1/K2/K3 in the frozen HQ encode only), a falling loss,
      gradients at the encoder, frozen modules unchanged; idx_gt against
      the plain-op encode (and a planted fault); training faces/s of the
-     kernel and plain paths; peak memory.
+     kernel and plain paths; peak memory;
+  6b. training, stage I (VQGANModel) at the full width of
+     options/VQGAN_512_ds32_nearest_stage1.yml, bf16, B=4, LPIPS on seeded
+     VGG16/lin stand-ins written to a temporary directory: iterations
+     30000-30004 either side of net_d_start_iter 30001 with exact launch
+     counts (one K3 a step), the discriminator, its Adam and its BatchNorm
+     statistics untouched before the gate and stepping after it, every
+     step's K3 picks against the plain search, faces/s and peak memory;
+     then one fp32 step at 128^2 on the card against the same step on the
+     host (losses, d_weight, gradients) and a planted train-mode g step
+     that must fail;
+  6c. training, stage III (CodeFormerJointModel) at the full width of
+     options/CodeFormer_stage3.yml, bf16, B=3 (net_d_iters 2): a code, a
+     d-only and a full step with exact launch counts (K1/K2/K3 in the
+     frozen HQ encode only), frozen modules unchanged, idx_gt against the
+     plain-op encode (and a planted fault), faces/s of the full and code
+     steps, peak memory; then one CodeFormerModel step of
+     options/CodeFormer_inpainting.yml.
 Every time is per launch: runs of back-to-back launches between two
 CUDA events (`time_ms`), the median run. The last line is the JSON
 result; the line before it lists the kernels, each with its launches on
@@ -1598,6 +1615,46 @@ def plain_train_ops():
         yield
 
 
+def idx_gt_check(trainer, label: str = 'idx_gt') -> float:
+    """idx_gt of the kernel path (the frozen HQ encode on K1/K2, K3)
+    against the same encode with K1/K2/K3 on their plain versions (fp32
+    sums, TF32 off), on the trainer's batch, and planted faults that must
+    fall under the floor. Returns the agreement."""
+    from codeformer_tpu_torch.ops import conv3x3 as cv
+    from codeformer_tpu_torch.ops import vq
+    mb = trainer.batch
+
+    def idx_with(k1, k2, k3):
+        with torch.no_grad(), mock.patch.multiple(
+                cv, conv3x3_dots=takes_prepared(k1),
+                downsample_dots=takes_prepared(k2)), \
+                mock.patch.object(vq, 'nearest_code_indices', k3):
+            return trainer._idx_gt(mb)
+    with torch.no_grad():
+        idx_k = trainer._idx_gt(mb)
+    idx_r = idx_with(cv.conv3x3_dots_ref, cv.downsample_dots_ref,
+                     vq._nearest_code_ref)
+    agree = float((idx_k == idx_r).float().mean())
+    faults = {
+        'K2 symmetric pad': idx_with(cv.conv3x3_dots_ref, k2_fault,
+                                     vq._nearest_code_ref),
+        'K1 halo act(b)': idx_with(k1_fault('halo act(b)'),
+                                   cv.downsample_dots_ref,
+                                   vq._nearest_code_ref)}
+    fault_agree = {k: float((v == idx_r).float().mean())
+                   for k, v in faults.items()}
+    print(f'  {label} vs the plain-op encode: agreement {agree:.4f} (>= '
+          f'{IDX_AGREEMENT_FLOOR}); planted faults: ' + ', '.join(
+              f'{k} {v:.4f}' for k, v in fault_agree.items()), flush=True)
+    if agree < IDX_AGREEMENT_FLOOR:
+        raise SystemExit(f'chip_smoke: {label} of the kernel path disagrees '
+                         f'with the plain-op encode')
+    if fault_agree['K2 symmetric pad'] >= IDX_AGREEMENT_FLOOR:
+        raise SystemExit(f'chip_smoke: the {label} bound lets the planted '
+                         f'fault K2 symmetric pad pass')
+    return agree
+
+
 def phase_train():
     """Stage-II training at full width: TRAIN_STEPS steps on one fixed
     batch through CodeFormerIdxModel.optimize_parameters, with exact
@@ -1606,8 +1663,6 @@ def phase_train():
     plain path, peak memory. Returns the launch counts of the steps and
     the trainer."""
     from codeformer_tpu_torch.nn.blocks import ResBlock
-    from codeformer_tpu_torch.ops import conv3x3 as cv
-    from codeformer_tpu_torch.ops import vq
     from codeformer_tpu_torch.train.trainers import build_model
     t0 = time.perf_counter()
     trainer = build_model(stage2_options())
@@ -1680,38 +1735,7 @@ def phase_train():
     if moved:
         raise SystemExit(f'chip_smoke: frozen modules moved: {moved[:3]}')
 
-    # idx_gt of the kernel path against the plain-op encode (fp32 sums,
-    # TF32 off), and planted faults
-    mb = trainer.batch
-
-    def idx_with(k1, k2, k3):
-        with torch.no_grad(), mock.patch.multiple(
-                cv, conv3x3_dots=takes_prepared(k1),
-                downsample_dots=takes_prepared(k2)), \
-                mock.patch.object(vq, 'nearest_code_indices', k3):
-            return trainer._idx_gt(mb)
-    with torch.no_grad():
-        idx_k = trainer._idx_gt(mb)
-    idx_r = idx_with(cv.conv3x3_dots_ref, cv.downsample_dots_ref,
-                     vq._nearest_code_ref)
-    agree = float((idx_k == idx_r).float().mean())
-    faults = {
-        'K2 symmetric pad': idx_with(cv.conv3x3_dots_ref, k2_fault,
-                                     vq._nearest_code_ref),
-        'K1 halo act(b)': idx_with(k1_fault('halo act(b)'),
-                                   cv.downsample_dots_ref,
-                                   vq._nearest_code_ref)}
-    fault_agree = {k: float((v == idx_r).float().mean())
-                   for k, v in faults.items()}
-    print(f'  idx_gt vs the plain-op encode: agreement {agree:.4f} (>= '
-          f'{IDX_AGREEMENT_FLOOR}); planted faults: ' + ', '.join(
-              f'{k} {v:.4f}' for k, v in fault_agree.items()), flush=True)
-    if agree < IDX_AGREEMENT_FLOOR:
-        raise SystemExit('chip_smoke: idx_gt of the kernel path disagrees '
-                         'with the plain-op encode')
-    if fault_agree['K2 symmetric pad'] >= IDX_AGREEMENT_FLOOR:
-        raise SystemExit('chip_smoke: the idx_gt bound lets the planted '
-                         'fault K2 symmetric pad pass')
+    idx_gt_check(trainer)
     phase_train_rates(trainer)
     return counts, trainer
 
@@ -1783,6 +1807,423 @@ def phase_train_rates(trainer):
           f'{med["kernel"] / med["plain"]:.3f}; frozen-encode share of the '
           f'step: kernel {statistics.median(share["kernel"]):.3f}, plain '
           f'{statistics.median(share["plain"]):.3f}', flush=True)
+
+
+# stage I (VQGANModel) and stage III (CodeFormerJointModel, CodeFormerModel)
+# at full width; LPIPS on seeded VGG16 and lin-head stand-ins (no weights
+# ship with the repository)
+STAGE1_ITERS = (30000, 30001, 30002, 30003, 30004)   # net_d_start_iter 30001
+STAGE3_BATCH = 3          # batch_size_per_gpu of both stage-III configs
+# code step (large degradation), d-only step (small, generator gated),
+# full step (small, generator on): past 120000 the joint schedule takes one
+# small-degradation iteration in 15, and net_d_iters 2 gates odd ones
+STAGE3_ITERS = (120002, 120015, 120030)
+STAGE3_KINDS = ('code', 'd-only', 'full')
+NO_LAUNCHES = {k: 0 for k in ENCODE_LAUNCHES}
+# the card-vs-CPU fp32 step (TF32 off): both sum in other orders; losses
+# and d_weight within 1e-4 relative, gradients within 1e-3 relative RMS.
+# LPIPS weighs 0.1 there: at random init its input gradient is mostly
+# high-frequency and its pull-back through the generator cancels about
+# 500-fold, so at weight 1 that part of the gradient carries 3.5e-3 of
+# rounding between any two summation orders (tests/test_torch_stage1.py)
+CARD_CPU_LOSS_RTOL = 1e-4
+CARD_CPU_GRAD_RTOL = 1e-3
+
+
+@contextlib.contextmanager
+def vgg_standins(seed: int = 11):
+    """weights/vgg/vgg16.pth (He-scaled seeded convs) and lpips_vgg.pth
+    (seeded heads in [0, 0.2)) in a temporary directory made the working
+    directory, where LPIPSLoss reads them; nothing is written into the
+    repository."""
+    import tempfile
+    g = torch.Generator().manual_seed(seed)
+    old = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, 'weights', 'vgg'))
+        sd, idx, cin = {}, 0, 3
+        for ch, n in ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3)):
+            for _ in range(n):
+                sd[f'features.{idx}.weight'] = torch.randn(
+                    ch, cin, 3, 3, generator=g) * (2.0 / (9 * cin)) ** 0.5
+                sd[f'features.{idx}.bias'] = torch.zeros(ch)
+                idx, cin = idx + 2, ch
+            idx += 1
+        torch.save(sd, os.path.join(tmp, 'weights', 'vgg', 'vgg16.pth'))
+        torch.save({f'lin{i}.model.1.weight':
+                    torch.rand(1, c, 1, 1, generator=g) * 0.2
+                    for i, c in enumerate((64, 128, 256, 512, 512))},
+                   os.path.join(tmp, 'weights', 'vgg', 'lpips_vgg.pth'))
+        os.chdir(tmp)
+        try:
+            yield tmp
+        finally:
+            os.chdir(old)
+
+
+def gan_train_block(**over) -> dict:
+    """The train: block the stage-I and stage-III configs share (Adam,
+    L1 pixel loss, LPIPS with the reference's double normalisation, the
+    hinge GAN loss, the discriminator gates)."""
+    adam = {'type': 'Adam', 'lr': 7e-5, 'weight_decay': 0,
+            'betas': [0.9, 0.99]}
+    block = {'optim_g': dict(adam), 'optim_d': dict(adam),
+             'warmup_iter': -1,
+             'pixel_opt': {'type': 'L1Loss', 'loss_weight': 1.0,
+                           'reduction': 'mean'},
+             'perceptual_opt': {'type': 'LPIPSLoss', 'loss_weight': 1.0,
+                                'use_input_norm': True, 'range_norm': True},
+             'gan_opt': {'type': 'GANLoss', 'gan_type': 'hinge',
+                         'loss_weight': 1.0},
+             'net_g_start_iter': 0, 'net_d_iters': 1}
+    block.update(over)
+    return block
+
+
+def stage1_options() -> dict:
+    """options/VQGAN_512_ds32_nearest_stage1.yml as a dict (the card's
+    machine has no yaml), bf16, one card, seeded random weights, its val
+    and logger blocks left out."""
+    return {
+        'name': 'chip_smoke_stage1', 'model_type': 'VQGANModel',
+        'manual_seed': 0, 'mixed_precision': 'bf16', 'device': 'cuda',
+        'network_g': {'type': 'VQAutoEncoder', 'img_size': 512, 'nf': 64,
+                      'ch_mult': [1, 2, 2, 4, 4, 8], 'quantizer': 'nearest',
+                      'codebook_size': 1024},
+        'network_d': {'type': 'VQGANDiscriminator', 'nc': 3, 'ndf': 64},
+        'path': {},
+        'train': gan_train_block(
+            scheduler={'type': 'CosineAnnealingRestartLR',
+                       'periods': [1600000], 'restart_weights': [1],
+                       'eta_min': 6e-5},
+            total_iter=1600000, ema_decay=0.995, net_d_start_iter=30001)}
+
+
+def stage3_options(inpainting: bool = False) -> dict:
+    """options/CodeFormer_stage3.yml (or CodeFormer_inpainting.yml) as a
+    dict, bf16, one card, seeded random weights, the pretrained paths (not
+    in the repository) cleared. The stage-III config's net_d_iters is 2
+    here, so that its d-only step runs too (the config's 1 gates nothing)."""
+    codes = 512 if inpainting else 1024
+    opt = {
+        'name': 'chip_smoke_stage3', 'manual_seed': 0,
+        'model_type': 'CodeFormerModel' if inpainting
+        else 'CodeFormerJointModel',
+        'mixed_precision': 'bf16', 'device': 'cuda',
+        'network_g': {'type': 'CodeFormer', 'dim_embd': 512, 'n_head': 8,
+                      'n_layers': 9, 'codebook_size': codes,
+                      'connect_list': ['32', '64', '128'] if inpainting
+                      else ['32', '64', '128', '256'],
+                      'fix_modules': ['quantize', 'generator']},
+        'network_vqgan': {'type': 'VQAutoEncoder', 'img_size': 512,
+                          'nf': 64, 'ch_mult': [1, 2, 2, 4, 4, 8],
+                          'quantizer': 'nearest', 'codebook_size': codes},
+        'network_d': {'type': 'VQGANDiscriminator', 'nc': 3, 'ndf': 64,
+                      'n_layers': 4},
+        'path': {},
+        'train': gan_train_block(
+            use_hq_feat_loss=True, feat_loss_weight=1.0,
+            cross_entropy_loss=True, entropy_loss_weight=0.5,
+            total_iter=150000, ema_decay=0.997)}
+    t = opt['train']
+    if inpainting:
+        adam = {'type': 'Adam', 'lr': 7e-5, 'weight_decay': 0,
+                'betas': [0.9, 0.99]}
+        t.update(optim_g=dict(adam), optim_d=dict(adam), total_iter=300000,
+                 fidelity_weight=1.0, scale_adaptive_gan_weight=0.8,
+                 use_adaptive_weight=True, net_d_start_iter=296001,
+                 scheduler={'type': 'MultiStepLR',
+                            'milestones': [250000, 300000], 'gamma': 0.5})
+    else:
+        adam = {'type': 'Adam', 'lr': 5e-5, 'weight_decay': 0,
+                'betas': [0.9, 0.99]}
+        t.update(optim_g=dict(adam), optim_d=dict(adam),
+                 scale_adaptive_gan_weight=0.1, net_d_start_iter=0,
+                 net_d_iters=2,
+                 scheduler={'type': 'CosineAnnealingRestartLR',
+                            'periods': [150000], 'restart_weights': [1],
+                            'eta_min': 2e-5})
+    return opt
+
+
+def stage3_batch(rng, n: int) -> dict:
+    """stage2_batch plus `in_large_de`, the joint dataset's stronger
+    degradation (x16 down, more noise), made on the card."""
+    import torch.nn.functional as F
+    batch = stage2_batch(rng, n)
+    x = batch['gt'].permute(0, 3, 1, 2)
+    lq = F.interpolate(F.interpolate(x, scale_factor=1 / 16, mode='bilinear',
+                                     antialias=True),
+                       size=x.shape[2:], mode='bilinear')
+    g = torch.Generator(device='cuda').manual_seed(int(rng.integers(1 << 30)))
+    lq = lq + 0.1 * torch.randn(lq.shape, generator=g, device='cuda')
+    batch['in_large_de'] = lq.clamp(-1, 1).permute(0, 2, 3, 1).contiguous()
+    return batch
+
+
+def counted_step(trainer, it: int) -> dict:
+    """optimize_parameters(it) to the end on the card; the launches it
+    made."""
+    before = all_counts()
+    trainer.optimize_parameters(it)
+    torch.cuda.synchronize()
+    after = all_counts()
+    return {k: after[k] - before[k] for k in after}
+
+
+def gan_rate(trainer, it: int, n_faces: int) -> float:
+    """Training faces/s of iteration `it` taken over and over: two warm-up
+    steps, then a window of at least RATE_WINDOW_S (host clock ending in a
+    synchronize)."""
+    for _ in range(2):
+        trainer.optimize_parameters(it)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.optimize_parameters(it)
+    torch.cuda.synchronize()
+    iters = max(2, int(RATE_WINDOW_S / (time.perf_counter() - t0)) + 1)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        trainer.optimize_parameters(it)
+    torch.cuda.synchronize()
+    return n_faces * iters / (time.perf_counter() - t0)
+
+
+def phase_stage1():
+    """Stage I at the full width of the stage-I config, bf16, B=4:
+    iterations 30000-30004 either side of net_d_start_iter 30001 with
+    exact launch counts (one K3 a step, in the quantizer; no K1/K2, net_g
+    is textbook), finite losses and d_weight, the discriminator and its
+    Adam and BatchNorm state untouched before the gate and stepping after
+    it, each step's K3 picks on its own latents held to the plain search,
+    faces/s and peak memory. Returns the launch counts."""
+    from codeformer_tpu_torch.ops import vq
+    from codeformer_tpu_torch.train.trainers import build_model
+    t0 = time.perf_counter()
+    with vgg_standins():
+        trainer = build_model(stage1_options())
+    print(f'stage I trainer: VQAutoEncoder nf 64, ch_mult 1,2,2,4,4,8, 1024 '
+          f'codes; VQGANDiscriminator ndf 64, 4 layers; LPIPS VGG16 '
+          f'(seeded stand-ins); bf16 activations, fp32 params; B='
+          f'{TRAIN_BATCH}; built in {time.perf_counter() - t0:.1f} s',
+          flush=True)
+    batch = stage2_batch(np.random.default_rng(7), TRAIN_BATCH)
+    trainer.feed_data({'gt': batch['gt']})
+    d0 = {k: v.clone() for k, v in trainer.net_d.state_dict().items()}
+    picks = []
+    search = vq.nearest_code_indices
+
+    def recorded(z, e):
+        idx = search(z, e)
+        picks.append((z.detach().clone(), e.detach().clone(), idx.clone()))
+        return idx
+    want = dict(NO_LAUNCHES, nearest_code=1)
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    with mock.patch.object(vq, 'nearest_code_indices', recorded):
+        for it in STAGE1_ITERS:
+            got = counted_step(trainer, it)
+            log = trainer.log_dict
+            gate = it > 30001
+            print(f'  iter {it} (d {"on" if gate else "off"}): '
+                  + ', '.join(f'{k} {v:.5g}' for k, v in log.items())
+                  + f'; launches {got}; optimizer_d steps {trainer.step_d}',
+                  flush=True)
+            if got != want:
+                raise SystemExit(f'chip_smoke: stage-I iteration {it} '
+                                 f'launched {got}, expected {want}')
+            if not all(np.isfinite(v) for v in log.values()):
+                raise SystemExit(f'chip_smoke: non-finite stage-I log at '
+                                 f'{it}')
+            if not gate and (trainer.step_d or trainer.optimizer_d.state
+                             or any(not torch.equal(v, d0[k]) for k, v in
+                                    trainer.net_d.state_dict().items())):
+                raise SystemExit('chip_smoke: the discriminator moved before '
+                                 'net_d_start_iter')
+    counts = all_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    bn_moved = not torch.equal(trainer.net_d.main[3].running_mean,
+                               d0['main.3.running_mean'])
+    if trainer.step_d != 3 or not bn_moved or not trainer.optimizer_d.state:
+        raise SystemExit(f'chip_smoke: the discriminator did not step past '
+                         f'net_d_start_iter ({trainer.step_d} steps)')
+    verdicts = [k3_verdict(idx, vq._nearest_code_ref(z, e), z, e)
+                for z, e, idx in picks]
+    print(f'  K3 picks of the {len(picks)} steps against the plain search: '
+          f'agreement {min(v["agree"] for v in verdicts):.6f} (lowest), worst '
+          f'relative gap {max(v["worst_gap"] for v in verdicts):.2e} (<= '
+          f'{K3_MARGIN}); peak memory {peak:.2f} GiB over the 5 steps',
+          flush=True)
+    if not all(v['ok'] for v in verdicts):
+        raise SystemExit('chip_smoke: a stage-I K3 pick is off the nearest '
+                         'code')
+    rate = gan_rate(trainer, STAGE1_ITERS[-1], TRAIN_BATCH)
+    print(f'  stage-I training faces/s at B={TRAIN_BATCH} (g step with LPIPS '
+          f'and the adaptive weight, d step, EMA): {rate:.2f}; peak memory '
+          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB', flush=True)
+    del trainer, picks
+    torch.cuda.empty_cache()
+    return counts
+
+
+def small_stage1_options(device: str) -> dict:
+    """The stage-I config cut to a width both the card and the host step
+    in seconds (128^2, nf 32, ch_mult 1,2,2,4, 256 codes of 64; ndf 16, 3
+    layers), fp32, LPIPS at 0.1 (CARD_CPU_GRAD_RTOL)."""
+    opt = stage1_options()
+    opt.update(mixed_precision='fp32', device=device)
+    opt['network_g'].update(img_size=128, nf=32, ch_mult=[1, 2, 2, 4],
+                            codebook_size=256, emb_dim=64)
+    opt['network_d'].update(ndf=16, n_layers=3)
+    opt['train']['perceptual_opt']['loss_weight'] = 0.1
+    return opt
+
+
+def eval_mode_fault(self, out):
+    """Planted fault: the generator-side GAN term with net_d in train mode
+    (batch statistics), as the reference PyTorch does and JAX does not."""
+    self.net_d.train().requires_grad_(False)
+    return self._gan_loss(self.net_d(out.to(self.compute_dtype)), True,
+                          is_disc=False)
+
+
+def phase_stage1_cpu_check():
+    """One fp32 stage-I step past net_d_start_iter at a reduced width on
+    the card and on the host from the same seeded weights and batch:
+    losses and d_weight within CARD_CPU_LOSS_RTOL, the generator's and the
+    discriminator's gradients within CARD_CPU_GRAD_RTOL relative RMS; the
+    g-step with net_d in train mode (planted) must fall outside."""
+    from codeformer_tpu_torch.train.trainers import VQGANModel, build_model
+    gt = stage2_batch(np.random.default_rng(8), 2, size=128)['gt']
+    runs = {}
+    for label, device in (('cpu', 'cpu'), ('card', 'cuda'),
+                          ('planted', 'cuda')):
+        with vgg_standins():
+            trainer = build_model(small_stage1_options(device))
+        trainer.feed_data({'gt': gt.to(trainer.device)})
+        if label == 'planted':
+            with mock.patch.object(VQGANModel, '_g_gan_loss',
+                                   eval_mode_fault):
+                trainer.optimize_parameters(STAGE1_ITERS[-1])
+        else:
+            trainer.optimize_parameters(STAGE1_ITERS[-1])
+        grads = torch.cat([p.grad.detach().float().cpu().reshape(-1)
+                           for net in (trainer.net_g, trainer.net_d)
+                           for p in net.parameters() if p.grad is not None])
+        runs[label] = (dict(trainer.log_dict), grads)
+    ref_log, ref_g = runs['cpu']
+
+    def verdict(label):
+        log, g = runs[label]
+        # l_g_gan = d_weight * -mean(pred): the mean sits near 0, so it is
+        # held relative to d_weight (predictions of size 1), not to itself
+        scale = {k: abs(ref_log[k]) for k in ref_log}
+        scale['l_g_gan'] = ref_log['d_weight']
+        loss_err = max(abs(log[k] - ref_log[k]) / max(scale[k], 1e-30)
+                       for k in ('l_g_total', 'l_g_pix', 'l_g_percep',
+                                 'l_codebook', 'l_g_gan', 'l_d_real',
+                                 'l_d_fake', 'd_weight'))
+        grad_err = float((g - ref_g).norm() / ref_g.norm()) \
+            if g.shape == ref_g.shape else float('inf')
+        ok = loss_err <= CARD_CPU_LOSS_RTOL and grad_err <= CARD_CPU_GRAD_RTOL
+        return loss_err, grad_err, ok
+    got, fault = verdict('card'), verdict('planted')
+    print(f'stage-I fp32 step at 128^2 (nf 32), card vs CPU: losses and '
+          f'd_weight max rel {got[0]:.2e} (<= {CARD_CPU_LOSS_RTOL}), '
+          f'gradients rel RMS {got[1]:.2e} (<= {CARD_CPU_GRAD_RTOL}); d_weight '
+          f'{runs["card"][0]["d_weight"]:.5g} vs {ref_log["d_weight"]:.5g}; '
+          f'planted fault (g step with net_d in train mode): {fault[0]:.2e} / '
+          f'{fault[1]:.2e} -> {"passes (BAD)" if fault[2] else "fails"}',
+          flush=True)
+    if not got[2]:
+        raise SystemExit('chip_smoke: the stage-I step on the card disagrees '
+                         'with the host')
+    if fault[2]:
+        raise SystemExit('chip_smoke: the card-vs-CPU bounds let the planted '
+                         'train-mode g step pass')
+
+
+def phase_stage3():
+    """Stage III at the full width of the stage-III config, bf16, B=3
+    (SFT branches tamed, tame_sft): a code, a d-only and a full step with
+    exact launch counts (K1 28, K2 5 and K3 1 from the frozen HQ encode
+    of every step that takes idx_gt, none elsewhere), finite losses,
+    frozen quantize/generator unchanged, idx_gt against the plain-op
+    encode (and a planted fault), faces/s of the full and the code step,
+    peak memory; then one CodeFormerModel step of the inpainting config.
+    Returns the launch counts of the stepped iterations."""
+    from codeformer_tpu_torch.train.trainers import build_model
+    t0 = time.perf_counter()
+    with vgg_standins():
+        trainer = build_model(stage3_options())
+    with torch.no_grad():
+        tame_sft(trainer.net_g)
+    trainer.reset_ema()
+    print(f'stage III trainer: CodeFormer dim_embd 512, 9 layers, 1024 codes, '
+          f'connect 32/64/128/256, frozen quantize and generator; frozen HQ '
+          f'VQGAN; VQGANDiscriminator ndf 64; LPIPS VGG16 (seeded stand-ins); '
+          f'bf16; B={STAGE3_BATCH}; built in {time.perf_counter() - t0:.1f} s',
+          flush=True)
+    trainer.feed_data(stage3_batch(np.random.default_rng(9), STAGE3_BATCH))
+    net = trainer.net_g
+    frozen = {k: v.clone() for k, v in net.state_dict().items()
+              if k.split('.')[0] in ('quantize', 'generator')}
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    for it, kind in zip(STAGE3_ITERS, STAGE3_KINDS):
+        got = counted_step(trainer, it)
+        want = NO_LAUNCHES if kind == 'd-only' else ENCODE_LAUNCHES
+        log = trainer.log_dict
+        print(f'  iter {it} ({kind} step): ' + ', '.join(
+            f'{k} {v:.5g}' for k, v in log.items()) + f'; launches {got}',
+            flush=True)
+        if got != want:
+            raise SystemExit(f'chip_smoke: stage-III {kind} step launched '
+                             f'{got}, expected {want}')
+        if not log or not all(np.isfinite(v) for v in log.values()):
+            raise SystemExit(f'chip_smoke: stage-III {kind} step log {log}')
+    counts = all_counts()
+    moved = [k for k, v in frozen.items()
+             if not torch.equal(v, net.state_dict()[k])]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'  frozen tensors moved: {len(moved)} of {len(frozen)}; optimizer '
+          f'steps g {trainer.step}, d {trainer.step_d}; peak memory '
+          f'{peak:.2f} GiB', flush=True)
+    if moved or (trainer.step, trainer.step_d) != (2, 2):
+        raise SystemExit('chip_smoke: stage III moved a frozen module or '
+                         'stepped the wrong optimizers')
+    idx_gt_check(trainer, 'stage-III idx_gt')
+    rates = {kind: gan_rate(trainer, it, STAGE3_BATCH)
+             for it, kind in zip(STAGE3_ITERS, STAGE3_KINDS) if kind != 'd-only'}
+    print(f'  stage-III training faces/s at B={STAGE3_BATCH}: full step '
+          f'{rates["full"]:.2f}, code step {rates["code"]:.2f}; peak memory '
+          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB', flush=True)
+    del trainer, net, frozen
+    torch.cuda.empty_cache()
+
+    with vgg_standins():
+        trainer = build_model(stage3_options(inpainting=True))
+    with torch.no_grad():
+        tame_sft(trainer.net_g)
+    trainer.reset_ema()
+    trainer.feed_data(stage2_batch(np.random.default_rng(10), STAGE3_BATCH))
+    torch.cuda.reset_peak_memory_stats()
+    got = counted_step(trainer, 1)
+    log = trainer.log_dict
+    print(f'  CodeFormerModel (inpainting config: 512 codes, connect '
+          f'32/64/128, fidelity_weight 1), iteration 1: ' + ', '.join(
+              f'{k} {v:.5g}' for k, v in log.items()) + f'; launches {got}; '
+          f'peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} '
+          f'GiB', flush=True)
+    if got != ENCODE_LAUNCHES or not all(np.isfinite(v)
+                                         for v in log.values()) \
+            or 'd_weight' not in log:
+        raise SystemExit('chip_smoke: the CodeFormerModel step failed')
+    for k, v in got.items():
+        counts[k] += v
+    del trainer
+    torch.cuda.empty_cache()
+    return counts
 
 
 def phase_ops():
@@ -3105,11 +3546,17 @@ def main():
     train_counts, trainer = phase_train()
     if '--profile' in sys.argv[1:]:
         phase_train_profile(trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    stage1_counts = phase_stage1()
+    phase_stage1_cpu_check()
+    stage3_counts = phase_stage3()
     print(f'main-path launches: serving {serve_counts}; whole-image path '
           f'{whole_counts}; classic path {classic_counts}; classic path with '
           f'the upsamplers {upsample_counts}; colorization and inpainting '
           f'{task_counts}; VQAutoEncoder {vq_counts}; stage-II training '
-          f'{train_counts}; ops path {ops_counts}')
+          f'{train_counts}; stage-I training {stage1_counts}; stage-III '
+          f'training {stage3_counts}; ops path {ops_counts}')
     phase_k3_activities(k3_calls)
     vqgan_activities(vq_probe)
     del k3_calls, vq_probe
@@ -3133,7 +3580,8 @@ def main():
             'launches': sum(c.get(name, 0) for c in
                             (serve_counts, whole_counts, classic_counts,
                              upsample_counts, task_counts, vq_counts,
-                             train_counts, ops_counts)),
+                             train_counts, stage1_counts, stage3_counts,
+                             ops_counts)),
             'max_abs_err': max(r['max_abs_err'] for r in rows),
             'ms': head['ms'], 'plain_ms': head['plain_ms'],
             'bound_ms': head['bound_ms'], 'bound_by': head['bound_by'],
@@ -3144,10 +3592,12 @@ def main():
               for name, rows in results.items() if 'call_ms' in rows[0]))
     if not all(k['launches'] > 0 for k in kernels):
         raise SystemExit('chip_smoke: a kernel of the path never launched')
-    if train_counts['nearest_code'] == 0 or vq_counts['nearest_code'] == 0 \
+    if not all(c['nearest_code'] > 0 for c in (
+            train_counts, vq_counts, stage1_counts, stage3_counts)) \
             or not all(c[k] > 0 for c in (serve_counts, whole_counts,
                                           classic_counts, upsample_counts,
-                                          task_counts, vq_counts)
+                                          task_counts, vq_counts,
+                                          stage3_counts)
                        for k in ('conv3x3_dots', 'downsample_dots')) \
             or not all(ops_counts[k] > 0 for k in (
                 'conv3x3_bias', 'fused_lrelu_fwd', 'fused_lrelu_bwd')):

@@ -4,8 +4,10 @@ from .codeformer import CodeFormer
 from .parsenet import ParseNet
 from .retinaface import RetinaFace
 from .rrdbnet import RRDBNet
-from .vqgan import VQAutoEncoder
+from .vgg import VGGFeatureExtractor
+from .vqgan import VQAutoEncoder, VQGANDiscriminator
 from .yolov5face import YoloFace
 
 __all__ = ['BiSeNet', 'CodeFormer', 'ParseNet', 'RRDBNet', 'RetinaFace',
-           'VQAutoEncoder', 'YoloFace']
+           'VGGFeatureExtractor', 'VQAutoEncoder', 'VQGANDiscriminator',
+           'YoloFace']

@@ -4,8 +4,8 @@ The block order, and so every state-dict key, is the reference's
 (vqgan_arch.py:229-323), so released checkpoints load unchanged. Tap
 indices are computed at construction with the JAX package's rules.
 VectorQuantizer's forward runs the nearest-code search K3
-(ops/vq.py). Waiting for a later slice: GumbelQuantizer and
-VQGANDiscriminator (stage I).
+(ops/vq.py); GumbelQuantizer is its stage-I alternative and
+VQGANDiscriminator the PatchGAN of stages I and III.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from codeformer_tpu_torch.nn import blocks as nb
 from codeformer_tpu_torch.nn.blocks import (AttnBlock, Conv2d, Downsample,
@@ -80,6 +81,61 @@ class VectorQuantizer(nn.Module):
         if shape is not None:
             z_q = z_q.reshape(shape).permute(0, 3, 1, 2)
         return z_q
+
+
+def gumbel_noise(shape, generator: Optional[torch.Generator],
+                 device) -> torch.Tensor:
+    """Gumbel(0, 1) noise of `shape`, fp32: -log(-log(u + 1e-20)) with u
+    uniform on [1e-20, 1) drawn from `generator` (JAX vqgan.py:117-119)."""
+    u = torch.empty(shape, device=device).uniform_(1e-20, 1.0,
+                                                   generator=generator)
+    return -torch.log(-torch.log(u + 1e-20))
+
+
+class GumbelQuantizer(nn.Module):
+    """Gumbel-softmax quantizer (vqgan_arch.py:87-114; JAX vqgan.py:95-140):
+    a 1x1 projection to code logits, a (straight-through) Gumbel-softmax
+    sample over the codes, and the sample's mix of `embed` rows."""
+
+    def __init__(self, codebook_size: int, emb_dim: int, num_hiddens: int,
+                 straight_through: bool = False, kl_weight: float = 5e-4,
+                 temp_init: float = 1.0):
+        super().__init__()
+        self.codebook_size = codebook_size
+        self.straight_through = straight_through
+        self.kl_weight = kl_weight
+        self.temperature = temp_init
+        self.proj = Conv2d(num_hiddens, codebook_size, 1)
+        self.embed = nn.Embedding(codebook_size, emb_dim)
+
+    def forward(self, z: torch.Tensor, temperature: Optional[float] = None,
+                generator: Optional[torch.Generator] = None):
+        """z (B, D, h, w). In training mode the logits get Gumbel noise
+        (from `generator`) and the sample is hard only with
+        `straight_through`; in eval mode it is the hard softmax of the
+        logits. Returns (z_q in z's dtype, the kl_weight KL term to the
+        uniform prior, {'min_encoding_indices': (B, h, w)})."""
+        hard = self.straight_through if self.training else True
+        tau = self.temperature if temperature is None else temperature
+        logits = self.proj(z).float()                      # (B, K, h, w)
+        if self.training:
+            logits_n = logits + gumbel_noise(logits.shape, generator,
+                                             logits.device)
+        else:
+            logits_n = logits
+        y_soft = torch.softmax(logits_n / tau, dim=1)
+        indices = y_soft.argmax(1)
+        if hard:
+            y_hard = F.one_hot(indices, self.codebook_size).permute(
+                0, 3, 1, 2).float()
+            one_hot = y_hard + y_soft - y_soft.detach()
+        else:
+            one_hot = y_soft
+        z_q = torch.einsum('bkhw,kd->bdhw', one_hot, self.embed.weight.float())
+        qy = torch.softmax(logits, dim=1)
+        diff = self.kl_weight * torch.mean(torch.sum(
+            qy * torch.log(qy * self.codebook_size + 1e-10), dim=1))
+        return z_q.to(z.dtype), diff, {'min_encoding_indices': indices}
 
 
 def _build_encoder_blocks(nf, emb_dim, ch_mult, num_res_blocks, resolution,
@@ -209,27 +265,87 @@ class Generator(nn.Module):
 @ARCH_REGISTRY.register()
 class VQAutoEncoder(nn.Module):
     """The VQGAN backbone: encoder, codebook, generator
-    (vqgan_arch.py:326-389), with the 'nearest' quantizer. The Gumbel
-    quantizer waits for stage I (ROADMAP.md Queue 1 item 4.1)."""
+    (vqgan_arch.py:326-389), with the 'nearest' quantizer (K3) or the
+    'gumbel' one."""
 
     def __init__(self, img_size=512, nf=64, ch_mult=(1, 2, 2, 4, 4, 8),
                  res_blocks=2, attn_resolutions=(16,), codebook_size=1024,
-                 emb_dim=256, quantizer: str = 'nearest'):
+                 emb_dim=256, quantizer: str = 'nearest', beta: float = 0.25,
+                 gumbel_straight_through: bool = False,
+                 gumbel_kl_weight: float = 1e-8):
         super().__init__()
-        if quantizer != 'nearest':
-            raise NotImplementedError(
-                f'quantizer {quantizer!r} is not ported yet (GumbelQuantizer, '
-                f'ROADMAP.md Queue 1 item 4.1)')
         self.ch_mult, self.emb_dim = tuple(ch_mult), emb_dim
         self.encoder = Encoder(nf, emb_dim, ch_mult, res_blocks, img_size,
                                attn_resolutions)
-        self.quantize = VectorQuantizer(codebook_size, emb_dim)
+        if quantizer == 'nearest':
+            self.quantize = VectorQuantizer(codebook_size, emb_dim, beta)
+        elif quantizer == 'gumbel':
+            self.quantize = GumbelQuantizer(
+                codebook_size, emb_dim, emb_dim, gumbel_straight_through,
+                gumbel_kl_weight)
+        else:
+            raise ValueError(f'unknown quantizer {quantizer!r}')
         self.generator = Generator(nf, emb_dim, ch_mult, res_blocks,
                                    img_size, attn_resolutions)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, **quant_kwargs):
         """Encode -> quantize -> decode (codeformer_tpu/models/vqgan.py:
-        359-363): (reconstruction, codebook_loss, quantizer stats)."""
+        359-363): (reconstruction, codebook_loss, quantizer stats).
+        `quant_kwargs` go to the Gumbel quantizer (temperature,
+        generator)."""
         x, _ = self.encoder(x)
-        quant, codebook_loss, quant_stats = self.quantize(x)
+        quant, codebook_loss, quant_stats = self.quantize(x, **quant_kwargs)
         return self.generator(quant), codebook_loss, quant_stats
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with flax's arithmetic (the JAX discriminator's
+    nn.BatchNorm): fp32 batch statistics with the biased variance
+    E[x^2] - E[x]^2 (clipped at 0), running statistics updated with that
+    same biased variance (PyTorch's own takes the unbiased one), and
+    (x - mean) * (rsqrt(var + eps) * weight) + bias in fp32, out in the
+    input's dtype. momentum 0.1 here is flax's 0.9."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.training:
+            mean = xf.mean((0, 2, 3))
+            var = (xf.square().mean((0, 2, 3)) - mean.square()).clamp_min(0)
+            with torch.no_grad():
+                self.running_mean.mul_(1 - self.momentum).add_(
+                    mean, alpha=self.momentum)
+                self.running_var.mul_(1 - self.momentum).add_(
+                    var, alpha=self.momentum)
+                self.num_batches_tracked += 1
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1) \
+            + self.bias.view(1, -1, 1, 1)
+        return y.to(x.dtype)
+
+
+@ARCH_REGISTRY.register()
+class VQGANDiscriminator(nn.Module):
+    """PatchGAN discriminator (vqgan_arch.py:394-434; JAX vqgan.py:
+    366-407): 4x4 stride-2 convs with BatchNorm and LeakyReLU(0.2) down to
+    a one-channel logit map. `main` is the reference's nn.Sequential, so
+    its `.pth` names (`main.N.*`) load positionally. Convs compute in the
+    input's dtype."""
+
+    def __init__(self, nc: int = 3, ndf: int = 64, n_layers: int = 4):
+        super().__init__()
+        layers = [Conv2d(nc, ndf, 4, 2, 1), nn.LeakyReLU(0.2)]
+        mult = 1
+        for n in range(1, n_layers):
+            prev, mult = mult, min(2 ** n, 8)
+            layers += [Conv2d(ndf * prev, ndf * mult, 4, 2, 1, bias=False),
+                       BatchNorm2d(ndf * mult), nn.LeakyReLU(0.2)]
+        prev, mult = mult, min(2 ** n_layers, 8)
+        layers += [Conv2d(ndf * prev, ndf * mult, 4, 1, 1, bias=False),
+                   BatchNorm2d(ndf * mult), nn.LeakyReLU(0.2),
+                   Conv2d(ndf * mult, 1, 4, 1, 1)]
+        self.main = nn.Sequential(*layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.main(x)

@@ -58,7 +58,15 @@ class GroupNorm32(nn.GroupNorm):
         super().__init__(32, num_channels, eps=1e-6)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
+        xf = x.float()
+        if (not xf.is_cuda and torch.is_grad_enabled()
+                and self.weight.requires_grad and not xf.requires_grad):
+            # torch's CPU group_norm backward crashes (SIGSEGV, torch
+            # 2.13) on a channels_last input that takes no gradient while
+            # the affine parameters do: the SFT blocks' first GroupNorm
+            # in stage III, whose input is the frozen generator's map
+            xf = xf.contiguous()
+        y = F.group_norm(xf, self.num_groups, self.weight, self.bias,
                          self.eps)
         return y.to(x.dtype)
 

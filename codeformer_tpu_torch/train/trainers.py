@@ -1,22 +1,40 @@
 """Stage trainers (counterpart of codeformer_tpu/train/trainers.py).
 
-Ported so far: stage II, `CodeFormerIdxModel` (reference
-codeformer_idx_model.py). A frozen HQ VQGAN encodes the ground truth and
-the nearest-code search K3 (ops/vq.py) turns its latents into the target
-code indices `idx_gt`; CodeFormer's encoder and transformer learn them
-with a latent-feature L2 loss and a token cross-entropy.
+  - stage I, `VQGANModel` (reference vqgan_model.py): the VQGAN
+    autoencoder against a PatchGAN discriminator, with the pixel,
+    perceptual (LPIPS) and codebook losses and the adaptive GAN weight;
+    its VectorQuantizer runs the nearest-code search K3 (ops/vq.py);
+  - stage II, `CodeFormerIdxModel` (codeformer_idx_model.py): a frozen HQ
+    VQGAN encodes the ground truth and K3 turns its latents into the
+    target codes `idx_gt`; CodeFormer's encoder and transformer learn
+    them with a latent-feature L2 loss and a token cross-entropy;
+  - stage III, `CodeFormerJointModel` and `CodeFormerModel`
+    (codeformer_joint_model.py, codeformer_model.py): the code losses of
+    stage II plus the image losses of stage I through the SFT fusion,
+    with the same discriminator.
 
 Semantics kept from the JAX trainers:
   - `mixed_precision: bf16`: activations in bf16, parameters, losses,
-    optimizer state and EMA in fp32 (the port's Conv2d/Linear cast fp32
-    parameters on use, as flax's `dtype=`; no torch.autocast, which keeps
-    other ops in fp32 than flax does);
+    the adaptive weight, optimizer state and EMA in fp32 (the port's
+    Conv2d/Linear cast fp32 parameters on use, as flax's `dtype=`; no
+    torch.autocast, which keeps other ops in fp32 than flax does);
   - `accum_steps`: sequential microbatches, interleaved as JAX's
     `_split_microbatches` (microbatch i = batch[i::n]), grads averaged;
+    the adaptive GAN weight comes from the accumulated anchor gradients
+    and the discriminator's BatchNorm statistics chain across the
+    microbatches;
   - `fix_modules` frozen with requires_grad False and kept out of the
-    optimizer (JAX `_split_params`), EMA over every parameter;
+    optimizer (JAX `_split_params`), EMA over every parameter; every
+    trainable parameter steps each update, with a zero gradient where its
+    loss does not reach it, as optax updates the whole trainable tree;
+  - the generator-side GAN term reads the discriminator in eval mode
+    (its running statistics; JAX passes train=False) and gives the
+    discriminator no gradient; the discriminator steps only past
+    `net_d_start_iter`, and before that its parameters, Adam state and
+    BatchNorm statistics stay as they were (JAX's lax.cond);
   - the decoupled weight decay of the optax chain (train/optimizers.py)
-    and the 0-based schedule step (train/schedulers.py).
+    and the 0-based schedule step (train/schedulers.py), counted per
+    optimizer.
 
 K1/K2 are forward-only: `net_g` always runs its textbook blocks, so
 autograd records every conv; the frozen HQ VQGAN, run under no_grad,
@@ -28,7 +46,7 @@ from __future__ import annotations
 import logging
 import os
 import os.path as osp
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -39,20 +57,26 @@ from codeformer_tpu_torch.utils.checkpoint import init_params_fast
 from codeformer_tpu_torch.utils.convert import load_pth
 from codeformer_tpu_torch.utils.registry import ARCH_REGISTRY, MODEL_REGISTRY
 from .ema import ema_update
-from .losses import cross_entropy_loss, mse_loss
+from .losses import (charbonnier_loss, cross_entropy_loss, gan_loss, l1_loss,
+                     mse_loss)
 from .optimizers import build_optimizer
 from .schedulers import build_schedule
 
 logger = logging.getLogger('codeformer_tpu_torch')
+
+# reference fix_modules names of CodeFormer's token path: 'transformer'
+# freezes all of them (JAX _expand_fix_keys, codeformer_joint_model.py:181)
+TRANSFORMER_MODULES = ('ft_layers', 'feat_emb', 'position_emb',
+                       'idx_pred_layer')
+
 
 def build_model(opt: Dict):
     """Trainer for `opt['model_type']` (basicsr/models/__init__.py:19-30)."""
     model_type = opt['model_type']
     if model_type not in MODEL_REGISTRY:
         raise NotImplementedError(
-            f'model_type {model_type!r} is not ported yet: stage I '
-            f'(VQGANModel) and stage III (CodeFormerJointModel, '
-            f'CodeFormerModel) are ROADMAP.md Queue 1 item 4')
+            f'model_type {model_type!r} is not ported (SRModel is ROADMAP.md '
+            f'Queue 1 item 4.7)')
     return MODEL_REGISTRY.get(model_type)(opt)
 
 
@@ -64,19 +88,27 @@ def build_network(net_opt: Dict) -> torch.nn.Module:
 
 def freeze_modules(net: torch.nn.Module, fix_modules) -> list:
     """requires_grad False on the parameters of the named top-level
-    modules (every shipped config: quantize and generator). Returns the
-    frozen parameter names."""
+    modules (every shipped config: quantize and generator; 'transformer'
+    names the token path). Returns the frozen parameter names."""
+    tops = set(fix_modules)
+    if 'transformer' in tops:
+        tops |= set(TRANSFORMER_MODULES)
     frozen = []
     for name, p in net.named_parameters():
-        if name.split('.')[0] in fix_modules:
+        if name.split('.')[0] in tops:
             p.requires_grad_(False)
             frozen.append(name)
     return frozen
 
 
+def _l2norm(x: torch.Tensor) -> torch.Tensor:
+    return x.float().pow(2).sum().sqrt()
+
+
 class BaseTrainer:
-    """Options, device placement, EMA, checkpoint IO and logging.
-    Subclasses define `_build()` (networks, optimizer, schedule) and
+    """Options, device placement, optimizer steps, EMA, checkpoint IO,
+    logging, and the GAN pieces stages I and III share. Subclasses define
+    `_build()` (networks, optimizers, schedules) and
     `optimize_parameters(current_iter)`. The device is `opt['device']`
     ('cuda' by default, or e.g. 'cuda:1', 'cpu'); asking for CUDA where
     there is none raises."""
@@ -109,13 +141,13 @@ class BaseTrainer:
         if self.train_opt.get('remat'):
             raise NotImplementedError(
                 'remat: true is not ported yet (torch.utils.checkpoint, '
-                'ROADMAP.md Queue 1 item 4)')
+                'ROADMAP.md Queue 1 item 4.3)')
         val = [p for p in (opt.get('datasets') or {})
                if p.split('_')[0] == 'val']
         if val:
             raise NotImplementedError(
                 f'validation datasets {val} are not ported yet (ROADMAP.md '
-                f'Queue 1 item 4)')
+                f'Queue 1 item 4.4)')
         self.device = torch.device(opt.get('device') or 'cuda')
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError(
@@ -125,8 +157,10 @@ class BaseTrainer:
         if int(opt.get('num_devices') or 1) > 1 or (
                 self.device.type == 'cuda' and torch.cuda.device_count() > 1):
             logger.info(f'training on one device, {self.device}: data '
-                        f'parallelism (DDP) is ROADMAP.md Queue 1 item 4')
-        self.step = 0            # optimizer updates so far (0-based lr step)
+                        f'parallelism (DDP) is ROADMAP.md Queue 1 item 4.5')
+        self.step = 0            # optimizer_g updates so far (its lr step)
+        self.step_d = 0          # optimizer_d updates so far
+        self.net_d = None
         self._log_metrics: Dict[str, torch.Tensor] = {}
         self._log_cache: Optional[Dict[str, float]] = None
         self._build()
@@ -135,6 +169,43 @@ class BaseTrainer:
             logger.warning(f'train: keys IGNORED by {type(self).__name__}: '
                            f'{sorted(unknown)} -- check for typos or '
                            f'unsupported options')
+
+    def _seed(self) -> int:
+        return int(self.opt.get('manual_seed') or 0)
+
+    def _finish_g(self, fix_modules=()) -> None:
+        """net_g on the device in its textbook form, `fix_modules` frozen,
+        the AdamW of optim_g over the rest, its schedule and the EMA."""
+        self.net_g.to(self.device)
+        set_kernels(self.net_g, False)
+        logger.info('net_g: textbook blocks (autograd records every conv; '
+                    'K1/K2 are forward-only)')
+        self.frozen = freeze_modules(self.net_g, fix_modules)
+        self.params_g = [p for p in self.net_g.parameters()
+                         if p.requires_grad]
+        self.schedule_g = build_schedule(self.train_opt,
+                                         self.train_opt['optim_g']['lr'])
+        self.optimizer = build_optimizer(self.train_opt['optim_g'],
+                                         self.params_g)
+        self.reset_ema()
+
+    # ------------------------------------------------ optimizer steps
+    def _step_g(self) -> None:
+        """One optimizer_g update at the scheduled lr. A trainable tensor
+        its loss did not reach gets a zero gradient, so Adam's moments,
+        its count and the weight decay move it as optax moves the whole
+        trainable tree."""
+        for p in self.params_g:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        lr = self.schedule_g(self.step)
+        for group in self.optimizer.param_groups:
+            group['lr'] = lr
+        self.optimizer.step()
+        self.step += 1
+
+    def _ema(self) -> None:
+        ema_update(self.params_ema, self.net_g.state_dict(), self.ema_decay)
 
     # ----------------------------------------------------------- EMA
     def reset_ema(self) -> None:
@@ -150,22 +221,29 @@ class BaseTrainer:
 
     def save(self, epoch: int, current_iter: int) -> None:
         """net_g as {params, params_ema} (a `.pth` that load_pth and the
-        reference read) plus a `.state` file with the optimizer state
-        (the reference two-file scheme, base_model.py:170-280)."""
+        reference read), net_d as {params} (its BatchNorm statistics
+        included), plus a `.state` file with the optimizer states (the
+        reference two-file scheme, base_model.py:170-280)."""
         os.makedirs(self.opt['path']['models'], exist_ok=True)
         state_dir = self.opt['path']['training_states']
         os.makedirs(state_dir, exist_ok=True)
         torch.save({'params': self.net_g.state_dict(),
                     'params_ema': self.params_ema},
                    self._net_path('g', current_iter))
+        state = {'optimizer_g': self.optimizer.state_dict(),
+                 'step': self.step, 'epoch': epoch, 'iter': current_iter}
+        if self.net_d is not None:
+            torch.save({'params': self.net_d.state_dict()},
+                       self._net_path('d', current_iter))
+            state.update(optimizer_d=self.optimizer_d.state_dict(),
+                         step_d=self.step_d)
         tag = 'latest' if current_iter == -1 else current_iter
-        torch.save({'optimizer_g': self.optimizer.state_dict(),
-                    'step': self.step, 'epoch': epoch, 'iter': current_iter},
-                   osp.join(state_dir, f'{tag}.state'))
+        torch.save(state, osp.join(state_dir, f'{tag}.state'))
 
     def resume_training(self, state_path: str):
-        """Restore net_g, its EMA, the optimizer and the step from a
-        `.state` file and its network file. Returns (epoch, iter)."""
+        """Restore net_g, its EMA, the optimizers, the steps and net_d
+        from a `.state` file and its network files. Returns (epoch,
+        iter)."""
         blob = torch.load(state_path, map_location='cpu', weights_only=True)
         it = int(blob['iter'])
         g = torch.load(self._net_path('g', it), map_location=self.device,
@@ -175,6 +253,12 @@ class BaseTrainer:
             v.copy_(g['params_ema'][k])
         self.optimizer.load_state_dict(blob['optimizer_g'])
         self.step = int(blob['step'])
+        if self.net_d is not None:
+            d = torch.load(self._net_path('d', it), map_location=self.device,
+                           weights_only=True)
+            self.net_d.load_state_dict(d['params'])
+            self.optimizer_d.load_state_dict(blob['optimizer_d'])
+            self.step_d = int(blob['step_d'])
         return int(blob['epoch']), it
 
     def _load_pretrain(self, path_key: str):
@@ -188,9 +272,10 @@ class BaseTrainer:
 
     # ---------------------------------------------------------- data
     def feed_data(self, data: Dict) -> None:
-        """A loader batch as it comes (NHWC float32 arrays under 'in' and
-        'gt', lists of paths, optional 'latent_gt') -> device tensors,
-        images as NCHW in channels_last memory (a free permute of NHWC)."""
+        """A loader batch as it comes (NHWC float32 arrays under 'in',
+        'gt' and 'in_large_de', lists of paths, optional 'latent_gt') ->
+        device tensors, images as NCHW in channels_last memory (a free
+        permute of NHWC)."""
         batch = {}
         for k, v in data.items():
             if isinstance(v, list):
@@ -221,7 +306,8 @@ class BaseTrainer:
     def log_dict(self) -> Dict[str, float]:
         if self._log_cache is None:
             names = list(self._log_metrics)
-            vals = torch.stack([self._log_metrics[k].float().reshape(())
+            vals = torch.stack([torch.as_tensor(self._log_metrics[k])
+                                .float().reshape(())
                                 for k in names]).tolist() if names else []
             self._log_cache = dict(zip(names, vals))
         return self._log_cache
@@ -232,34 +318,192 @@ class BaseTrainer:
     def get_current_learning_rate(self):
         return [self.schedule_g(self.step)]
 
+    # ------------------------------------- GAN pieces (stages I, III)
+    def _setup_pixel(self) -> None:
+        """cri_pix from train: pixel_opt (sr_model.py:35-40)."""
+        pix = dict(self.train_opt.get('pixel_opt')
+                   or {'type': 'L1Loss', 'loss_weight': 1.0})
+        self.pixel_weight = pix.get('loss_weight', 1.0)
+        self.pixel_type = pix.get('type', 'L1Loss')
 
-@MODEL_REGISTRY.register()
-class CodeFormerIdxModel(BaseTrainer):
-    """Stage II: code-sequence prediction (codeformer_idx_model.py; JAX
-    trainers.py:889-1042): w = 0, code_only; L2 between the HQ codes'
-    features (net_g's own codebook) and lq_feat, plus cross-entropy on
-    the code indices; quantize and generator frozen."""
+    def _pixel_loss(self, out, gt):
+        loss = {'MSELoss': mse_loss, 'CharbonnierLoss': charbonnier_loss}.get(
+            self.pixel_type, l1_loss)
+        return loss(out, gt, loss_weight=self.pixel_weight)
 
-    KNOWN_TRAIN_KEYS = BaseTrainer.KNOWN_TRAIN_KEYS | {
-        'use_hq_feat_loss', 'feat_loss_weight', 'cross_entropy_loss',
-        'entropy_loss_weight', 'fidelity_weight'}
+    def _setup_gan(self) -> None:
+        """cri_gan from train: gan_opt, its type and generator-side
+        loss_weight (losses.py:285-387)."""
+        gan = dict(self.train_opt.get('gan_opt')
+                   or {'gan_type': 'hinge', 'loss_weight': 1.0})
+        self.gan_type = gan.get('gan_type', 'hinge')
+        self.gan_weight = float(gan.get('loss_weight', 1.0))
 
-    def _build(self):
+    def _gan_loss(self, pred, target_is_real: bool, is_disc: bool):
+        return gan_loss(pred, target_is_real, self.gan_type, is_disc=is_disc,
+                        loss_weight=self.gan_weight)
+
+    def _build_perceptual(self) -> None:
+        """cri_perceptual from train: perceptual_opt (None if absent), on
+        the device, its VGG in the compute dtype."""
+        self.cri_perceptual = None
+        if 'perceptual_opt' in self.train_opt:
+            from .perceptual import build_perceptual_loss
+            self.cri_perceptual = build_perceptual_loss(
+                self.train_opt['perceptual_opt'], dtype=self.compute_dtype
+            ).to(self.device)
+
+    def _build_discriminator(self, default: Dict) -> None:
+        """net_d (network_d, else `default`; pretrain_network_d if set),
+        the AdamW of optim_d and its schedule."""
+        self.net_d = init_params_fast(
+            build_network(self.opt.get('network_d') or default),
+            self._seed() + 2)
+        pre = self._load_pretrain('pretrain_network_d')
+        if pre is not None:
+            self.net_d.load_state_dict(pre)
+        self.net_d.to(self.device)
+        self.schedule_d = build_schedule(self.train_opt,
+                                         self.train_opt['optim_d']['lr'])
+        self.optimizer_d = build_optimizer(self.train_opt['optim_d'],
+                                           self.net_d.parameters())
+        self.net_d_start_iter = int(self.train_opt.get('net_d_start_iter',
+                                                       0))
+        self.net_d_iters = int(self.train_opt.get('net_d_iters', 1))
+        self.net_g_start_iter = int(self.train_opt.get('net_g_start_iter',
+                                                       0))
+
+    def _g_step_on(self, current_iter: int) -> bool:
+        """Whole-g-step gate (vqgan_model.py:135): current_iter %
+        net_d_iters == 0 and current_iter > net_g_start_iter."""
+        return (current_iter % self.net_d_iters == 0
+                and current_iter > self.net_g_start_iter)
+
+    def _g_gan_loss(self, out: torch.Tensor) -> torch.Tensor:
+        """The generator-side GAN loss of `out`: net_d in eval mode (its
+        running statistics, JAX train=False) and without parameter
+        gradients."""
+        self.net_d.eval().requires_grad_(False)
+        return self._gan_loss(self.net_d(out.to(self.compute_dtype)), True,
+                              is_disc=False)
+
+    def _adaptive_g_step(self, micro: List[Dict], forward, anchor, scale,
+                         gan_on: bool):
+        """The generator update of a GAN step (vqgan_model.py:85-96):
+        `forward(mb)` -> (main, l_gan, out, metrics) for one microbatch.
+        d_weight = |d main/d anchor| / (|d l_gan/d anchor| + 1e-4),
+        clipped to [0, 1], times `scale`; the update descends main +
+        d_weight * gan_on * l_gan. One microbatch: two anchor probes on
+        the retained graph and one backward. Several: the two gradients
+        of each microbatch, averaged, d_weight from the averaged anchor
+        gradients (JAX trainers.py:760-769). Returns (the detached
+        outputs, the averaged metrics with d_weight, l_g_gan = d_weight *
+        gan_on * l_gan and l_g_total = main + l_g_gan)."""
+        n = len(micro)
+        self.optimizer.zero_grad(set_to_none=True)
+        outs, metrics = [], {}
+
+        def add(m):
+            for k, v in m.items():
+                metrics[k] = metrics.get(k, 0.0) + v.detach() / n
+        if n == 1:
+            main, l_gan, out, m = forward(micro[0])
+            (g_main,) = torch.autograd.grad(main, anchor, retain_graph=True)
+            (g_gan,) = torch.autograd.grad(l_gan, anchor, retain_graph=True)
+            d_weight = self._d_weight(g_main, g_gan, scale)
+            (main + d_weight * l_gan if gan_on else main).backward()
+            outs.append(out.detach())
+            add(dict(m, _main=main, _l_gan=l_gan))
+        else:
+            params = self.params_g
+            acc_main = [torch.zeros_like(p) for p in params]
+            acc_gan = [torch.zeros_like(p) for p in params]
+            for mb in micro:
+                main, l_gan, out, m = forward(mb)
+                for acc, loss, keep in ((acc_main, main, True),
+                                        (acc_gan, l_gan, False)):
+                    grads = torch.autograd.grad(loss, params,
+                                                retain_graph=keep,
+                                                allow_unused=True)
+                    for a, g in zip(acc, grads):
+                        if g is not None:
+                            a.add_(g, alpha=1.0 / n)
+                outs.append(out.detach())
+                add(dict(m, _main=main, _l_gan=l_gan))
+            k = next(i for i, p in enumerate(params) if p is anchor)
+            d_weight = self._d_weight(acc_main[k], acc_gan[k], scale)
+            for p, a, g in zip(params, acc_main, acc_gan):
+                p.grad = a + d_weight * g if gan_on else a
+        self._step_g()
+        main, l_gan = metrics.pop('_main'), metrics.pop('_l_gan')
+        l_g_gan = d_weight * l_gan if gan_on else torch.zeros_like(l_gan)
+        metrics.update(d_weight=d_weight, l_g_gan=l_g_gan,
+                       l_g_total=main + l_g_gan)
+        return outs, metrics
+
+    @staticmethod
+    def _d_weight(g_main, g_gan, scale) -> torch.Tensor:
+        d_weight = _l2norm(g_main) / (_l2norm(g_gan) + 1e-4)
+        return d_weight.clamp(0.0, 1.0).detach() * scale
+
+    def _d_step(self, reals: List[torch.Tensor], fakes: List[torch.Tensor],
+                current_iter: int) -> Dict[str, torch.Tensor]:
+        """The discriminator step (vqgan_model.py:167-184): per
+        microbatch, net_d in train mode on the real images, then on the
+        detached fakes (the BatchNorm statistics chain through both and
+        across microbatches), hinge losses, gradients averaged. Past
+        net_d_start_iter one optimizer_d update; before it the losses are
+        only computed and logged, and the running statistics are put back
+        as they were. Returns the averaged d metrics."""
+        gan_on = current_iter > self.net_d_start_iter
+        net_d = self.net_d.train().requires_grad_(True)
+        kept = None if gan_on else [b.clone() for b in net_d.buffers()]
+        self.optimizer_d.zero_grad(set_to_none=True)
+        n = len(reals)
+        metrics: Dict[str, torch.Tensor] = {}
+        with torch.set_grad_enabled(gan_on):
+            for real, fake in zip(reals, fakes):
+                real_pred = net_d(real.to(self.compute_dtype))
+                fake_pred = net_d(fake.to(self.compute_dtype))
+                l_real = self._gan_loss(real_pred, True, is_disc=True)
+                l_fake = self._gan_loss(fake_pred, False, is_disc=True)
+                if gan_on:
+                    ((l_real + l_fake) / n).backward()
+                for k, v in (('l_d_real', l_real), ('l_d_fake', l_fake),
+                             ('out_d_real', real_pred.float().mean()),
+                             ('out_d_fake', fake_pred.float().mean())):
+                    metrics[k] = metrics.get(k, 0.0) + v.detach() / n
+        if gan_on:
+            lr = self.schedule_d(self.step_d)
+            for group in self.optimizer_d.param_groups:
+                group['lr'] = lr
+            self.optimizer_d.step()
+            self.step_d += 1
+        else:
+            with torch.no_grad():
+                for b, v in zip(net_d.buffers(), kept):
+                    b.copy_(v)
+        return metrics
+
+
+class _CodeFormerTrainer(BaseTrainer):
+    """What stages II and III share: CodeFormer as net_g with its
+    pretrained VQGAN parts, the frozen HQ VQGAN that encodes the ground
+    truth, `idx_gt` through K3, and the code losses."""
+
+    def _build_codeformer(self) -> None:
         opt = self.opt
         net_opt = dict(opt['network_g'])
         self.fix_modules = tuple(net_opt.pop('fix_modules',
                                              ('quantize', 'generator')))
         vqgan_path = net_opt.pop('vqgan_path', None)
-        seed = int(opt.get('manual_seed') or 0)
+        seed = self._seed()
         self.net_g = init_params_fast(build_network(net_opt), seed)
 
         self.hq_feat_loss = self.train_opt.get('use_hq_feat_loss', True)
         self.feat_loss_weight = self.train_opt.get('feat_loss_weight', 1.0)
         self.use_ce = self.train_opt.get('cross_entropy_loss', True)
         self.ce_weight = self.train_opt.get('entropy_loss_weight', 0.5)
-        if not (self.hq_feat_loss or self.use_ce):
-            raise ValueError('stage II needs use_hq_feat_loss or '
-                             'cross_entropy_loss')
 
         vq_sd = None
         if vqgan_path:
@@ -301,17 +545,8 @@ class CodeFormerIdxModel(BaseTrainer):
                 + ('K1/K2 kernels (bf16, no_grad)' if hq_kernels else
                    'textbook blocks (fp32: the K1/K2 kernels take bf16)')
                 + '; idx_gt through K3 (nearest_code_indices)')
-        self.net_g.to(self.device)
-        set_kernels(self.net_g, False)
-        logger.info('net_g: textbook blocks (autograd records every conv; '
-                    'K1/K2 are forward-only)')
-        self.frozen = freeze_modules(self.net_g, self.fix_modules)
-        self.schedule_g = build_schedule(self.train_opt,
-                                         self.train_opt['optim_g']['lr'])
-        self.optimizer = build_optimizer(
-            self.train_opt['optim_g'],
-            [p for p in self.net_g.parameters() if p.requires_grad])
-        self.reset_ema()
+        self.code_losses_on = True
+        self._finish_g(self.fix_modules)
 
     def _idx_gt(self, mb: Dict) -> torch.Tensor:
         """(b, h*w) target codes: the batch's latent_gt if present, else
@@ -327,14 +562,16 @@ class CodeFormerIdxModel(BaseTrainer):
                                       self.hq_vqgan.quantize.embedding.weight)
         return idx.reshape(b, -1)
 
-    def _losses(self, mb: Dict, idx_gt: torch.Tensor):
-        logits, lq_feat = self.net_g(mb['in'].to(self.compute_dtype), 0.0,
-                                     code_only=True)
-        b, d, h, w = lq_feat.shape
+    def _code_losses(self, logits, lq_feat, idx_gt):
+        """The latent-feature L2 against net_g's own codebook at idx_gt
+        (JAX trainers.py:991) and the token cross-entropy; (0, {}) when
+        the code losses are off."""
         total = 0.0
         metrics = {}
+        if not self.code_losses_on:
+            return total, metrics
+        b, d, h, w = lq_feat.shape
         if self.hq_feat_loss:
-            # net_g's own codebook (JAX trainers.py:991), not the HQ VQGAN's
             quant_gt = vq.codebook_lookup(
                 idx_gt.reshape(-1), self.net_g.quantize.embedding.weight,
                 torch.float32).reshape(b, h, w, d)
@@ -347,10 +584,11 @@ class CodeFormerIdxModel(BaseTrainer):
                                       loss_weight=self.ce_weight)
             total = total + l_ce
             metrics['cross_entropy_loss'] = l_ce
-        metrics['l_g_total'] = total
         return total, metrics
 
-    def optimize_parameters(self, current_iter: int) -> None:
+    def _code_step(self, input_key: str) -> Dict[str, torch.Tensor]:
+        """A code-only update (w = 0, code_only forward on
+        batch[input_key]): the code losses, one optimizer_g step."""
         micro = self._microbatches()
         n = len(micro)
         self.optimizer.zero_grad(set_to_none=True)
@@ -358,14 +596,250 @@ class CodeFormerIdxModel(BaseTrainer):
         for mb in micro:
             with torch.no_grad():
                 idx_gt = self._idx_gt(mb)
-            total, m = self._losses(mb, idx_gt)
-            (total / n).backward()
+            logits, lq_feat = self.net_g(mb[input_key].to(self.compute_dtype),
+                                         0.0, code_only=True)
+            total, m = self._code_losses(logits, lq_feat, idx_gt)
+            if torch.is_tensor(total):
+                (total / n).backward()
+            else:                 # code losses off: a zero-gradient step
+                total = torch.zeros((), device=self.device)
+            m['l_g_total'] = total
             for k, v in m.items():
                 metrics[k] = metrics.get(k, 0.0) + v.detach() / n
-        lr = self.schedule_g(self.step)
-        for group in self.optimizer.param_groups:
-            group['lr'] = lr
-        self.optimizer.step()
-        ema_update(self.params_ema, self.net_g.state_dict(), self.ema_decay)
-        self.step += 1
+        self._step_g()
+        return metrics
+
+
+@MODEL_REGISTRY.register()
+class CodeFormerIdxModel(_CodeFormerTrainer):
+    """Stage II: code-sequence prediction (codeformer_idx_model.py; JAX
+    trainers.py:889-1042): w = 0, code_only; L2 between the HQ codes'
+    features (net_g's own codebook) and lq_feat, plus cross-entropy on
+    the code indices; quantize and generator frozen."""
+
+    KNOWN_TRAIN_KEYS = BaseTrainer.KNOWN_TRAIN_KEYS | {
+        'use_hq_feat_loss', 'feat_loss_weight', 'cross_entropy_loss',
+        'entropy_loss_weight', 'fidelity_weight'}
+
+    def _build(self):
+        self._build_codeformer()
+        if not (self.hq_feat_loss or self.use_ce):
+            raise ValueError('stage II needs use_hq_feat_loss or '
+                             'cross_entropy_loss')
+
+    def optimize_parameters(self, current_iter: int) -> None:
+        metrics = self._code_step('in')
+        self._ema()
+        self._set_log(metrics)
+
+
+@MODEL_REGISTRY.register()
+class VQGANModel(BaseTrainer):
+    """Stage I: VQGAN GAN training (vqgan_model.py; JAX trainers.py:
+    614-887). g-step: pixel + perceptual + codebook loss plus the
+    adaptive-weighted GAN loss, gated by net_d_iters/net_g_start_iter;
+    d-step: real/fake hinge, stepping past net_d_start_iter; EMA always.
+    The Gumbel quantizer anneals its temperature as max(1/16, 1 -
+    iter/160000) and draws its noise from a generator seeded with
+    (manual_seed, current_iter)."""
+
+    KNOWN_TRAIN_KEYS = BaseTrainer.KNOWN_TRAIN_KEYS | {
+        'pixel_opt', 'perceptual_opt', 'gan_opt', 'codebook_loss_weight',
+        'disc_weight', 'net_d_iters', 'net_d_start_iter',
+        'net_g_start_iter'}
+
+    def _build(self):
+        seed = self._seed()
+        self.net_g = init_params_fast(build_network(self.opt['network_g']),
+                                      seed)
+        pre = self._load_pretrain('pretrain_network_g')
+        if pre is not None:
+            self.net_g.load_state_dict(pre)
+        self.gumbel = self.opt['network_g'].get('quantizer') == 'gumbel'
+        self.l_weight_codebook = self.train_opt.get('codebook_loss_weight',
+                                                    1.0)
+        self.disc_weight = self.train_opt.get('disc_weight', 0.8)
+        self._setup_pixel()
+        self._setup_gan()
+        self._build_perceptual()
+        self._build_discriminator({'type': 'VQGANDiscriminator', 'nc': 3,
+                                   'ndf': 64})
+        self._finish_g()
+        # the adaptive weight's anchor: the generator's last conv
+        # (vqgan_model.py:155, generator.blocks[-1].weight)
+        self.anchor = self.net_g.generator.blocks[-1].weight
+
+    def _g_forward(self, gt: torch.Tensor, current_iter: int):
+        """One generator forward (the VQ round trip): (out, codebook loss,
+        perplexity)."""
+        x = gt.to(self.compute_dtype)
+        if not self.gumbel:
+            out, l_codebook, stats = self.net_g(x)
+            return out, l_codebook, stats['perplexity']
+        gen = torch.Generator(device=self.device).manual_seed(
+            (self._seed() << 32) + current_iter)
+        out, l_codebook, _ = self.net_g(
+            x, temperature=max(1.0 / 16, 1.0 - current_iter / 160000),
+            generator=gen)
+        return out, l_codebook, torch.zeros((), device=self.device)
+
+    def optimize_parameters(self, current_iter: int) -> None:
+        if not self._g_step_on(current_iter):
+            # the reference skips the whole g block: no g losses, no
+            # backward, no optimizer_g step; the forward still feeds the
+            # d step (over the whole batch, as JAX's d-only step), and
+            # the EMA runs (vqgan_model.py:135-190)
+            gt = self.batch['gt']
+            with torch.no_grad():
+                out = self._g_forward(gt, current_iter)[0]
+            metrics = self._d_step([gt], [out], current_iter)
+            self._ema()
+            self._set_log(metrics)
+            return
+        micro = self._microbatches()
+
+        def forward(mb):
+            gt = mb['gt']
+            out, l_codebook, perplexity = self._g_forward(gt, current_iter)
+            l_codebook = l_codebook * self.l_weight_codebook
+            l_pix = self._pixel_loss(out, gt)
+            m = {'l_g_pix': l_pix, 'l_codebook': l_codebook,
+                 'perplexity': perplexity}
+            recon = l_pix
+            if self.cri_perceptual is not None:
+                l_percep = self.cri_perceptual(out, gt)
+                recon = recon + l_percep
+                m['l_g_percep'] = l_percep
+            return recon + l_codebook, self._g_gan_loss(out), out, m
+
+        outs, metrics = self._adaptive_g_step(
+            micro, forward, self.anchor, self.disc_weight,
+            current_iter > self.net_d_start_iter)
+        metrics.update(self._d_step([mb['gt'] for mb in micro], outs,
+                                    current_iter))
+        self._ema()
+        self._set_log(metrics)
+
+
+@MODEL_REGISTRY.register()
+class CodeFormerJointModel(_CodeFormerTrainer):
+    """Stage III, the shipped config (codeformer_joint_model.py; JAX
+    trainers.py:1046-1514): the joint schedule alternates the small and
+    the large degradation (`_phase`). A small-degradation iteration takes
+    the full step (code losses, image losses and the adaptive GAN term
+    through the SFT fusion, then the d step); a large-degradation one the
+    code step (code losses on `in_large_de`, no image loss, no d step).
+    net_d_iters/net_g_start_iter gate the generator update: a gated
+    small iteration runs the forward and the d step only, a gated large
+    one the EMA only. The adaptive weight's anchor is the largest fuse
+    block's last shift conv when the generator is frozen, else the
+    generator's last conv."""
+
+    KNOWN_TRAIN_KEYS = BaseTrainer.KNOWN_TRAIN_KEYS | {
+        'use_hq_feat_loss', 'feat_loss_weight', 'cross_entropy_loss',
+        'entropy_loss_weight', 'scale_adaptive_gan_weight', 'pixel_opt',
+        'perceptual_opt', 'gan_opt', 'net_d_iters', 'net_d_start_iter',
+        'net_g_start_iter', 'fidelity_weight'}
+
+    def _build(self):
+        self._build_codeformer()
+        # the reference gates the code losses off when the transformer
+        # itself is frozen (codeformer_joint_model.py:181)
+        self.code_losses_on = 'transformer' not in self.fix_modules
+        self.scale_adaptive_gan_weight = self.train_opt.get(
+            'scale_adaptive_gan_weight', 0.8)
+        self._setup_pixel()
+        self._setup_gan()
+        self._build_perceptual()
+        self._build_discriminator({'type': 'VQGANDiscriminator'})
+        net = self.net_g
+        if 'generator' in self.fix_modules:
+            largest = str(max(int(s) for s in net.connect_list))
+            self.anchor = net.fuse_convs_dict[largest].shift[-1].weight
+        else:
+            self.anchor = net.generator.blocks[-1].weight
+
+    @staticmethod
+    def _phase(current_iter: int):
+        """(w, small_per_n) schedule (codeformer_joint_model.py:153-164)."""
+        if current_iter <= 40000:
+            return 1.0, 1
+        if current_iter <= 80000:
+            return 1.3, 1
+        if current_iter <= 120000:
+            return 0.0, 120000
+        return 1.3, 15
+
+    def _full_step(self, w: float, current_iter: int):
+        """Code losses + image losses + the adaptive GAN term, one
+        optimizer_g update, then the d step."""
+        micro = self._microbatches()
+
+        def forward(mb):
+            with torch.no_grad():
+                idx_gt = self._idx_gt(mb)
+            out, logits, lq_feat = self.net_g(mb['in'].to(self.compute_dtype),
+                                              w, detach_16=True)
+            code_total, m = self._code_losses(logits, lq_feat, idx_gt)
+            l_pix = self._pixel_loss(out, mb['gt'])
+            m['l_g_pix'] = l_pix
+            recon = l_pix
+            if self.cri_perceptual is not None:
+                l_percep = self.cri_perceptual(out, mb['gt'])
+                recon = recon + l_percep
+                m['l_g_percep'] = l_percep
+            return code_total + recon, self._g_gan_loss(out), out, m
+
+        outs, metrics = self._adaptive_g_step(
+            micro, forward, self.anchor, self.scale_adaptive_gan_weight,
+            current_iter > self.net_d_start_iter)
+        metrics.update(self._d_step([mb['gt'] for mb in micro], outs,
+                                    current_iter))
+        return metrics
+
+    def _d_only_step(self, w: float, current_iter: int):
+        """A gated small-degradation iteration: the forward feeds the d
+        step, over the whole batch as in JAX; no generator update
+        (codeformer_joint_model.py:179, 227-250)."""
+        with torch.no_grad():
+            out = self.net_g(self.batch['in'].to(self.compute_dtype), w,
+                             detach_16=True)[0]
+        return self._d_step([self.batch['gt']], [out], current_iter)
+
+    def optimize_parameters(self, current_iter: int) -> None:
+        w, small_per_n = self._phase(current_iter)
+        g_on = self._g_step_on(current_iter)
+        if current_iter % small_per_n == 0:
+            metrics = (self._full_step(w, current_iter) if g_on
+                       else self._d_only_step(w, current_iter))
+        else:
+            # large degradation: the code step, or (gated) the EMA only
+            metrics = self._code_step('in_large_de') if g_on else {}
+        self._ema()
+        self._set_log(metrics)
+
+
+@MODEL_REGISTRY.register()
+class CodeFormerModel(CodeFormerJointModel):
+    """Stage III, the single-degradation variant of the inpainting config
+    (codeformer_model.py; JAX trainers.py:1517-1553): the joint model's
+    steps at a fixed `fidelity_weight` on 'in', the code losses always
+    on. fidelity_weight <= 0 takes the code step on 'in' (no image
+    losses, no d step)."""
+
+    def _build(self):
+        super()._build()
+        self.code_losses_on = True
+        self.fidelity_weight = float(self.train_opt.get('fidelity_weight',
+                                                        1.0))
+
+    def optimize_parameters(self, current_iter: int) -> None:
+        g_on = self._g_step_on(current_iter)
+        if self.fidelity_weight <= 0:
+            metrics = self._code_step('in') if g_on else {}
+        elif g_on:
+            metrics = self._full_step(self.fidelity_weight, current_iter)
+        else:
+            metrics = self._d_only_step(self.fidelity_weight, current_iter)
+        self._ema()
         self._set_log(metrics)

@@ -15,7 +15,8 @@ the target key that reads the same with '.' taken for '_', and adds the
 BatchNorm `num_batches_tracked` counters flax does not keep. The
 port's modules use the reference `.pth` names, so the result loads with
 `load_state_dict` and a released `.pth` needs no conversion at all.
-`load_flax_trainer` carries a JAX trainer's weights into a port trainer.
+`load_flax_trainer` carries a JAX trainer's weights (generator, frozen
+VQGAN, discriminator with its BatchNorm statistics) into a port trainer.
 """
 from __future__ import annotations
 
@@ -104,15 +105,24 @@ def flax_to_state_dict(variables: Mapping[str, Any],
 
 
 def load_flax_trainer(trainer, params_g: Mapping[str, Any],
-                      vqgan_params: Mapping[str, Any] | None = None) -> None:
-    """A JAX trainer's `params_g` (and `vqgan_params`, the frozen HQ
-    VQGAN's) -> the port trainer's `net_g` (and `hq_vqgan`), strictly, on
-    the trainer's device; the EMA restarts from the loaded params, as JAX
-    starts params_g_ema from params_g."""
+                      vqgan_params: Mapping[str, Any] | None = None,
+                      params_d: Mapping[str, Any] | None = None,
+                      d_stats: Mapping[str, Any] | None = None) -> None:
+    """A JAX trainer's state -> the port trainer, strictly, on the
+    trainer's device: `params_g` into `net_g`, `vqgan_params` (the frozen
+    HQ VQGAN's) into `hq_vqgan`, and `params_d` with its BatchNorm
+    `d_stats` into `net_d` (running mean and variance;
+    `num_batches_tracked`, which flax does not keep, starts at 0). The
+    EMA restarts from the loaded params, as JAX starts params_g_ema from
+    params_g."""
     trainer.net_g.load_state_dict(flax_to_state_dict({'params': params_g}))
     if vqgan_params is not None:
         trainer.hq_vqgan.load_state_dict(
             flax_to_state_dict({'params': vqgan_params}))
+    if params_d is not None:
+        trainer.net_d.load_state_dict(flax_to_state_dict(
+            {'params': params_d, 'batch_stats': d_stats or {}},
+            like=trainer.net_d.state_dict()))
     trainer.reset_ema()
 
 

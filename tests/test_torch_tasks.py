@@ -140,9 +140,20 @@ def test_vq_autoencoder_forward_matches_jax():
 
 
 def test_vq_autoencoder_refuses_gumbel():
-    with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1'):
-        VQAutoEncoder(img_size=64, nf=32, ch_mult=(1, 2, 4),
-                      quantizer='gumbel')
+    """The Gumbel quantizer, refused until stage I was ported, now builds
+    with the reference's names (quantize.proj, quantize.embed) and runs
+    the eval forward (tests/test_torch_gan.py holds it against JAX)."""
+    from codeformer_tpu_torch.models.vqgan import GumbelQuantizer
+    m = VQAutoEncoder(img_size=64, nf=32, ch_mult=(1, 2, 4),
+                      codebook_size=32, emb_dim=16,
+                      quantizer='gumbel').eval()
+    assert isinstance(m.quantize, GumbelQuantizer)
+    assert {'quantize.proj.weight', 'quantize.proj.bias',
+            'quantize.embed.weight'} <= set(m.state_dict())
+    with torch.no_grad():
+        out, loss, stats = m(torch.zeros(1, 3, 64, 64))
+    assert out.shape == (1, 3, 64, 64) and torch.isfinite(loss)
+    assert stats['min_encoding_indices'].shape == (1, 16, 16)
 
 
 # ---------------------------------------------------------------------------

@@ -190,6 +190,22 @@ def test_stage2_three_steps_match_jax(stage2_runs):
     assert _rel(flat(pp), flat(r['p0'])) > 10 * PARAM_RTOL
 
 
+def test_stage2_unreached_trainables_step_as_optax(stage2_runs):
+    """The SFT blocks are trainable but the code_only path never reaches
+    them. optax still updates the whole trainable tree, so their weight
+    decay moves them (1e-4 x 0.01 a step); the port gives them a zero
+    gradient rather than skipping them, and they track JAX's."""
+    r = stage2_runs
+    fuse = sorted(k for k in r['p3'] if k.startswith('fuse_convs_dict')
+                  and k.endswith('weight'))
+    assert fuse
+
+    def flat(sd):
+        return torch.cat([sd[k].reshape(-1) for k in fuse])
+    assert _rel(flat(r['p3']), flat(r['params_j'])) <= 5e-7
+    assert _rel(flat(r['p3']), flat(r['p0'])) > 2e-6
+
+
 def test_stage2_frozen_modules_do_not_move(stage2_runs):
     r = stage2_runs
     pm = r['port']
@@ -294,21 +310,41 @@ def test_bf16_step_takes_kernels_in_the_frozen_encode_only(tmp_path):
         assert state['exp_avg'].dtype == torch.float32
 
 
+TINY_D = {'type': 'VQGANDiscriminator', 'nc': 3, 'ndf': 8, 'n_layers': 2}
+STAGE1 = {'model_type': 'VQGANModel', 'network_g': dict(TINY_VQGAN),
+          'network_d': TINY_D}
+
+
 @pytest.mark.parametrize('change,match', [
-    ({'train': {'remat': True}}, 'remat'),
-    ({'datasets': {'val': {'name': 'v'}}}, 'validation'),
-    ({'model_type': 'VQGANModel'}, 'VQGANModel'),
-    ({'network_vqgan': dict(TINY_VQGAN, quantizer='gumbel')}, 'gumbel'),
+    pytest.param({'train': {'remat': True}}, 'remat.*item 4.3',
+                 id='change0-remat'),
+    pytest.param({'datasets': {'val': {'name': 'v'}}},
+                 'validation.*item 4.4', id='change1-validation'),
+    pytest.param(STAGE1, None, id='change2-VQGANModel'),
+    pytest.param(dict(STAGE1, network_g=dict(TINY_VQGAN, quantizer='gumbel')),
+                 None, id='change3-gumbel'),
 ])
 def test_unported_options_raise(tmp_path, change, match):
+    """remat and validation datasets still raise, naming their ROADMAP
+    items. Stage I (VQGANModel) and the Gumbel quantizer raised here
+    until they were ported: they now build and take a step."""
     opt = _opt(tmp_path)
     for k, v in change.items():
         if k == 'train':
             opt['train'].update(v)
         else:
             opt[k] = v
-    with pytest.raises(NotImplementedError, match=match):
-        _port(opt)
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            _port(opt)
+        return
+    opt['train']['optim_d'] = dict(opt['train']['optim_g'])
+    pm = _port(opt)
+    assert type(pm).__name__ == 'VQGANModel'
+    assert pm.gumbel == (change['network_g']['quantizer'] == 'gumbel')
+    pm.feed_data({'gt': _batch(9)['gt']})
+    pm.optimize_parameters(1)
+    assert np.isfinite(pm.log_dict['l_g_total']) and pm.step == 1
 
 
 def test_mixed_precision_rejects_unknown_value(tmp_path):
@@ -385,6 +421,117 @@ def _tiny_yml(tmp_path, device='cpu'):
     yml = tmp_path / 'tiny.yml'
     yml.write_text(yaml.safe_dump(opt))
     return yml
+
+
+def _stage_yml(tmp_path, stage):
+    """The tiny yml of _tiny_yml turned into a stage-I (VQGANModel, clean
+    images, LPIPS on seeded VGG16/lin files under tmp_path) or stage-III
+    (CodeFormerJointModel, the joint dataset) config."""
+    import yaml
+    from test_torch_stage1 import _write_vgg
+    yml = _tiny_yml(tmp_path)
+    opt = yaml.safe_load(yml.read_text())
+    ds = opt['datasets']['train']
+    t = opt['train']
+    t['optim_d'] = dict(t['optim_g'])
+    t.update(pixel_opt={'type': 'L1Loss', 'loss_weight': 1.0},
+             gan_opt={'type': 'GANLoss', 'gan_type': 'hinge',
+                      'loss_weight': 1.0},
+             net_g_start_iter=0, net_d_iters=1, net_d_start_iter=1)
+    opt['network_d'] = dict(TINY_D)
+    if stage == 1:
+        opt.update(name='port_stage1_tiny', model_type='VQGANModel',
+                   network_g=dict(TINY_VQGAN))
+        del opt['network_vqgan']
+        ds['use_corrupt'] = False
+        _write_vgg(tmp_path)
+        t['perceptual_opt'] = {'type': 'LPIPSLoss', 'loss_weight': 1.0,
+                               'use_input_norm': True, 'range_norm': True}
+    else:
+        opt.update(name='port_stage3_tiny',
+                   model_type='CodeFormerJointModel')
+        ds.update(type='FFHQBlindJointDataset', blur_sigma_large=[1, 15],
+                  downsample_range_large=[4, 16], noise_range_large=[0, 20],
+                  jpeg_range_large=[30, 80])
+        t.update(use_hq_feat_loss=True, cross_entropy_loss=True,
+                 entropy_loss_weight=0.5, scale_adaptive_gan_weight=0.1)
+    yml.write_text(yaml.safe_dump(opt))
+    return yml
+
+
+@pytest.mark.parametrize('stage', [1, 3])
+def test_train_pipeline_gan_stages_two_iterations(tmp_path, monkeypatch,
+                                                  stage):
+    """python -m codeformer_tpu_torch.train.train -opt <tiny stage-I or
+    stage-III yml>, in process: the port's datasets feed VQGANModel or
+    CodeFormerJointModel for 2 iterations (the first before
+    net_d_start_iter); net_g, net_d and the states are written."""
+    from codeformer_tpu_torch.train.train import train_pipeline
+    monkeypatch.chdir(tmp_path)          # LPIPS reads weights/vgg/ here
+    yml = _stage_yml(tmp_path, stage)
+    model = train_pipeline(str(tmp_path), ['-opt', str(yml)])
+    assert type(model).__name__ == ('VQGANModel' if stage == 1
+                                    else 'CodeFormerJointModel')
+    assert (model.step, model.step_d) == (2, 1)
+    assert 'd_weight' in model.log_dict
+    assert all(np.isfinite(v) for v in model.log_dict.values())
+    exp = tmp_path / 'experiments' / f'port_stage{stage}_tiny'
+    for f in ('models/net_g_2.pth', 'models/net_d_2.pth',
+              'models/net_d_latest.pth', 'training_states/2.state'):
+        assert (exp / f).exists(), f
+
+
+@pytest.mark.parametrize('yml,model_type', [
+    ('VQGAN_512_ds32_nearest_stage1.yml', 'VQGANModel'),
+    ('CodeFormer_stage3.yml', 'CodeFormerJointModel'),
+    ('CodeFormer_inpainting.yml', 'CodeFormerModel'),
+])
+def test_build_model_takes_the_shipped_gan_ymls(tmp_path, monkeypatch, yml,
+                                                model_type):
+    """The shipped stage-I, stage-III and inpainting ymls, parsed by the
+    port's options parser, build their trainers with every train: key
+    read (none IGNORED). Widths are cut to the tiny configs here, the
+    pretrained paths (files not in the repository) cleared, and LPIPS
+    reads seeded VGG16/lin files."""
+    from test_torch_stage1 import _write_vgg
+
+    from codeformer_tpu_torch.utils.options import parse
+    root = osp.dirname(osp.dirname(osp.abspath(__file__)))
+    opt = parse(osp.join(root, 'options', yml), str(tmp_path),
+                is_train=True)
+    assert opt['model_type'] == model_type
+    _write_vgg(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    opt['device'] = 'cpu'
+    opt['path'] = {k: None for k in opt['path']} | {
+        'models': str(tmp_path / 'models'),
+        'training_states': str(tmp_path / 'states')}
+    if model_type == 'VQGANModel':
+        opt['network_g'] = dict(opt['network_g'], img_size=64, nf=32,
+                                ch_mult=[1, 2, 4], codebook_size=32,
+                                emb_dim=16)
+    else:
+        opt['network_g'] = dict(TINY_CF, codebook_size=opt['network_g'][
+            'codebook_size'], connect_list=['32', '64'])
+        opt['network_vqgan'] = dict(TINY_VQGAN, codebook_size=opt[
+            'network_vqgan']['codebook_size'])
+        opt['datasets']['train']['in_size'] = 64
+    opt['network_d'] = dict(opt['network_d'], ndf=8, n_layers=2)
+    records = []
+
+    class _Catch(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+    handler = _Catch(level=logging.WARNING)
+    logging.getLogger('codeformer_tpu_torch').addHandler(handler)
+    try:
+        pm = _port(opt)
+    finally:
+        logging.getLogger('codeformer_tpu_torch').removeHandler(handler)
+    assert type(pm).__name__ == model_type
+    assert not any('IGNORED' in m for m in records), records
+    assert pm.cri_perceptual is not None and not pm.cri_perceptual.degraded
+    assert pm.compute_dtype == torch.float32 and pm.device.type == 'cpu'
 
 
 def test_train_pipeline_two_iterations(tmp_path):
