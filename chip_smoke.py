@@ -107,7 +107,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      frozen HQ encode only), frozen modules unchanged, idx_gt against the
      plain-op encode (and a planted fault), faces/s of the full and code
      steps, peak memory; then one CodeFormerModel step of
-     options/CodeFormer_inpainting.yml.
+     options/CodeFormer_inpainting.yml;
+  6d. validation and the prefetcher, on the stage-II trainer of 6:
+     BaseTrainer.validation over 4 seeded 512^2 pairs (SFT tamed, EMA
+     weights), PSNR/SSIM computed on the card and held to the host copy
+     of each image pair; the stage-II rate fed by a host thread of numpy
+     batches directly and through DevicePrefetcher (batches equal);
+  7a. remat: stage I (B=4) and stage III's full step (B=3) built with and
+     without `remat: true`, launches a step unchanged, faces/s and peak
+     memory; an fp32 128^2 stage-I step with and without remat, the
+     gradients within 1e-6;
+  7b. generate_latent_gt's core at full width: 16 seeded faces and their
+     flips at batch 8 (T = 2048), fp32 and bf16, K3 picks against the
+     plain search, bf16 against fp32, images/s, exact launches;
+  7c. data parallelism at world size 1 over NCCL (init_dist as
+     `--launcher pytorch` starts it): a stage-II and a stage-I step past
+     the gate against the plain trainer's steps (gradients, d_weight,
+     BatchNorm statistics within 1e-6; launches equal);
+  7d. SRModel (RRDBNet at x2plus width, fp32, B=4): 3 steps, a falling
+     loss, ms a step; 7e. ResNetArcFace (B=8, fp32) card vs host, ms.
 Every time is per launch: runs of back-to-back launches between two
 CUDA events (`time_ms`), the median run. The last line is the JSON
 result; the line before it lists the kernels, each with its launches on
@@ -2226,6 +2244,523 @@ def phase_stage3():
     return counts
 
 
+# ---------------------------------------------------------------------
+# the training framework's outer ring: remat, generate_latent_gt,
+# validation, the device prefetcher, data parallelism over NCCL, SRModel
+# and ResNetArcFace
+STAGE3_FULL_ITER = STAGE3_ITERS[2]
+# remat against no remat in an fp32 step on the card: the recompute runs
+# the same kernels on the same inputs (cuDNN deterministic), so the
+# gradients agree to rounding at most
+REMAT_GRAD_RTOL = 1e-6
+
+
+def remat_options(opt: dict, remat: bool) -> dict:
+    opt = dict(opt, train=dict(opt['train'], remat=remat))
+    return opt
+
+
+def remat_rate(make, batch: dict, it: int, want: dict, label: str):
+    """Build a trainer with `make()`, one counted step at `it` on `batch`
+    (launches must equal `want`), then faces/s (gan_rate) and the peak
+    memory of the steps. Returns (faces/s, peak GiB, launches)."""
+    with vgg_standins():
+        trainer = make()
+    if hasattr(trainer.net_g, 'fuse_convs_dict'):
+        with torch.no_grad():
+            tame_sft(trainer.net_g)
+        trainer.reset_ema()
+    trainer.feed_data(batch)
+    n_faces = batch['gt'].shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    got = counted_step(trainer, it)
+    if got != want:
+        raise SystemExit(f'chip_smoke: {label} launched {got}, expected '
+                         f'{want}')
+    rate = gan_rate(trainer, it, n_faces)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log = trainer.log_dict
+    if not all(np.isfinite(v) for v in log.values()):
+        raise SystemExit(f'chip_smoke: {label} log {log}')
+    del trainer
+    torch.cuda.empty_cache()
+    return rate, peak, got
+
+
+def remat_fp32_check():
+    """One fp32 stage-I step at 128^2 (nf 32) on the card with and without
+    remat from the same seeded weights and batch: the gradients of net_g
+    and net_d within REMAT_GRAD_RTOL, the losses equal."""
+    from codeformer_tpu_torch.train.trainers import build_model
+    gt = stage2_batch(np.random.default_rng(8), 2, size=128)['gt']
+    runs = {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (False, True):
+            with vgg_standins():
+                trainer = build_model(remat_options(
+                    small_stage1_options('cuda'), remat))
+            trainer.feed_data({'gt': gt})
+            trainer.optimize_parameters(STAGE1_ITERS[-1])
+            grads = torch.cat([p.grad.detach().float().reshape(-1)
+                               for net in (trainer.net_g, trainer.net_d)
+                               for p in net.parameters()
+                               if p.grad is not None])
+            runs[remat] = (dict(trainer.log_dict), grads)
+            del trainer
+    finally:
+        torch.backends.cudnn.deterministic = det
+    (log0, g0), (log1, g1) = runs[False], runs[True]
+    err = rel_rms(g1, g0) if g1.shape == g0.shape else float('inf')
+    loss_err = max(abs(log1[k] - log0[k]) / max(abs(log0[k]), 1e-30)
+                   for k in log0)
+    print(f'  fp32 stage-I step at 128^2, remat vs none on the card: '
+          f'gradients rel RMS {err:.2e} (<= {REMAT_GRAD_RTOL}), losses max '
+          f'rel {loss_err:.2e}, bit-equal gradients: '
+          f'{bool(torch.equal(g0, g1))}', flush=True)
+    if err > REMAT_GRAD_RTOL or loss_err > REMAT_GRAD_RTOL:
+        raise SystemExit('chip_smoke: remat changes the stage-I step')
+
+
+def phase_remat():
+    """`train: remat: true` at full width, bf16: stage I at B=4 (iteration
+    30004, past the gate) and stage III's full step at B=3, each built
+    with and without remat: launches a step unchanged (K3 1 in stage I;
+    K1 28, K2 5, K3 1 in stage III), training faces/s and peak memory;
+    then the fp32 gradient check. Returns the launch counts of the remat
+    steps."""
+    from codeformer_tpu_torch.train.trainers import build_model
+    counts = {k: 0 for k in ENCODE_LAUNCHES}
+    rng = np.random.default_rng(12)
+    cases = (('stage I', stage1_options, STAGE1_ITERS[-1],
+              {'gt': stage2_batch(rng, TRAIN_BATCH)['gt']},
+              dict(NO_LAUNCHES, nearest_code=1)),
+             ('stage III full step', stage3_options, STAGE3_FULL_ITER,
+              stage3_batch(rng, STAGE3_BATCH), ENCODE_LAUNCHES))
+    print('remat (train: remat: true), bf16, full width; faces/s over one '
+          f'window of >= {RATE_WINDOW_S} s, peak memory of the steps:',
+          flush=True)
+    for label, options, it, batch, want in cases:
+        row = {}
+        n = batch['gt'].shape[0]
+        for remat in (False, True):
+            row[remat] = remat_rate(
+                lambda: build_model(remat_options(options(), remat)), batch,
+                it, want, f'{label} remat={remat}')
+        for k, v in row[True][2].items():
+            counts[k] += v
+        (r0, p0, _), (r1, p1, _) = row[False], row[True]
+        print(f'  {label} B={n}: no remat {r0:.2f} faces/s, peak {p0:.2f} '
+              f'GiB; remat {r1:.2f} faces/s, peak {p1:.2f} GiB (rate x'
+              f'{r1 / r0:.3f}, peak x{p1 / p0:.3f}); launches a step '
+              f'{row[True][2]}', flush=True)
+    remat_fp32_check()
+    return counts
+
+
+# generate_latent_gt: 16 seeded 512^2 faces at the script's batch of 8
+LATENT_FACES = 16
+LATENT_BATCH = 8
+# bf16 (K1/K2 encode, K3 on bf16 tokens) against fp32 picks: random-init
+# codebooks give near-flat code scores, so bf16 rounding flips a share
+# (stage III's bf16 idx_gt reads 0.9766 against the plain-op encode,
+# PERF.md)
+LATENT_BF16_FLOOR = 0.97
+
+
+def phase_latent_gt():
+    """The generate_latent_gt core (cli/generate_latent_gt.py `encode`) on
+    the card at full width: LATENT_FACES seeded faces and their h-flips,
+    batch 8 (T = 2048 tokens a K3 call), fp32 and bf16. fp32 picks against
+    the plain search on the same latents (apart from K3's ties,
+    k3_verdict), bf16 against fp32, images/s and launches. Returns the
+    launch counts of both dtypes' encodes."""
+    from codeformer_tpu_torch.cli import generate_latent_gt as glg
+    from codeformer_tpu_torch.ops import vq
+    faces = np.stack(_faces(np.random.default_rng(13), LATENT_FACES))
+    x = torch.from_numpy(faces[..., ::-1].copy()).cuda().float() \
+        .div(127.5).sub(1.0).permute(0, 3, 1, 2)
+    x = torch.cat([x, x.flip(-1)])       # the originals, then the h-flips
+    counts = {k: 0 for k in ENCODE_LAUNCHES}
+    picks, rates = {}, {}
+    for name, dtype in (('fp32', torch.float32), ('bf16', torch.bfloat16)):
+        model = glg.build_vqgan(None, seed=0, dtype=dtype, device='cuda')
+        recorded = []
+        search = vq.nearest_code_indices
+
+        def record(z, e):
+            idx = search(z, e)
+            recorded.append((z.detach().clone(), e, idx.clone()))
+            return idx
+
+        def run_all():
+            return torch.cat([glg.encode(model, x[i:i + LATENT_BATCH], dtype)
+                              for i in range(0, len(x), LATENT_BATCH)])
+        reset_all_counts()
+        with mock.patch.object(vq, 'nearest_code_indices', record):
+            picks[name] = run_all()
+        torch.cuda.synchronize()
+        got = all_counts()
+        n_calls = len(x) // LATENT_BATCH
+        want = dict(NO_LAUNCHES, nearest_code=n_calls)
+        if dtype == torch.bfloat16:
+            want.update(conv3x3_dots=28 * n_calls,
+                        downsample_dots=5 * n_calls)
+        if got != want:
+            raise SystemExit(f'chip_smoke: generate_latent_gt {name} '
+                             f'launched {got}, expected {want}')
+        for k, v in got.items():
+            counts[k] += v
+        verdicts = [k3_verdict(idx, vq._nearest_code_ref(z, e), z, e)
+                    for z, e, idx in recorded]
+        if recorded[0][0].shape[0] != LATENT_BATCH * 256:
+            raise SystemExit('chip_smoke: generate_latent_gt K3 call is not '
+                             'at T = 2048')
+        for _ in range(2):
+            run_all()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reps = 3
+        for _ in range(reps):
+            run_all()
+        torch.cuda.synchronize()
+        rates[name] = reps * len(x) / (time.perf_counter() - t0)
+        agree = min(v['agree'] for v in verdicts)
+        print(f'  generate_latent_gt {name}: {len(x)} images ({LATENT_FACES} '
+              f'faces and their h-flips) at batch {LATENT_BATCH}, T = '
+              f'{LATENT_BATCH * 256} a K3 call; K3 picks vs the plain search '
+              f'on the same latents {agree:.6f} (worst gap '
+              f'{max(v["worst_gap"] for v in verdicts):.2e} <= {K3_MARGIN}); '
+              f'{rates[name]:.2f} images/s; launches {got}', flush=True)
+        if not all(v['ok'] for v in verdicts):
+            raise SystemExit(f'chip_smoke: a generate_latent_gt {name} pick '
+                             f'is off the nearest code')
+        del model
+    agree = float((picks['bf16'] == picks['fp32']).float().mean())
+    print(f'  generate_latent_gt bf16 vs fp32 maps: agreement {agree:.4f} '
+          f'(>= {LATENT_BF16_FLOOR}); maps {tuple(picks["fp32"].shape)} '
+          f'{picks["fp32"].dtype}', flush=True)
+    if agree < LATENT_BF16_FLOOR or picks['fp32'].shape != (
+            2 * LATENT_FACES, 16, 16):
+        raise SystemExit('chip_smoke: generate_latent_gt bf16 maps disagree '
+                         'with fp32')
+    torch.cuda.empty_cache()
+    return counts, rates
+
+
+VAL_PAIRS = 4
+METRIC_HOST_TOL = 1e-8
+
+
+def phase_validation(trainer):
+    """BaseTrainer.validation of the full-width stage-II trainer (SFT
+    branches tamed, EMA reset to them) over VAL_PAIRS seeded in-memory
+    512^2 pairs: PSNR (crop 4) and SSIM (Y channel) computed on the card,
+    each image's held to the same metric on host copies of its images
+    within METRIC_HOST_TOL; the EMA forward on the card."""
+    from codeformer_tpu_torch import metrics
+    with torch.no_grad():
+        tame_sft(trainer.net_g)
+    trainer.reset_ema()
+    rng = np.random.default_rng(14)
+    loader = []
+    for i in range(VAL_PAIRS):
+        b = stage2_batch(rng, 1)
+        loader.append({'lq': b['in'].cpu().numpy(),
+                       'gt': b['gt'].cpu().numpy(),
+                       'lq_path': [f'val_{i:02d}.png']})
+    trainer.opt['val'] = {'metrics': {
+        'psnr': {'type': 'calculate_psnr', 'crop_border': 4},
+        'ssim': {'type': 'calculate_ssim', 'crop_border': 4,
+                 'test_y_channel': True}}}
+    seen = []
+    calc = metrics.calculate_metric
+
+    def record(data, opt):
+        value = calc(data, opt)
+        seen.append((data['img'], data['img2'], opt, value))
+        return value
+    t0 = time.perf_counter()
+    with mock.patch.object(metrics, 'calculate_metric', record):
+        res = trainer.validation(loader, current_iter=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    on_card = all(a.is_cuda and b.is_cuda for a, b, _, _ in seen)
+    err = max(abs(v - calc({'img': a.cpu().numpy(), 'img2': b.cpu().numpy()},
+                           o)) for a, b, o, v in seen)
+    print(f'validation (stage-II trainer, EMA weights, {VAL_PAIRS} pairs of '
+          f'512^2): {res}; metrics on the card: {on_card}; max |card - host| '
+          f'{err:.2e} (<= {METRIC_HOST_TOL}); {wall:.2f} s', flush=True)
+    if len(seen) != 2 * VAL_PAIRS or not on_card or err > METRIC_HOST_TOL \
+            or not all(np.isfinite(v) for v in res.values()):
+        raise SystemExit('chip_smoke: validation failed')
+
+
+class SyntheticLoader:
+    """A host loader without cv2: `n` stage-II batches (NHWC float32
+    numpy, 'in' and 'gt') made by a thread into a queue of 2, as the
+    port's DataLoader hands them on; each a fresh copy of one of four
+    seeded batches."""
+
+    def __init__(self, n: int, batch: int):
+        rng = np.random.default_rng(15)
+        self.pool = [{k: rng.uniform(-1, 1, (batch, 512, 512, 3))
+                      .astype(np.float32) for k in ('in', 'gt')}
+                     for _ in range(4)]
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+    def __iter__(self):
+        import queue
+        import threading
+        q = queue.Queue(maxsize=2)
+
+        def produce():
+            for i in range(self.n):
+                q.put({k: v.copy() for k, v in self.pool[i % 4].items()})
+            q.put(None)
+        t = threading.Thread(target=produce, daemon=True)
+        t.start()
+        while True:
+            batch = q.get()
+            if batch is None:
+                break
+            yield batch
+        t.join()
+
+
+def loader_rate(trainer, loader, step0: int) -> float:
+    """Training faces/s of the stage-II trainer fed from `loader` (host
+    clock over all its batches, ending in a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, batch in enumerate(loader):
+        trainer.feed_data(batch)
+        trainer.optimize_parameters(step0 + i)
+    torch.cuda.synchronize()
+    return len(loader) * TRAIN_BATCH / (time.perf_counter() - t0)
+
+
+def phase_prefetcher(trainer):
+    """The stage-II rate fed by SyntheticLoader directly (feed_data copies
+    each batch from pageable memory) and through DevicePrefetcher (pinned
+    copies on a side stream by its staging thread, a step ahead),
+    alternating windows; every prefetched batch equal to its host
+    arrays."""
+    from codeformer_tpu_torch.data.loader import DevicePrefetcher
+    src = SyntheticLoader(8, TRAIN_BATCH)
+    for i, (a, b) in enumerate(zip(src, DevicePrefetcher(src, 'cuda'))):
+        for k in a:
+            if not (b[k].is_cuda and torch.equal(b[k].cpu(),
+                                                  torch.from_numpy(a[k]))):
+                raise SystemExit(f'chip_smoke: prefetched batch {i} {k} '
+                                 f'differs from the host batch')
+    n = max(8, int(RATE_WINDOW_S * 60 / TRAIN_BATCH))
+    got = {'direct': [], 'prefetch': []}
+    step = 1000
+    for rep in range(RATE_REPEATS):
+        for path in (('direct', 'prefetch') if rep % 2 == 0
+                     else ('prefetch', 'direct')):
+            loader = SyntheticLoader(n, TRAIN_BATCH)
+            if path == 'prefetch':
+                loader = DevicePrefetcher(loader, 'cuda')
+            got[path].append(loader_rate(trainer, loader, step))
+            step += n
+    med = {k: statistics.median(v) for k, v in got.items()}
+    print(f'prefetcher: stage-II training faces/s at B={TRAIN_BATCH} fed by a '
+          f'host thread ({n} batches a window, {RATE_REPEATS} windows a '
+          f'path, alternating; median [min, max]): direct '
+          f'{med["direct"]:.2f} [{min(got["direct"]):.2f}, '
+          f'{max(got["direct"]):.2f}], DevicePrefetcher '
+          f'{med["prefetch"]:.2f} [{min(got["prefetch"]):.2f}, '
+          f'{max(got["prefetch"]):.2f}]; batches equal: 8 of 8', flush=True)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def dp_grads(trainer) -> torch.Tensor:
+    return torch.cat([p.grad.detach().float().reshape(-1)
+                      for net in (trainer.net_g, trainer.net_d)
+                      if net is not None for p in net.parameters()
+                      if p.grad is not None])
+
+
+def phase_dp():
+    """Data parallelism at world size 1 over NCCL (the card's machine has
+    one H100; world size 2 is tier-1's gloo test): the process group
+    started as `--launcher pytorch` starts it (init_dist from torchrun's
+    variables), then one full-width stage-II step and one stage-I step
+    past the gate (iteration 30004), each against the plain trainer's
+    step from the same seeded state and batch: gradients, d_weight and
+    the discriminator's BatchNorm statistics bit-equal or within 1e-6,
+    launches as the plain step's. Returns the data-parallel steps'
+    launch counts."""
+    import torch.distributed as dist
+
+    from codeformer_tpu_torch import parallel
+    from codeformer_tpu_torch.train.trainers import build_model
+    os.environ.update(RANK='0', WORLD_SIZE='1', LOCAL_RANK='0',
+                      MASTER_ADDR='127.0.0.1', MASTER_PORT=str(_free_port()))
+    counts = {k: 0 for k in ENCODE_LAUNCHES}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cases = (('stage II', stage2_options, 1, ENCODE_LAUNCHES),
+                 ('stage I', stage1_options, STAGE1_ITERS[-1],
+                  dict(NO_LAUNCHES, nearest_code=1)))
+        for label, options, it, want in cases:
+            batch = stage2_batch(np.random.default_rng(16), TRAIN_BATCH)
+            if label == 'stage I':
+                batch = {'gt': batch['gt']}
+            runs = {}
+            for mode in ('plain', 'dp'):
+                if mode == 'dp':
+                    parallel.init_dist('pytorch', 'cuda', timeout_s=120)
+                try:
+                    with vgg_standins():
+                        trainer = build_model(options())
+                    if trainer.data_parallel != (mode == 'dp'):
+                        raise SystemExit('chip_smoke: data_parallel flag')
+                    trainer.feed_data(batch)
+                    got = counted_step(trainer, it)
+                    runs[mode] = (dp_grads(trainer), dict(trainer.log_dict),
+                                  [b.clone() for b in trainer.net_d.buffers()]
+                                  if trainer.net_d is not None else [], got)
+                    del trainer
+                    torch.cuda.empty_cache()
+                finally:
+                    if mode == 'dp':
+                        dist.destroy_process_group()
+            (g0, log0, bn0, c0), (g1, log1, bn1, c1) = runs['plain'], \
+                runs['dp']
+            err = rel_rms(g1, g0)
+            bn_err = max([rel_rms(a, b) for a, b in zip(bn1, bn0)
+                          if a.is_floating_point()], default=0.0)
+            # losses and means of predictions, O(1) or near 0: relative to
+            # max(|value|, 1)
+            log_err = max(abs(log1[k] - log0[k]) / max(abs(log0[k]), 1.0)
+                          for k in log0)
+            print(f'data parallel, world size 1 over NCCL, {label} B='
+                  f'{TRAIN_BATCH} iteration {it}: gradients rel RMS {err:.2e} '
+                  f'(bit-equal {bool(torch.equal(g0, g1))}), log max rel '
+                  f'{log_err:.2e}'
+                  + (f', d_weight {log1["d_weight"]:.6g} vs '
+                     f'{log0["d_weight"]:.6g}, BatchNorm statistics rel RMS '
+                     f'{bn_err:.2e}' if 'd_weight' in log0 else '')
+                  + f'; launches {c1}', flush=True)
+            if err > 1e-6 or log_err > 1e-6 or bn_err > 1e-6 or c1 != c0 \
+                    or c1 != want:
+                raise SystemExit(f'chip_smoke: the data-parallel {label} step '
+                                 f'differs from the plain step')
+            for k, v in c1.items():
+                counts[k] += v
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return counts
+
+
+SR_STEPS = 3
+SR_BATCH = 4
+SR_LQ = 128        # lq 128^2 -> gt 256^2 at scale 2
+# under Real-ESRGAN's published 2e-4: there Adam's sign-like first
+# updates of the random RRDBs overshoot (l_pix 0.263 -> 0.234 -> 0.290 on
+# an H100, PERF.md); at 5e-5 the loss falls step by step
+SR_LR = 5e-5
+
+
+def phase_srmodel():
+    """SRModel with RRDBNet at Real-ESRGAN x2plus's width (64 features,
+    23 RRDBs, growth 32, scale 2), fp32 (the port's RRDBNet convs take
+    their parameters' dtype), B=4, L1 against a seeded 256^2 target from
+    128^2 inputs, the random RRDBs tamed (tame_rrdb: untamed, the output
+    saturates at 66x the input and Adam's first steps overshoot):
+    SR_STEPS steps on one batch, a falling loss, ms a step."""
+    import torch.nn.functional as F
+
+    from codeformer_tpu_torch.train.trainers import build_model
+    opt = {'name': 'chip_smoke_sr', 'model_type': 'SRModel',
+           'manual_seed': 0, 'device': 'cuda', 'path': {},
+           'network_g': {'type': 'RRDBNet', 'num_in_ch': 3, 'num_out_ch': 3,
+                         'num_feat': 64, 'num_block': 23, 'num_grow_ch': 32,
+                         'scale': 2},
+           'train': {'ema_decay': 0.999, 'total_iter': 400000,
+                     'warmup_iter': -1,
+                     'optim_g': {'type': 'Adam', 'lr': SR_LR,
+                                 'weight_decay': 0, 'betas': [0.9, 0.99]},
+                     'scheduler': {'type': 'MultiStepLR',
+                                   'milestones': [400000], 'gamma': 0.5},
+                     'pixel_opt': {'type': 'L1Loss', 'loss_weight': 1.0}}}
+    trainer = build_model(opt)
+    with torch.no_grad():
+        tame_rrdb(trainer.net_g)
+    trainer.reset_ema()
+    gt = torch.from_numpy(np.stack(_faces(np.random.default_rng(17),
+                                          SR_BATCH, 2 * SR_LQ))[..., ::-1]
+                          .copy()).cuda().float().div(255.0)
+    lq = F.interpolate(gt.permute(0, 3, 1, 2), scale_factor=0.5,
+                       mode='bilinear', antialias=True).permute(0, 2, 3, 1)
+    trainer.feed_data({'lq': lq.contiguous(), 'gt': gt.contiguous()})
+    reset_all_counts()
+    losses, times = [], []
+    for it in range(1, SR_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.optimize_parameters(it)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(trainer.log_dict['l_pix'])
+    ms = time_ms(lambda: trainer.optimize_parameters(SR_STEPS + 1), iters=3,
+                 runs=3, warmup=1)
+    print(f'SRModel (RRDBNet x2plus width, fp32, B={SR_BATCH}, lq {SR_LQ}^2 '
+          f'-> {2 * SR_LQ}^2): l_pix {[round(v, 5) for v in losses]}; '
+          f'{ms:.2f} ms a step {ms.spread()} (first steps '
+          f'{[round(v, 1) for v in times]} ms); kernels launched '
+          f'{sum(all_counts().values())}', flush=True)
+    if not (losses[-1] < losses[0] and all(np.isfinite(losses))):
+        raise SystemExit('chip_smoke: the SRModel loss did not fall')
+    del trainer
+    torch.cuda.empty_cache()
+
+
+ARCFACE_BATCH = 8
+ARCFACE_RTOL = 1e-4     # fp32 card (TF32 off) vs host, relative RMS
+
+
+def phase_arcface():
+    """ResNetArcFace (seeded, eval, fp32) at B=8 on 128^2 gray faces on
+    the card against the same forward on a host copy; ms a forward."""
+    from codeformer_tpu_torch.models import ResNetArcFace
+    from codeformer_tpu_torch.utils.checkpoint import init_params_fast
+    torch.backends.cudnn.allow_tf32 = False
+    model = init_params_fast(ResNetArcFace(), 18).eval()
+    faces = np.stack(_faces(np.random.default_rng(18), ARCFACE_BATCH, 128))
+    x = torch.from_numpy(faces.mean(-1, keepdims=True).astype(np.float32)
+                         / 127.5 - 1.0).permute(0, 3, 1, 2).contiguous()
+    with torch.no_grad():
+        ref = model(x)
+        model.cuda()
+        xc = x.cuda()
+        got = model(xc)
+        ms = time_ms(lambda: model(xc), iters=10)
+    err = rel_rms(got.cpu(), ref)
+    print(f'ResNetArcFace (IRBlock 2,2,2,2, SE) B={ARCFACE_BATCH}, 128^2 '
+          f'gray, fp32: card vs host rel RMS {err:.2e} (<= {ARCFACE_RTOL}); '
+          f'embedding {tuple(got.shape)}; {ms:.4f} ms a forward '
+          f'{ms.spread()}', flush=True)
+    if err > ARCFACE_RTOL or got.shape != (ARCFACE_BATCH, 512):
+        raise SystemExit('chip_smoke: ResNetArcFace on the card disagrees '
+                         'with the host')
+    del model
+
+
 def phase_ops():
     """The ops layer: K4 and the bare conv against their plain versions,
     then its main path with exact launch counts."""
@@ -3546,17 +4081,26 @@ def main():
     train_counts, trainer = phase_train()
     if '--profile' in sys.argv[1:]:
         phase_train_profile(trainer)
+    phase_validation(trainer)
+    phase_prefetcher(trainer)
     del trainer
     torch.cuda.empty_cache()
     stage1_counts = phase_stage1()
     phase_stage1_cpu_check()
     stage3_counts = phase_stage3()
+    remat_counts = phase_remat()
+    latent_counts, _ = phase_latent_gt()
+    dp_counts = phase_dp()
+    phase_srmodel()
+    phase_arcface()
     print(f'main-path launches: serving {serve_counts}; whole-image path '
           f'{whole_counts}; classic path {classic_counts}; classic path with '
           f'the upsamplers {upsample_counts}; colorization and inpainting '
           f'{task_counts}; VQAutoEncoder {vq_counts}; stage-II training '
           f'{train_counts}; stage-I training {stage1_counts}; stage-III '
-          f'training {stage3_counts}; ops path {ops_counts}')
+          f'training {stage3_counts}; remat steps {remat_counts}; '
+          f'generate_latent_gt {latent_counts}; data-parallel steps '
+          f'{dp_counts}; ops path {ops_counts}')
     phase_k3_activities(k3_calls)
     vqgan_activities(vq_probe)
     del k3_calls, vq_probe
@@ -3581,6 +4125,7 @@ def main():
                             (serve_counts, whole_counts, classic_counts,
                              upsample_counts, task_counts, vq_counts,
                              train_counts, stage1_counts, stage3_counts,
+                             remat_counts, latent_counts, dp_counts,
                              ops_counts)),
             'max_abs_err': max(r['max_abs_err'] for r in rows),
             'ms': head['ms'], 'plain_ms': head['plain_ms'],
@@ -3593,11 +4138,13 @@ def main():
     if not all(k['launches'] > 0 for k in kernels):
         raise SystemExit('chip_smoke: a kernel of the path never launched')
     if not all(c['nearest_code'] > 0 for c in (
-            train_counts, vq_counts, stage1_counts, stage3_counts)) \
+            train_counts, vq_counts, stage1_counts, stage3_counts,
+            remat_counts, latent_counts, dp_counts)) \
             or not all(c[k] > 0 for c in (serve_counts, whole_counts,
                                           classic_counts, upsample_counts,
                                           task_counts, vq_counts,
-                                          stage3_counts)
+                                          stage3_counts, remat_counts,
+                                          latent_counts, dp_counts)
                        for k in ('conv3x3_dots', 'downsample_dots')) \
             or not all(ops_counts[k] > 0 for k in (
                 'conv3x3_bias', 'fused_lrelu_fwd', 'fused_lrelu_bwd')):

@@ -5,8 +5,10 @@ The counterpart of the reference's DataLoader + EnlargedSampler
 (basicsr/data/{data_sampler.py, prefetch_dataloader.py}): rank-strided
 index sampling, a thread pool for the cv2-heavy degradation synthesis,
 and a lookahead queue so host compute overlaps device steps. Batches are
-stacked NHWC numpy; the trainer moves them to its device. A CUDA-stream
-prefetcher (the JAX copy's DevicePrefetcher) is not ported yet.
+stacked NHWC numpy; the trainer moves them to its device, or
+`DevicePrefetcher` (`prefetch_mode: cuda`) stages them there a step
+ahead on a side CUDA stream. numpy and torch only (no cv2), so the
+card's machine can import it.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator
 
 import numpy as np
+import torch
 
 
 class EnlargedSampler:
@@ -165,6 +168,93 @@ class DataLoader:
         n = len(self.sampler)
         return n // self.batch_size if self.drop_last else \
             -(-n // self.batch_size)
+
+
+class DevicePrefetcher:
+    """Double-buffered device feed (the JAX copy's DevicePrefetcher,
+    loader.py:166-196; reference CUDAPrefetcher, prefetch_dataloader.py:
+    84-125). A staging thread takes each batch from the loader, copies its
+    numpy arrays into pinned host memory and on to `device` with
+    non_blocking copies on a side CUDA stream, and records an event
+    there; so batch k+1 is read, pinned and crosses while step k runs,
+    and the consumer's thread spends no time on it. The batch handed on
+    is made safe for the consumer's stream: that stream waits for the
+    batch's event, and each tensor is recorded on it (record_stream), so
+    the allocator does not reuse its memory while the step still reads
+    it. At most one staged batch waits. Arrays become NHWC tensors on the
+    device; other values (paths) pass through; an error of the loader is
+    raised in the consumer. On a CPU device it is an identity stage: the
+    batches pass on unchanged, in order."""
+
+    def __init__(self, loader, device):
+        self.loader = loader
+        self.device = torch.device(device)
+        self.stream = (torch.cuda.Stream(self.device)
+                       if self.device.type == 'cuda' else None)
+
+    def _stage(self, batch: Dict):
+        out = {}
+        with torch.cuda.stream(self.stream):
+            for k, v in batch.items():
+                if isinstance(v, np.ndarray):
+                    host = torch.from_numpy(np.ascontiguousarray(v))
+                    out[k] = host.pin_memory().to(self.device,
+                                                  non_blocking=True)
+                else:
+                    out[k] = v
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        return out, done
+
+    def __iter__(self):
+        if self.stream is None:
+            yield from self.loader
+            return
+        q: 'queue.Queue' = queue.Queue(maxsize=1)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            try:
+                with torch.cuda.device(self.device):
+                    for batch in self.loader:
+                        if not put(self._stage(batch)):
+                            return
+            except BaseException as e:     # handed to the consumer
+                put(e)
+            finally:
+                put(None)
+
+        t = threading.Thread(target=produce, daemon=True)
+        t.start()
+        current = torch.cuda.current_stream(self.device)
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                staged, done = item
+                current.wait_event(done)
+                for v in staged.values():
+                    if isinstance(v, torch.Tensor):
+                        v.record_stream(current)
+                yield staged
+        finally:
+            stop.set()
+            t.join(timeout=10)
+
+    def __len__(self):
+        return len(self.loader)
 
 
 def build_dataloader(dataset, dataset_opt: Dict, sampler=None,

@@ -1,4 +1,5 @@
 """Model architectures."""
+from .arcface import ResNetArcFace
 from .bisenet import BiSeNet
 from .codeformer import CodeFormer
 from .parsenet import ParseNet
@@ -9,5 +10,5 @@ from .vqgan import VQAutoEncoder, VQGANDiscriminator
 from .yolov5face import YoloFace
 
 __all__ = ['BiSeNet', 'CodeFormer', 'ParseNet', 'RRDBNet', 'RetinaFace',
-           'VGGFeatureExtractor', 'VQAutoEncoder', 'VQGANDiscriminator',
-           'YoloFace']
+           'ResNetArcFace', 'VGGFeatureExtractor', 'VQAutoEncoder',
+           'VQGANDiscriminator', 'YoloFace']

@@ -30,7 +30,9 @@ from .vqgan import VQAutoEncoder
 class CodeFormer(VQAutoEncoder):
     """Backbone defaults are the reference's fixed super() call
     (codeformer_arch.py:166): img_size 512, nf 64, ch_mult
-    (1, 2, 2, 4, 4, 8), 2 res blocks, attention at 16."""
+    (1, 2, 2, 4, 4, 8), 2 res blocks, attention at 16. `remat`: every
+    ResBlock, the fuse blocks' too, recomputes its interior in the
+    backward (VQAutoEncoder)."""
 
     def __init__(self, dim_embd: int = 512, n_head: int = 8,
                  n_layers: int = 9, codebook_size: int = 1024,
@@ -39,11 +41,12 @@ class CodeFormer(VQAutoEncoder):
                  img_size: int = 512, nf: int = 64,
                  ch_mult: Sequence[int] = (1, 2, 2, 4, 4, 8),
                  res_blocks: int = 2, attn_resolutions=(16,),
-                 emb_dim: int = 256):
+                 emb_dim: int = 256, remat: bool = False):
         super().__init__(img_size=img_size, nf=nf, ch_mult=ch_mult,
                          res_blocks=res_blocks,
                          attn_resolutions=attn_resolutions,
-                         codebook_size=codebook_size, emb_dim=emb_dim)
+                         codebook_size=codebook_size, emb_dim=emb_dim,
+                         remat=remat)
         self.connect_list = tuple(connect_list)
         self.position_emb = nn.Parameter(torch.zeros(latent_size, dim_embd))
         self.feat_emb = Linear(emb_dim, dim_embd)
@@ -58,7 +61,7 @@ class CodeFormer(VQAutoEncoder):
         channels = {str(img_size // 2 ** s): nf * self.ch_mult[min(s, n_stage - 1)]
                     for s in range(n_stage)}
         self.fuse_convs_dict = nn.ModuleDict(
-            {f: FuseSftBlock(channels[f], channels[f])
+            {f: FuseSftBlock(channels[f], channels[f], remat)
              for f in self.connect_list})
 
     def forward(self, x: torch.Tensor, w=0.0, detach_16: bool = True,

@@ -139,7 +139,7 @@ class GumbelQuantizer(nn.Module):
 
 
 def _build_encoder_blocks(nf, emb_dim, ch_mult, num_res_blocks, resolution,
-                          attn_resolutions):
+                          attn_resolutions, remat=False):
     """Encoder blocks + {feature size: last-ResBlock index} taps, in the
     reference order (vqgan_arch.py:241-266)."""
     blocks = [Conv2d(3, nf, 3, padding=1)]
@@ -151,7 +151,7 @@ def _build_encoder_blocks(nf, emb_dim, ch_mult, num_res_blocks, resolution,
         block_in = nf * in_ch_mult[i]
         block_out = nf * ch_mult[i]
         for _ in range(num_res_blocks):
-            blocks.append(ResBlock(block_in, block_out))
+            blocks.append(ResBlock(block_in, block_out, remat))
             block_in = block_out
             taps[str(curr_res)] = len(blocks) - 1
             if curr_res in attn_resolutions:
@@ -159,16 +159,16 @@ def _build_encoder_blocks(nf, emb_dim, ch_mult, num_res_blocks, resolution,
         if i != len(ch_mult) - 1:
             blocks.append(Downsample(block_in))
             curr_res //= 2
-    blocks.append(ResBlock(block_in, block_in))
+    blocks.append(ResBlock(block_in, block_in, remat))
     blocks.append(AttnBlock(block_in))
-    blocks.append(ResBlock(block_in, block_in))
+    blocks.append(ResBlock(block_in, block_in, remat))
     blocks.append(GroupNorm32(block_in))
     blocks.append(Conv2d(block_in, emb_dim, 3, padding=1))
     return blocks, taps
 
 
 def _build_generator_blocks(nf, emb_dim, ch_mult, num_res_blocks, resolution,
-                            attn_resolutions, out_channels):
+                            attn_resolutions, out_channels, remat=False):
     """Generator blocks + fuse taps (vqgan_arch.py:290-316): the first
     ResBlock of each stage, or the last one at attention resolutions
     (the reference's fuse table, codeformer_arch.py:206)."""
@@ -176,14 +176,14 @@ def _build_generator_blocks(nf, emb_dim, ch_mult, num_res_blocks, resolution,
     block_in = nf * ch_mult[-1]
     curr_res = resolution // 2 ** (num_resolutions - 1)
     blocks = [Conv2d(emb_dim, block_in, 3, padding=1),
-              ResBlock(block_in, block_in), AttnBlock(block_in),
-              ResBlock(block_in, block_in)]
+              ResBlock(block_in, block_in, remat), AttnBlock(block_in),
+              ResBlock(block_in, block_in, remat)]
     taps: Dict[str, int] = {}
     for i in reversed(range(num_resolutions)):
         block_out = nf * ch_mult[i]
         first_in_stage = True
         for _ in range(num_res_blocks):
-            blocks.append(ResBlock(block_in, block_out))
+            blocks.append(ResBlock(block_in, block_out, remat))
             block_in = block_out
             if first_in_stage or curr_res in attn_resolutions:
                 taps[str(curr_res)] = len(blocks) - 1
@@ -200,14 +200,17 @@ def _build_generator_blocks(nf, emb_dim, ch_mult, num_res_blocks, resolution,
 
 class Encoder(nn.Module):
     """Image (B, 3, H, W) -> latents (B, emb_dim, h, w), plus the outputs
-    of the tapped blocks by feature size (vqgan_arch.py:229-273)."""
+    of the tapped blocks by feature size (vqgan_arch.py:229-273).
+    `remat`: every ResBlock recomputes its interior in the backward
+    (nn/blocks.py ResBlock)."""
 
     def __init__(self, nf=64, emb_dim=256, ch_mult=(1, 2, 2, 4, 4, 8),
-                 num_res_blocks=2, resolution=512, attn_resolutions=(16,)):
+                 num_res_blocks=2, resolution=512, attn_resolutions=(16,),
+                 remat: bool = False):
         super().__init__()
         blocks, self.tap_by_size = _build_encoder_blocks(
             nf, emb_dim, tuple(ch_mult), num_res_blocks, resolution,
-            tuple(attn_resolutions))
+            tuple(attn_resolutions), remat)
         self.blocks = nn.ModuleList(blocks)
 
     def forward(self, x: torch.Tensor, tap_indices: Sequence[int] = ()
@@ -226,16 +229,16 @@ class Generator(nn.Module):
     index to a callable applied to that block's output (CodeFormer's
     SFT fusion). With `use_kernels` the final GroupNorm + conv_out run as
     one K1 call, whose operands it keeps in eval mode
-    (`kernel_operands`)."""
+    (`kernel_operands`). `remat` as the Encoder's."""
 
     def __init__(self, nf=64, emb_dim=256, ch_mult=(1, 2, 2, 4, 4, 8),
                  num_res_blocks=2, resolution=512, attn_resolutions=(16,),
-                 out_channels=3):
+                 out_channels=3, remat: bool = False):
         super().__init__()
         self.use_kernels = True
         blocks, self.tap_by_size = _build_generator_blocks(
             nf, emb_dim, tuple(ch_mult), num_res_blocks, resolution,
-            tuple(attn_resolutions), out_channels)
+            tuple(attn_resolutions), out_channels, remat)
         self.blocks = nn.ModuleList(blocks)
         self._operands = None    # (key, the tail's cv.DotsOperands)
 
@@ -266,17 +269,20 @@ class Generator(nn.Module):
 class VQAutoEncoder(nn.Module):
     """The VQGAN backbone: encoder, codebook, generator
     (vqgan_arch.py:326-389), with the 'nearest' quantizer (K3) or the
-    'gumbel' one."""
+    'gumbel' one. `remat` (the trainers set it from `train: remat:
+    true`): the encoder's and the generator's ResBlocks recompute their
+    interiors in the backward; the state dict is the same."""
 
     def __init__(self, img_size=512, nf=64, ch_mult=(1, 2, 2, 4, 4, 8),
                  res_blocks=2, attn_resolutions=(16,), codebook_size=1024,
                  emb_dim=256, quantizer: str = 'nearest', beta: float = 0.25,
                  gumbel_straight_through: bool = False,
-                 gumbel_kl_weight: float = 1e-8):
+                 gumbel_kl_weight: float = 1e-8, remat: bool = False):
         super().__init__()
         self.ch_mult, self.emb_dim = tuple(ch_mult), emb_dim
+        self.remat = remat
         self.encoder = Encoder(nf, emb_dim, ch_mult, res_blocks, img_size,
-                               attn_resolutions)
+                               attn_resolutions, remat)
         if quantizer == 'nearest':
             self.quantize = VectorQuantizer(codebook_size, emb_dim, beta)
         elif quantizer == 'gumbel':
@@ -286,7 +292,7 @@ class VQAutoEncoder(nn.Module):
         else:
             raise ValueError(f'unknown quantizer {quantizer!r}')
         self.generator = Generator(nf, emb_dim, ch_mult, res_blocks,
-                                   img_size, attn_resolutions)
+                                   img_size, attn_resolutions, remat=remat)
 
     def forward(self, x: torch.Tensor, **quant_kwargs):
         """Encode -> quantize -> decode (codeformer_tpu/models/vqgan.py:
@@ -304,13 +310,33 @@ class BatchNorm2d(nn.BatchNorm2d):
     E[x^2] - E[x]^2 (clipped at 0), running statistics updated with that
     same biased variance (PyTorch's own takes the unbiased one), and
     (x - mean) * (rsqrt(var + eps) * weight) + bias in fp32, out in the
-    input's dtype. momentum 0.1 here is flax's 0.9."""
+    input's dtype. momentum 0.1 here is flax's 0.9.
+
+    `sync_stats` (the trainers set it under data parallelism): the batch
+    statistics are those of the global batch, the fp32 sums [sum x, sum
+    x^2] all-reduced over the processes through an all-reduce autograd
+    differentiates (its backward sums the gradients), as JAX's jit over
+    the global batch takes them."""
+
+    sync_stats = False
+
+    def _batch_stats(self, xf: torch.Tensor):
+        """(mean, E[x^2] - mean^2) of the batch from its fp32 sums; under
+        `sync_stats` the sums of every process's batch."""
+        sums = torch.stack([xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3))])
+        n = xf.numel() // xf.shape[1]
+        if self.sync_stats:
+            from codeformer_tpu_torch import parallel
+            sums = parallel.all_reduce_sum_autograd(sums)
+            n *= parallel.get_dist_info()[1]
+        mean = sums[0] / n
+        return mean, sums[1] / n - mean.square()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if self.training:
-            mean = xf.mean((0, 2, 3))
-            var = (xf.square().mean((0, 2, 3)) - mean.square()).clamp_min(0)
+            mean, var = self._batch_stats(xf)
+            var = var.clamp_min(0)
             with torch.no_grad():
                 self.running_mean.mul_(1 - self.momentum).add_(
                     mean, alpha=self.momentum)

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from codeformer_tpu_torch.ops import conv3x3 as cv
 
@@ -101,6 +102,14 @@ def set_kernels(model: nn.Module, on: bool) -> nn.Module:
     return model
 
 
+def records(module: nn.Module, *inputs: torch.Tensor) -> bool:
+    """Whether autograd records a call of `module` on `inputs`: grad mode
+    on, and an input or a parameter that requires a gradient."""
+    return torch.is_grad_enabled() and (
+        any(x.requires_grad for x in inputs)
+        or any(p.requires_grad for p in module.parameters()))
+
+
 def on_card(x: torch.Tensor) -> bool:
     """Whether x runs the kernels (a CUDA tensor): there the modules hand
     them their kept operands."""
@@ -133,12 +142,19 @@ class ResBlock(nn.Module):
     The projected skip multiplies the RAW block input; conv_out's bias is
     folded into conv2's. In eval mode the block keeps both calls'
     operands (`kernel_operands`). Without, the textbook form of JAX
-    ResBlock._forward (codeformer_tpu/nn/blocks.py:127-137).
+    ResBlock._forward (codeformer_tpu/nn/blocks.py:127-137). With `remat`
+    (training: `train: remat: true`), the textbook form saves only the
+    block's input for the backward and recomputes its interior there
+    (torch.utils.checkpoint, JAX's nn.remat of the same function), where
+    autograd records; elsewhere, and on the kernels' path, it changes
+    nothing.
     """
 
-    def __init__(self, in_channels: int, out_channels: int | None = None):
+    def __init__(self, in_channels: int, out_channels: int | None = None,
+                 remat: bool = False):
         super().__init__()
         self.use_kernels = True
+        self.remat = remat
         out_ch = out_channels or in_channels
         self.in_channels, self.out_channels = in_channels, out_ch
         self.norm1 = GroupNorm32(in_channels)
@@ -174,13 +190,18 @@ class ResBlock(nn.Module):
                     bias2)
         return kept_operands(self, params, make)
 
+    def _textbook(self, x_in: torch.Tensor) -> torch.Tensor:
+        h = self.conv1(F.silu(self.norm1(x_in)))
+        h = self.conv2(F.silu(self.norm2(h)))
+        if self.in_channels != self.out_channels:
+            x_in = self.conv_out(x_in)
+        return h + x_in
+
     def forward(self, x_in: torch.Tensor) -> torch.Tensor:
         if not self.use_kernels:
-            h = self.conv1(F.silu(self.norm1(x_in)))
-            h = self.conv2(F.silu(self.norm2(h)))
-            if self.in_channels != self.out_channels:
-                x_in = self.conv_out(x_in)
-            return h + x_in
+            if self.remat and records(self, x_in):
+                return checkpoint(self._textbook, x_in, use_reentrant=False)
+            return self._textbook(x_in)
         x = nhwc(x_in)
         hw = x.shape[1] * x.shape[2]
         kept = self.kernel_operands() if on_card(x) else None
@@ -282,10 +303,11 @@ class FuseSftBlock(nn.Module):
     out = dec + w * (dec * scale(enc') + shift(enc')),
     enc' = ResBlock(cat(enc, dec))."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int,
+                 remat: bool = False):
         super().__init__()
         c = out_channels
-        self.encode_enc = ResBlock(2 * in_channels, c)
+        self.encode_enc = ResBlock(2 * in_channels, c, remat)
         self.scale = nn.Sequential(Conv2d(c, c, 3, padding=1),
                                    nn.LeakyReLU(0.2),
                                    Conv2d(c, c, 3, padding=1))

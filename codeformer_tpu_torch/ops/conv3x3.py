@@ -72,8 +72,10 @@ def gn_affine(stats: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
     stats: (B, slots, 2, C) partial [sum, sumsq] (channel_stats, or
     K1's one slot a tile: stats_slots); n_pixels: H*W.
-    var = E[x^2] - mean^2 in fp32, as colpack_conv.gn_affine. Returns
-    (a, b), each (B, C) fp32 contiguous.
+    var = E[x^2] - mean^2 in fp32, as colpack_conv.gn_affine, clamped at
+    0 as flax's GroupNorm clamps it: on a near-constant bf16 map rounding
+    takes it below -eps, where rsqrt would give NaN. Returns (a, b), each
+    (B, C) fp32 contiguous.
     """
     s = stats.float().sum(1)                         # (B, 2, C)
     bsz, _, c = s.shape
@@ -81,7 +83,7 @@ def gn_affine(stats: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     g = s.reshape(bsz, 2, num_groups, per).sum(-1)   # (B, 2, G)
     cnt = n_pixels * per
     mean = g[:, 0] / cnt
-    var = g[:, 1] / cnt - mean * mean
+    var = (g[:, 1] / cnt - mean * mean).clamp_min(0)
     rstd = torch.rsqrt(var + eps)
     a = rstd.repeat_interleave(per, 1) * gamma.float()[None]
     b = beta.float()[None] - mean.repeat_interleave(per, 1) * a

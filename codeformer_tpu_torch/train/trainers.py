@@ -34,7 +34,21 @@ Semantics kept from the JAX trainers:
     BatchNorm statistics stay as they were (JAX's lax.cond);
   - the decoupled weight decay of the optax chain (train/optimizers.py)
     and the 0-based schedule step (train/schedulers.py), counted per
-    optimizer.
+    optimizer;
+  - `remat: true`: the networks' ResBlocks (and the perceptual loss as a
+    whole) keep only their inputs for the backward and recompute the
+    rest there (torch.utils.checkpoint, JAX's nn.remat/jax.checkpoint);
+    the gradients are the same;
+  - data parallelism (JAX's mesh step): under an initialised process
+    group (parallel/, `--launcher pytorch`) each process steps on its
+    share of the global batch, and the gradients (the adaptive weight's
+    anchor probes included), the discriminator's BatchNorm statistics
+    and the logged losses are averaged over the processes, so the step
+    equals one process's step on the whole batch. No DDP wrapper: it
+    would not reduce the probes' torch.autograd.grad gradients;
+  - validation (`val:` with `val_freq`): the EMA weights (net_g's when
+    ema_decay is 0) in eval mode on the val set, PSNR/SSIM by the
+    metric registry (metrics/), on the trainer's device.
 
 K1/K2 are forward-only: `net_g` always runs its textbook blocks, so
 autograd records every conv; the frozen HQ VQGAN, run under no_grad,
@@ -43,15 +57,19 @@ only) and the textbook blocks at fp32.
 """
 from __future__ import annotations
 
+import inspect
 import logging
 import os
 import os.path as osp
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from codeformer_tpu_torch import models  # noqa: F401  (registers the archs)
-from codeformer_tpu_torch.nn.blocks import set_kernels
+from codeformer_tpu_torch import parallel
+from codeformer_tpu_torch.nn.blocks import records, set_kernels
 from codeformer_tpu_torch.ops import vq
 from codeformer_tpu_torch.utils.checkpoint import init_params_fast
 from codeformer_tpu_torch.utils.convert import load_pth
@@ -71,19 +89,21 @@ TRANSFORMER_MODULES = ('ft_layers', 'feat_emb', 'position_emb',
 
 
 def build_model(opt: Dict):
-    """Trainer for `opt['model_type']` (basicsr/models/__init__.py:19-30)."""
-    model_type = opt['model_type']
-    if model_type not in MODEL_REGISTRY:
-        raise NotImplementedError(
-            f'model_type {model_type!r} is not ported (SRModel is ROADMAP.md '
-            f'Queue 1 item 4.7)')
-    return MODEL_REGISTRY.get(model_type)(opt)
+    """Trainer for `opt['model_type']` (basicsr/models/__init__.py:19-30);
+    an unknown type raises KeyError, naming the registered ones."""
+    return MODEL_REGISTRY.get(opt['model_type'])(opt)
 
 
-def build_network(net_opt: Dict) -> torch.nn.Module:
-    """An arch from its config block (`type:` plus constructor keys)."""
+def build_network(net_opt: Dict, remat: bool = False) -> torch.nn.Module:
+    """An arch from its config block (`type:` plus constructor keys).
+    `remat` reaches the archs whose constructor takes it (VQAutoEncoder,
+    CodeFormer; not the discriminator), unless the block sets it, as
+    JAX's BaseTrainer._net injects it."""
     net_opt = dict(net_opt)
-    return ARCH_REGISTRY.get(net_opt.pop('type'))(**net_opt)
+    cls = ARCH_REGISTRY.get(net_opt.pop('type'))
+    if remat and 'remat' in inspect.signature(cls).parameters:
+        net_opt.setdefault('remat', True)
+    return cls(**net_opt)
 
 
 def freeze_modules(net: torch.nn.Module, fix_modules) -> list:
@@ -138,26 +158,26 @@ class BaseTrainer:
         if self.accum_steps < 1:
             raise ValueError(
                 f'accum_steps must be >= 1, got {self.accum_steps}')
-        if self.train_opt.get('remat'):
-            raise NotImplementedError(
-                'remat: true is not ported yet (torch.utils.checkpoint, '
-                'ROADMAP.md Queue 1 item 4.3)')
-        val = [p for p in (opt.get('datasets') or {})
-               if p.split('_')[0] == 'val']
-        if val:
-            raise NotImplementedError(
-                f'validation datasets {val} are not ported yet (ROADMAP.md '
-                f'Queue 1 item 4.4)')
+        # remat: activation rematerialization (JAX trainers.py:151-158)
+        self.remat = bool(self.train_opt.get('remat', False))
         self.device = torch.device(opt.get('device') or 'cuda')
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError(
                 f"device {self.device}: no CUDA device is available; the "
                 f"trainer does not fall back to the CPU (set `device: cpu` "
                 f"in the options to train on the host)")
-        if int(opt.get('num_devices') or 1) > 1 or (
-                self.device.type == 'cuda' and torch.cuda.device_count() > 1):
-            logger.info(f'training on one device, {self.device}: data '
-                        f'parallelism (DDP) is ROADMAP.md Queue 1 item 4.5')
+        # data parallelism: one process a device, set up by the launcher
+        self.rank, self.world_size = parallel.get_dist_info()
+        self.data_parallel = parallel.initialized()
+        if self.data_parallel:
+            logger.info(f'data parallel: rank {self.rank} of '
+                        f'{self.world_size} ({parallel.backend()}) on '
+                        f'{self.device}')
+        elif int(opt.get('num_devices') or 1) > 1:
+            logger.info(f'num_devices {opt["num_devices"]}: this process '
+                        f'trains on {self.device} alone; for data '
+                        f'parallelism start one process a device (torchrun '
+                        f'--nproc_per_node N ... --launcher pytorch)')
         self.step = 0            # optimizer_g updates so far (its lr step)
         self.step_d = 0          # optimizer_d updates so far
         self.net_d = None
@@ -173,13 +193,19 @@ class BaseTrainer:
     def _seed(self) -> int:
         return int(self.opt.get('manual_seed') or 0)
 
+    def _net(self, net_opt: Dict, seed: int) -> torch.nn.Module:
+        """build_network with the trainer's remat, seeded init."""
+        return init_params_fast(build_network(net_opt, self.remat), seed)
+
     def _finish_g(self, fix_modules=()) -> None:
         """net_g on the device in its textbook form, `fix_modules` frozen,
         the AdamW of optim_g over the rest, its schedule and the EMA."""
         self.net_g.to(self.device)
         set_kernels(self.net_g, False)
         logger.info('net_g: textbook blocks (autograd records every conv; '
-                    'K1/K2 are forward-only)')
+                    'K1/K2 are forward-only)'
+                    + ('; remat: ResBlocks recompute in the backward'
+                       if self.remat else ''))
         self.frozen = freeze_modules(self.net_g, fix_modules)
         self.params_g = [p for p in self.net_g.parameters()
                          if p.requires_grad]
@@ -198,6 +224,7 @@ class BaseTrainer:
         for p in self.params_g:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        self._mean_over_processes([p.grad for p in self.params_g])
         lr = self.schedule_g(self.step)
         for group in self.optimizer.param_groups:
             group['lr'] = lr
@@ -206,6 +233,12 @@ class BaseTrainer:
 
     def _ema(self) -> None:
         ema_update(self.params_ema, self.net_g.state_dict(), self.ema_decay)
+
+    def _mean_over_processes(self, tensors: List[torch.Tensor]) -> None:
+        """Average `tensors` in place over the data-parallel processes (one
+        flattened all-reduce); nothing without a process group."""
+        if self.data_parallel:
+            parallel.all_reduce_mean(tensors)
 
     # ----------------------------------------------------------- EMA
     def reset_ema(self) -> None:
@@ -223,7 +256,10 @@ class BaseTrainer:
         """net_g as {params, params_ema} (a `.pth` that load_pth and the
         reference read), net_d as {params} (its BatchNorm statistics
         included), plus a `.state` file with the optimizer states (the
-        reference two-file scheme, base_model.py:170-280)."""
+        reference two-file scheme, base_model.py:170-280). Under data
+        parallelism only rank 0 writes (every rank holds the same state)."""
+        if self.rank != 0:
+            return
         os.makedirs(self.opt['path']['models'], exist_ok=True)
         state_dir = self.opt['path']['training_states']
         os.makedirs(state_dir, exist_ok=True)
@@ -281,6 +317,7 @@ class BaseTrainer:
             if isinstance(v, list):
                 continue
             t = torch.as_tensor(v).to(self.device, non_blocking=True)
+            # a DevicePrefetcher's batch is on the device already: no copy
             batch[k] = t.permute(0, 3, 1, 2) if t.dim() == 4 else t
         self.batch = batch
 
@@ -298,7 +335,14 @@ class BaseTrainer:
     # ------------------------------------------------------- logging
     def _set_log(self, metrics: Dict[str, torch.Tensor]) -> None:
         """Keep the step's metrics on the device; log_dict fetches them in
-        one transfer when read."""
+        one transfer when read. Under data parallelism they are averaged
+        over the processes first (one all-reduce a step)."""
+        if self.data_parallel and metrics:
+            names = list(metrics)
+            vals = torch.stack([torch.as_tensor(metrics[k], device=self.device)
+                                .float().reshape(()) for k in names])
+            self._mean_over_processes([vals])
+            metrics = dict(zip(names, vals.unbind()))
         self._log_metrics = metrics
         self._log_cache = None
 
@@ -317,6 +361,92 @@ class BaseTrainer:
 
     def get_current_learning_rate(self):
         return [self.schedule_g(self.step)]
+
+    # ---------------------------------------------------- validation
+    @torch.no_grad()
+    def test(self, lq: torch.Tensor, w: float = 1.0) -> torch.Tensor:
+        """The restored batch of `lq` (NCHW on the device): net_g in eval
+        mode on the EMA weights when ema_decay > 0, else on its own
+        (sr_model.py:120-129, codeformer_model.py:250-260; JAX
+        trainers.py:459-473), through torch.func.functional_call, so the
+        EMA state dict is read in place, not copied into a network. The
+        blocks are those net_g trains with (no kernels), the output fp32."""
+        net = self.net_g
+        args = (lq.to(self.compute_dtype),)
+        if 'w' in inspect.signature(net.forward).parameters:
+            args += (w,)
+        was_training = net.training
+        net.eval()
+        try:
+            if self.ema_decay > 0:
+                out = torch.func.functional_call(net, self.params_ema, args)
+            else:
+                out = net(*args)
+        finally:
+            net.train(was_training)
+        out = out[0] if isinstance(out, tuple) else out
+        return out.float()
+
+    def validation(self, dataloader, current_iter: int, tb_logger=None,
+                   save_img: bool = False) -> Dict[str, float]:
+        """PSNR/SSIM validation with per-image dumps (sr_model.py:135-194;
+        JAX trainers.py:475-530): every image of every batch, the metrics
+        of `val: metrics:` on the trainer's device (metrics/ computes in
+        float64 where its inputs lie), their means logged and, with a tb
+        logger, written as `metrics/<name>`. Training runs save
+        visualization/<img>/<img>_<iter>.png, test runs
+        visualization/<img>_<suffix>.png (cv2, imported here). Returns
+        {metric name: mean}."""
+        from codeformer_tpu_torch.metrics import calculate_metric
+        from codeformer_tpu_torch.utils.img_util import tensor_to_imgs
+
+        val_opt = self.opt.get('val') or {}
+        metrics_opt = val_opt.get('metrics') or {}
+        results: Dict[str, list] = {k: [] for k in metrics_opt}
+        w = float(getattr(self, 'fidelity_weight', 1.0))
+        for idx, batch in enumerate(dataloader):
+            lq = batch['lq'] if 'lq' in batch else batch['in']
+            lq = torch.as_tensor(lq).to(self.device).permute(0, 3, 1, 2)
+            paths = (batch.get('lq_path') or batch.get('gt_path')
+                     or [f'{idx:08d}_{j}' for j in range(lq.shape[0])])
+            sr_imgs = tensor_to_imgs(self.test(lq, w=w).permute(0, 2, 3, 1))
+            gt_imgs = (tensor_to_imgs(torch.as_tensor(batch['gt'])
+                                      .to(self.device))
+                       if 'gt' in batch else None)
+            for j, sr_img in enumerate(sr_imgs):
+                img_name = osp.splitext(osp.basename(
+                    paths[min(j, len(paths) - 1)]))[0]
+                if save_img:
+                    self._save_val_img(sr_img, img_name, current_iter,
+                                       val_opt)
+                if gt_imgs is not None:
+                    for name, m_opt in metrics_opt.items():
+                        results[name].append(calculate_metric(
+                            {'img': sr_img, 'img2': gt_imgs[j]}, m_opt))
+        out = {}
+        for name, vals in results.items():
+            if not vals:
+                continue
+            out[name] = float(np.mean(vals))
+            logger.info(f'Validation {name}: {out[name]:.4f} '
+                        f'@ iter {current_iter}')
+            if tb_logger is not None:
+                tb_logger.add_scalar(f'metrics/{name}', out[name],
+                                     current_iter)
+        return out
+
+    def _save_val_img(self, img: torch.Tensor, img_name: str,
+                      current_iter: int, val_opt: Dict) -> None:
+        import cv2
+        if self.opt.get('is_train'):
+            save_path = osp.join(self.opt['path']['visualization'], img_name,
+                                 f'{img_name}_{current_iter}.png')
+        else:
+            suffix = val_opt.get('suffix') or self.opt['name']
+            save_path = osp.join(self.opt['path']['visualization'],
+                                 f'{img_name}_{suffix}.png')
+        os.makedirs(osp.dirname(save_path), exist_ok=True)
+        cv2.imwrite(save_path, img.cpu().numpy())
 
     # ------------------------------------- GAN pieces (stages I, III)
     def _setup_pixel(self) -> None:
@@ -345,7 +475,8 @@ class BaseTrainer:
 
     def _build_perceptual(self) -> None:
         """cri_perceptual from train: perceptual_opt (None if absent), on
-        the device, its VGG in the compute dtype."""
+        the device, its VGG in the compute dtype. Under remat
+        `_perceptual_loss` recomputes it whole in the backward."""
         self.cri_perceptual = None
         if 'perceptual_opt' in self.train_opt:
             from .perceptual import build_perceptual_loss
@@ -353,16 +484,28 @@ class BaseTrainer:
                 self.train_opt['perceptual_opt'], dtype=self.compute_dtype
             ).to(self.device)
 
+    def _perceptual_loss(self, out: torch.Tensor,
+                         gt: torch.Tensor) -> torch.Tensor:
+        """cri_perceptual(out, gt); under remat the backward keeps only
+        (out, gt) and re-runs the VGG taps (JAX trainers.py:193-209)."""
+        if self.remat and records(self.cri_perceptual, out, gt):
+            return checkpoint(self.cri_perceptual, out, gt,
+                              use_reentrant=False)
+        return self.cri_perceptual(out, gt)
+
     def _build_discriminator(self, default: Dict) -> None:
         """net_d (network_d, else `default`; pretrain_network_d if set),
         the AdamW of optim_d and its schedule."""
-        self.net_d = init_params_fast(
-            build_network(self.opt.get('network_d') or default),
-            self._seed() + 2)
+        self.net_d = self._net(self.opt.get('network_d') or default,
+                               self._seed() + 2)
         pre = self._load_pretrain('pretrain_network_d')
         if pre is not None:
             self.net_d.load_state_dict(pre)
         self.net_d.to(self.device)
+        if self.data_parallel:   # BatchNorm over the global batch
+            for m in self.net_d.modules():
+                if hasattr(m, 'sync_stats'):
+                    m.sync_stats = True
         self.schedule_d = build_schedule(self.train_opt,
                                          self.train_opt['optim_d']['lr'])
         self.optimizer_d = build_optimizer(self.train_opt['optim_d'],
@@ -410,6 +553,7 @@ class BaseTrainer:
             main, l_gan, out, m = forward(micro[0])
             (g_main,) = torch.autograd.grad(main, anchor, retain_graph=True)
             (g_gan,) = torch.autograd.grad(l_gan, anchor, retain_graph=True)
+            self._mean_over_processes([g_main, g_gan])
             d_weight = self._d_weight(g_main, g_gan, scale)
             (main + d_weight * l_gan if gan_on else main).backward()
             outs.append(out.detach())
@@ -431,7 +575,9 @@ class BaseTrainer:
                 outs.append(out.detach())
                 add(dict(m, _main=main, _l_gan=l_gan))
             k = next(i for i, p in enumerate(params) if p is anchor)
-            d_weight = self._d_weight(acc_main[k], acc_gan[k], scale)
+            probes = [acc_main[k].clone(), acc_gan[k].clone()]
+            self._mean_over_processes(probes)
+            d_weight = self._d_weight(*probes, scale)
             for p, a, g in zip(params, acc_main, acc_gan):
                 p.grad = a + d_weight * g if gan_on else a
         self._step_g()
@@ -474,6 +620,8 @@ class BaseTrainer:
                              ('out_d_fake', fake_pred.float().mean())):
                     metrics[k] = metrics.get(k, 0.0) + v.detach() / n
         if gan_on:
+            self._mean_over_processes([p.grad for p in net_d.parameters()
+                                       if p.grad is not None])
             lr = self.schedule_d(self.step_d)
             for group in self.optimizer_d.param_groups:
                 group['lr'] = lr
@@ -484,6 +632,53 @@ class BaseTrainer:
                 for b, v in zip(net_d.buffers(), kept):
                     b.copy_(v)
         return metrics
+
+
+@MODEL_REGISTRY.register()
+class SRModel(BaseTrainer):
+    """Generic supervised SR trainer (basicsr/models/sr_model.py; JAX
+    trainers.py:541-611): net_g on batch['lq'] with the pixel (+
+    perceptual) losses against batch['gt'], one AdamW, the EMA at
+    ema_decay (0.999 when unset, as JAX), PSNR/SSIM validation."""
+
+    KNOWN_TRAIN_KEYS = BaseTrainer.KNOWN_TRAIN_KEYS | {
+        'pixel_opt', 'perceptual_opt'}
+
+    def _build(self):
+        self.net_g = self._net(self.opt['network_g'], self._seed())
+        pre = self._load_pretrain('pretrain_network_g')
+        if pre is not None:
+            self.net_g.load_state_dict(pre)
+        self._build_perceptual()
+        self._setup_pixel()
+        self._finish_g()
+
+    def _ema(self) -> None:
+        ema_update(self.params_ema, self.net_g.state_dict(),
+                   self.ema_decay or 0.999)
+
+    def optimize_parameters(self, current_iter: int) -> None:
+        micro = self._microbatches()
+        n = len(micro)
+        self.optimizer.zero_grad(set_to_none=True)
+        metrics: Dict[str, torch.Tensor] = {}
+        for mb in micro:
+            out = self.net_g(mb['lq'].to(self.compute_dtype))
+            out = out[0] if isinstance(out, tuple) else out
+            l_pix = self._pixel_loss(out, mb['gt'])
+            m = {'l_pix': l_pix}
+            total = l_pix
+            if self.cri_perceptual is not None:
+                l_percep = self._perceptual_loss(out, mb['gt'])
+                total = total + l_percep
+                m['l_percep'] = l_percep
+            m['l_total'] = total
+            (total / n).backward()
+            for k, v in m.items():
+                metrics[k] = metrics.get(k, 0.0) + v.detach() / n
+        self._step_g()
+        self._ema()
+        self._set_log(metrics)
 
 
 class _CodeFormerTrainer(BaseTrainer):
@@ -498,7 +693,7 @@ class _CodeFormerTrainer(BaseTrainer):
                                              ('quantize', 'generator')))
         vqgan_path = net_opt.pop('vqgan_path', None)
         seed = self._seed()
-        self.net_g = init_params_fast(build_network(net_opt), seed)
+        self.net_g = self._net(net_opt, seed)
 
         self.hq_feat_loss = self.train_opt.get('use_hq_feat_loss', True)
         self.feat_loss_weight = self.train_opt.get('feat_loss_weight', 1.0)
@@ -530,8 +725,7 @@ class _CodeFormerTrainer(BaseTrainer):
         self.generate_idx_gt = 'network_vqgan' in opt
         self.hq_vqgan = None
         if self.generate_idx_gt:
-            self.hq_vqgan = init_params_fast(
-                build_network(opt['network_vqgan']), seed + 1)
+            self.hq_vqgan = self._net(opt['network_vqgan'], seed + 1)
             vq_pre = self._load_pretrain('pretrain_network_vqgan')
             if vq_pre is None:
                 vq_pre = vq_sd
@@ -650,8 +844,7 @@ class VQGANModel(BaseTrainer):
 
     def _build(self):
         seed = self._seed()
-        self.net_g = init_params_fast(build_network(self.opt['network_g']),
-                                      seed)
+        self.net_g = self._net(self.opt['network_g'], seed)
         pre = self._load_pretrain('pretrain_network_g')
         if pre is not None:
             self.net_g.load_state_dict(pre)
@@ -707,7 +900,7 @@ class VQGANModel(BaseTrainer):
                  'perplexity': perplexity}
             recon = l_pix
             if self.cri_perceptual is not None:
-                l_percep = self.cri_perceptual(out, gt)
+                l_percep = self._perceptual_loss(out, gt)
                 recon = recon + l_percep
                 m['l_g_percep'] = l_percep
             return recon + l_codebook, self._g_gan_loss(out), out, m
@@ -785,7 +978,7 @@ class CodeFormerJointModel(_CodeFormerTrainer):
             m['l_g_pix'] = l_pix
             recon = l_pix
             if self.cri_perceptual is not None:
-                l_percep = self.cri_perceptual(out, mb['gt'])
+                l_percep = self._perceptual_loss(out, mb['gt'])
                 recon = recon + l_percep
                 m['l_g_percep'] = l_percep
             return code_total + recon, self._g_gan_loss(out), out, m

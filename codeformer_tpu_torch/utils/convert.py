@@ -9,7 +9,9 @@ flax names of the torch Sequential heads back to their indices
 raw 4-d `weight` param (DCNv2Pack's, HWIO) -> OIHW. Where flax
 merged a Sequential index into a name that itself ends in digits
 (RetinaFace's `layer1_0`, `stage1_0_0`, `conv5X5_1_0`; YoloFace's
-`model_2_0`, `branch2_3`; BiSeNet's `layer1_0`), the split is
+`model_2_0`, `branch2_3`; BiSeNet's and ResNetArcFace's `layer1_0`;
+ResNetArcFace's PReLU `scale` is its `weight`, as every scale), the
+split is
 ambiguous: `like=` (the target's state-dict keys) resolves each key to
 the target key that reads the same with '.' taken for '_', and adds the
 BatchNorm `num_batches_tracked` counters flax does not keep. The

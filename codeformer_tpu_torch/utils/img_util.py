@@ -1,14 +1,18 @@
-"""Host-side image helpers of the whole-image paths, copied from
-codeformer_tpu/utils/img_util.py (`normalize_img_dtype`, `imwrite`,
-`is_gray`, `bgr2gray3`, `adain_color_transfer`; the reference's
-basicsr/utils/img_util.py and facelib/utils/misc.py:146-202). numpy
-only; cv2 is imported inside the functions that need it, so the card's
-path, which never reads or writes files, does not need it."""
+"""Host-side image helpers of the whole-image paths and of validation,
+copied from codeformer_tpu/utils/img_util.py (`normalize_img_dtype`,
+`imwrite`, `imgs_to_batch`, `batch_to_imgs`, `is_gray`, `bgr2gray3`,
+`adain_color_transfer`; the reference's basicsr/utils/img_util.py and
+facelib/utils/misc.py:146-202), plus `tensor_to_imgs`, batch_to_imgs on
+a device tensor. numpy and torch; cv2 is imported inside the functions that
+need it, so the card's path, which never reads or writes files, does not
+need it."""
 from __future__ import annotations
 
 import os
+from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 def normalize_img_dtype(img: np.ndarray) -> np.ndarray:
@@ -34,6 +38,36 @@ def imwrite(img: np.ndarray, file_path: str, auto_mkdir: bool = True):
     ok = cv2.imwrite(file_path, img)
     if not ok:
         raise IOError(f'failed to write image: {file_path}')
+
+
+def imgs_to_batch(imgs: Sequence[np.ndarray],
+                  mean: float = 0.5, std: float = 0.5) -> np.ndarray:
+    """uint8 BGR images (same size) -> normalized float32 NHWC RGB batch
+    (img2tensor + normalize(mean=.5, std=.5) of the reference CLI,
+    inference_codeformer.py:199-201, batched)."""
+    stack = np.stack([im[..., ::-1] for im in imgs]).astype(np.float32)
+    stack /= 255.0
+    return (stack - mean) / std
+
+
+def batch_to_imgs(batch: np.ndarray, min_max: Tuple[float, float] = (-1, 1)
+                  ) -> List[np.ndarray]:
+    """float NHWC RGB batch -> list of uint8 BGR images, clamped to min_max
+    then rescaled (tensor2img semantics, img_util.py:38-94)."""
+    arr = np.asarray(batch, dtype=np.float32)
+    arr = np.clip(arr, *min_max)
+    arr = (arr - min_max[0]) / (min_max[1] - min_max[0])
+    arr = (arr * 255.0).round().astype(np.uint8)
+    return [im[..., ::-1] for im in arr]
+
+
+def tensor_to_imgs(batch: torch.Tensor,
+                   min_max: Tuple[float, float] = (-1, 1)) -> torch.Tensor:
+    """batch_to_imgs on a float NHWC RGB tensor, on its device, in the
+    same float32 arithmetic: a uint8 NHWC BGR tensor."""
+    arr = batch.float().clamp(*min_max)
+    arr = (arr - min_max[0]) / (min_max[1] - min_max[0])
+    return (arr * 255.0).round().to(torch.uint8).flip(-1)
 
 
 def is_gray(img: np.ndarray, threshold: int = 10) -> bool:

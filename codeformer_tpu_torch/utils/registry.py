@@ -42,5 +42,7 @@ class Registry:
 ARCH_REGISTRY = Registry('arch')
 MODEL_REGISTRY = Registry('model')   # trainers, by `model_type:`
 DATASET_REGISTRY = Registry('dataset')   # data/, by a dataset's `type:`
+METRIC_REGISTRY = Registry('metric')     # metrics/, by a metric's `type:`
 
-__all__ = ['Registry', 'ARCH_REGISTRY', 'MODEL_REGISTRY', 'DATASET_REGISTRY']
+__all__ = ['Registry', 'ARCH_REGISTRY', 'MODEL_REGISTRY', 'DATASET_REGISTRY',
+           'METRIC_REGISTRY']

@@ -164,3 +164,85 @@ def test_bad_act_raises():
     with pytest.raises(ValueError, match='act'):
         cv.conv3x3_dots(x, torch.ones(1, 32), torch.zeros(1, 32), 'relu',
                         torch.zeros(32, 32, 3, 3), torch.zeros(32))
+
+
+# near-constant bf16 maps: a level with randn * 0.01 added to the even
+# channels, cast to bf16 (seed, level, H = W). With the variance taken as
+# E[x^2] - mean^2 in fp32 and not clamped, rounding takes it below -eps
+# in some groups of each map, and rsqrt made `a` NaN there
+GN_NEAR_CONSTANT_BOUND = 0.5
+NEAR_CONSTANT = [(43, 85.28, 128), (97, 89.21, 128), (104, 57.16, 128),
+                 (106, 252.53, 64)]
+
+
+def _near_constant(seed, level, hw):
+    rng = np.random.default_rng(seed)
+    x = np.full((1, hw, hw, 64), level, np.float32)
+    x[..., ::2] += rng.standard_normal((1, hw, hw, 32)).astype(
+        np.float32) * 0.01
+    return torch.from_numpy(x).to(torch.bfloat16)
+
+
+def _median_abs(a, b):
+    return float((a - b).abs().flatten().median())
+
+
+@pytest.mark.parametrize('seed,level,hw', NEAR_CONSTANT)
+def test_gn_affine_clamps_the_variance_on_near_constant_maps(seed, level,
+                                                             hw):
+    """gn_affine's fold, a*x + b, and a ResBlock(64).eval() forward on the
+    fold are finite on near-constant bf16 maps, and held against
+    F.group_norm and flax's GroupNorm (JAX's default serving path, which
+    clamps var at 0 too).
+
+    Tolerance: one-pass fp32 statistics cannot resolve a variance below
+    about ulp(mean^2) (1e-3 - 8e-3 at these levels), and the true one is
+    1e-6 - 1e-4 here, so no fold from [sum, sumsq] matches F.group_norm's
+    centred statistics element by element, and which groups clamp at 0
+    depends on the summation order. flax computes the same one-pass
+    statistics and its fold and its ResBlock sit up to 0.36 and 0.47 from
+    F.group_norm's (median |difference| over a map). So each of the
+    port's fold and ResBlock forward is held, by the median |difference|
+    over the map, within GN_NEAR_CONSTANT_BOUND = 0.5 of F.group_norm's
+    and of flax's, and must be finite everywhere (it was NaN in some
+    groups of each map before the clamp)."""
+    import jax
+    from flax import linen as fnn
+
+    from codeformer_tpu_torch.nn.blocks import ResBlock
+    x = _near_constant(seed, level, hw)
+    rng = np.random.default_rng(seed + 1)
+    gamma = _t(1 + 0.1 * rng.standard_normal(64))
+    beta = _t(0.1 * rng.standard_normal(64))
+    a, b = cv.gn_affine(cv.channel_stats(x), gamma, beta, hw * hw)
+    assert torch.isfinite(a).all() and torch.isfinite(b).all()
+    got = x.float() * a[:, None, None] + b[:, None, None]
+    ref = F.group_norm(x.float().permute(0, 3, 1, 2), 32, gamma, beta,
+                       1e-6).permute(0, 2, 3, 1)
+    flax_gn = fnn.GroupNorm(num_groups=32, epsilon=1e-6).apply(
+        {'params': {'scale': jnp.asarray(gamma.numpy()),
+                    'bias': jnp.asarray(beta.numpy())}},
+        jnp.asarray(x.float().numpy()))
+    flax_gn = torch.from_numpy(np.array(flax_gn))
+    assert torch.isfinite(flax_gn).all()
+    assert _median_abs(got, ref) <= GN_NEAR_CONSTANT_BOUND
+    assert _median_abs(got, flax_gn) <= GN_NEAR_CONSTANT_BOUND
+
+    # the block on the map's values in fp32 (one bf16 step is 0.5 at
+    # these levels), against its textbook form (F.group_norm) and the JAX
+    # ResBlock (flax GroupNorm) on the same weights
+    from codeformer_tpu.nn.blocks import ResBlock as JaxResBlock
+    from codeformer_tpu_torch.utils.convert import flax_to_state_dict
+    xn = jnp.asarray(x.float().numpy())
+    variables = JaxResBlock(64).init(jax.random.PRNGKey(seed), xn)
+    y_jax = torch.from_numpy(np.array(JaxResBlock(64).apply(variables, xn)))
+    blk = ResBlock(64).eval()
+    blk.load_state_dict(flax_to_state_dict(variables))
+    xf = x.float().permute(0, 3, 1, 2)
+    with torch.no_grad():
+        y = blk(xf).permute(0, 2, 3, 1)
+        blk.use_kernels = False
+        y_ref = blk(xf).permute(0, 2, 3, 1)
+    assert torch.isfinite(y).all() and torch.isfinite(y_jax).all()
+    assert _median_abs(y, y_ref) <= GN_NEAR_CONSTANT_BOUND
+    assert _median_abs(y, y_jax) <= GN_NEAR_CONSTANT_BOUND

@@ -135,3 +135,33 @@ def test_loader_start_epoch_resumes_the_epoch_order(start_epoch):
     resumed = _first_batches(loader(ploader, start_epoch=start_epoch),
                              2 * per_epoch)
     assert resumed == whole[per_epoch * start_epoch:]
+
+
+def test_device_prefetcher_is_an_identity_stage_on_the_cpu():
+    """DevicePrefetcher on a CPU device hands the loader's batches on in
+    order with their values unchanged (on the card it stages them a step
+    ahead on a side stream); its length is the loader's. The loader
+    module imports without cv2, so the card's machine can import it."""
+    import subprocess
+    import sys
+    opt = {'batch_size_per_gpu': 2, 'num_worker_per_gpu': 2}
+
+    def batches(stage):
+        ld = ploader.build_dataloader(_Numbered(), opt,
+                                      sampler=ploader.EnlargedSampler(6))
+        ld.loop = False
+        src = ploader.DevicePrefetcher(ld, 'cpu') if stage else ld
+        assert len(src) == 3
+        return list(src)
+    want, got = batches(False), batches(True)
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        np.testing.assert_array_equal(g['i'], w['i'])
+    out = subprocess.run(
+        [sys.executable, '-c', 'import sys; import codeformer_tpu_torch.'
+         'data.loader as l; print(l.DevicePrefetcher.__name__, '
+         '"cv2" in sys.modules)'],
+        cwd=osp.dirname(osp.dirname(osp.abspath(__file__))),
+        capture_output=True, text=True, timeout=120)
+    assert out.stdout.split() == ['DevicePrefetcher', 'False'], out.stderr

@@ -129,20 +129,21 @@ def test_kernel_sources_and_signatures():
 
 
 def test_model_registry_holds_the_ported_trainers():
-    """The four stage trainers are registered (stage I and III since
-    they were ported; CodeFormerJointModel raised before); a model type
-    the port lacks still raises, naming its ROADMAP item."""
+    """The five trainers are registered (stage I and III since they were
+    ported, SRModel since it was: it raised before); an unknown model
+    type still raises, naming the registered ones."""
     from codeformer_tpu_torch.train import trainers
     from codeformer_tpu_torch.utils.registry import ARCH_REGISTRY, MODEL_REGISTRY
     for name in ('VQGANModel', 'CodeFormerIdxModel', 'CodeFormerJointModel',
-                 'CodeFormerModel'):
+                 'CodeFormerModel', 'SRModel'):
         assert MODEL_REGISTRY.get(name) is getattr(trainers, name)
     assert issubclass(trainers.CodeFormerModel,
                       trainers.CodeFormerJointModel)
-    for name in ('VQGANDiscriminator', 'VGGFeatureExtractor'):
+    for name in ('VQGANDiscriminator', 'VGGFeatureExtractor',
+                 'ResNetArcFace'):
         assert name in ARCH_REGISTRY
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        trainers.build_model({'model_type': 'SRModel'})
+    with pytest.raises(KeyError, match='No object named.*SRModel'):
+        trainers.build_model({'model_type': 'NoSuchModel'})
 
 
 def test_registry_holds_the_port_archs():

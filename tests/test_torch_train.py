@@ -315,28 +315,35 @@ STAGE1 = {'model_type': 'VQGANModel', 'network_g': dict(TINY_VQGAN),
           'network_d': TINY_D}
 
 
-@pytest.mark.parametrize('change,match', [
-    pytest.param({'train': {'remat': True}}, 'remat.*item 4.3',
-                 id='change0-remat'),
-    pytest.param({'datasets': {'val': {'name': 'v'}}},
-                 'validation.*item 4.4', id='change1-validation'),
-    pytest.param(STAGE1, None, id='change2-VQGANModel'),
+@pytest.mark.parametrize('change,kind', [
+    pytest.param({'train': {'remat': True}}, 'remat', id='change0-remat'),
+    pytest.param({'datasets': {'val': {'name': 'v'}}}, 'validation',
+                 id='change1-validation'),
+    pytest.param(STAGE1, 'stage1', id='change2-VQGANModel'),
     pytest.param(dict(STAGE1, network_g=dict(TINY_VQGAN, quantizer='gumbel')),
-                 None, id='change3-gumbel'),
+                 'stage1', id='change3-gumbel'),
 ])
-def test_unported_options_raise(tmp_path, change, match):
-    """remat and validation datasets still raise, naming their ROADMAP
-    items. Stage I (VQGANModel) and the Gumbel quantizer raised here
-    until they were ported: they now build and take a step."""
+def test_unported_options_raise(tmp_path, change, kind):
+    """Options that raised NotImplementedError until they were ported
+    now build and take a step: remat (every ResBlock of net_g and of the
+    frozen HQ VQGAN rematerializes), a validation dataset, stage I
+    (VQGANModel) and the Gumbel quantizer."""
+    from codeformer_tpu_torch.nn.blocks import ResBlock
     opt = _opt(tmp_path)
     for k, v in change.items():
         if k == 'train':
             opt['train'].update(v)
         else:
             opt[k] = v
-    if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
-            _port(opt)
+    if kind != 'stage1':
+        pm = _port(opt)
+        assert type(pm).__name__ == 'CodeFormerIdxModel'
+        blocks = [m for net in (pm.net_g, pm.hq_vqgan)
+                  for m in net.modules() if isinstance(m, ResBlock)]
+        assert blocks and all(m.remat == (kind == 'remat') for m in blocks)
+        pm.feed_data(_batch(9))
+        pm.optimize_parameters(1)
+        assert np.isfinite(pm.log_dict['l_g_total']) and pm.step == 1
         return
     opt['train']['optim_d'] = dict(opt['train']['optim_g'])
     pm = _port(opt)
@@ -534,20 +541,152 @@ def test_build_model_takes_the_shipped_gan_ymls(tmp_path, monkeypatch, yml,
     assert pm.compute_dtype == torch.float32 and pm.device.type == 'cpu'
 
 
+@pytest.mark.parametrize('yml', [
+    'CodeFormer_stage2.yml', 'CodeFormer_colorization.yml',
+    'VQGAN_512_ds32_nearest_stage1.yml', 'CodeFormer_stage3.yml',
+    'CodeFormer_inpainting.yml'])
+def test_shipped_ymls_build_with_remat_and_a_val_set(tmp_path, monkeypatch,
+                                                     yml):
+    """Each shipped yml with its commented `remat: true` set and a `val_1`
+    PairedImageDataset block builds its trainer (both raised
+    NotImplementedError before they were ported): every ResBlock of
+    net_g rematerializes, the discriminator has no such option, and a
+    validation pass over one seeded pair reports the yml's metrics.
+    Widths cut to the tiny configs, pretrained paths cleared, LPIPS on
+    seeded VGG16/lin files."""
+    import cv2
+    from test_torch_stage1 import _write_vgg
+
+    from codeformer_tpu_torch.nn.blocks import ResBlock
+    from codeformer_tpu_torch.utils.options import parse
+    root = osp.dirname(osp.dirname(osp.abspath(__file__)))
+    opt = parse(osp.join(root, 'options', yml), str(tmp_path), is_train=True)
+    _write_vgg(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    opt['device'] = 'cpu'
+    opt['train']['remat'] = True
+    opt['path'] = {k: None for k in opt['path']} | {
+        'models': str(tmp_path / 'models'),
+        'training_states': str(tmp_path / 'states'),
+        'visualization': str(tmp_path / 'vis')}
+    for sub in ('lq', 'gt'):
+        (tmp_path / sub).mkdir()
+        cv2.imwrite(str(tmp_path / sub / 'p.png'), np.random.default_rng(
+            len(sub)).uniform(0, 255, (64, 64, 3)).astype(np.uint8))
+    opt['datasets']['val_1'] = {
+        'name': 'pairs', 'type': 'PairedImageDataset',
+        'dataroot_lq': str(tmp_path / 'lq'),
+        'dataroot_gt': str(tmp_path / 'gt')}
+    if opt['model_type'] == 'VQGANModel':
+        opt['network_g'] = dict(opt['network_g'], img_size=64, nf=32,
+                                ch_mult=[1, 2, 4], codebook_size=32,
+                                emb_dim=16)
+    else:
+        opt['network_g'] = dict(TINY_CF, codebook_size=opt['network_g'][
+            'codebook_size'], connect_list=['32', '64'],
+            fix_modules=opt['network_g'].get('fix_modules',
+                                             ['quantize', 'generator']))
+        opt['network_vqgan'] = dict(TINY_VQGAN, codebook_size=opt[
+            'network_vqgan']['codebook_size'])
+    if 'network_d' in opt:
+        opt['network_d'] = dict(opt['network_d'], ndf=8, n_layers=2)
+    pm = _port(opt)
+    assert pm.remat
+    blocks = [m for m in pm.net_g.modules() if isinstance(m, ResBlock)]
+    assert blocks and all(m.remat for m in blocks)
+    from codeformer_tpu_torch.data import build_dataset
+    from codeformer_tpu_torch.data.loader import build_dataloader
+    val_loader = build_dataloader(build_dataset(opt['datasets']['val_1']),
+                                  opt['datasets']['val_1'], is_train=False)
+    res = pm.validation(val_loader, current_iter=1)
+    assert set(res) == set(opt['val']['metrics'])
+    assert all(np.isfinite(v) for v in res.values())
+
+
+def _with_val_and_tb(tmp_path, yml):
+    """The tiny yml with a paired val set of two seeded 64x64 pairs under
+    tmp_path, validation every iteration (PSNR and SSIM, images saved)
+    and the TensorBoard logger on."""
+    import cv2
+    import yaml
+    rng = np.random.default_rng(1)
+    for sub in ('val_lq', 'val_gt'):
+        (tmp_path / sub).mkdir()
+        for i in range(2):
+            cv2.imwrite(str(tmp_path / sub / f'v{i}.png'),
+                        rng.uniform(0, 255, (64, 64, 3)).astype(np.uint8))
+    opt = yaml.safe_load(yml.read_text())
+    opt['datasets']['val'] = {
+        'name': 'tiny_val', 'type': 'PairedImageDataset',
+        'dataroot_lq': str(tmp_path / 'val_lq'),
+        'dataroot_gt': str(tmp_path / 'val_gt'),
+        'io_backend': {'type': 'disk'}}
+    opt['val'] = {'val_freq': 1, 'save_img': True, 'metrics': {
+        'psnr': {'type': 'calculate_psnr', 'crop_border': 4,
+                 'test_y_channel': False},
+        'ssim': {'type': 'calculate_ssim', 'crop_border': 4,
+                 'test_y_channel': True}}}
+    opt['logger']['use_tb_logger'] = True
+    yml.write_text(yaml.safe_dump(opt))
+    return yml
+
+
 def test_train_pipeline_two_iterations(tmp_path):
     """python -m codeformer_tpu_torch.train.train -opt <tiny yml>, in
     process: the port's own FFHQ dataset and loader feed the trainer for
-    2 iterations on the yml's `device: cpu`; checkpoints written."""
+    2 iterations on the yml's `device: cpu`; checkpoints written; the
+    paired val set validated after every iteration (PSNR/SSIM, images
+    saved); the iteration message in the reference format; TensorBoard
+    scalars under losses/ and metrics/; then a resume from iteration 2
+    to 3 that validates again."""
+    import re
+
+    from tensorboard.backend.event_processing.event_accumulator import \
+        EventAccumulator
+
     from codeformer_tpu_torch.train.train import train_pipeline
-    yml = _tiny_yml(tmp_path)
-    model = train_pipeline(str(tmp_path), ['-opt', str(yml)])
-    assert model.device == torch.device('cpu')
-    assert model.step == 2
-    assert all(np.isfinite(v) for v in model.log_dict.values())
-    exp = tmp_path / 'experiments' / 'port_stage2_tiny'
-    for f in ('models/net_g_2.pth', 'models/net_g_latest.pth',
-              'training_states/2.state', 'training_states/latest.state'):
-        assert (exp / f).exists(), f
+    yml = _with_val_and_tb(tmp_path, _tiny_yml(tmp_path))
+    records = []
+
+    class _Catch(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+    handler = _Catch(level=logging.INFO)
+    logging.getLogger('codeformer_tpu_torch').addHandler(handler)
+    try:
+        model = train_pipeline(str(tmp_path), ['-opt', str(yml)])
+        assert model.device == torch.device('cpu')
+        assert model.step == 2
+        assert all(np.isfinite(v) for v in model.log_dict.values())
+        exp = tmp_path / 'experiments' / 'port_stage2_tiny'
+        for f in ('models/net_g_2.pth', 'models/net_g_latest.pth',
+                  'training_states/2.state', 'training_states/latest.state',
+                  'visualization/v0/v0_1.png', 'visualization/v1/v1_2.png'):
+            assert (exp / f).exists(), f
+        model = train_pipeline(str(tmp_path), [
+            '-opt', str(yml), '--force_yml',
+            f'path:resume_state={exp / "training_states" / "2.state"}',
+            'train:total_iter=3'])
+        assert model.step == 3
+        assert (exp / 'visualization' / 'v0' / 'v0_3.png').exists()
+    finally:
+        logging.getLogger('codeformer_tpu_torch').removeHandler(handler)
+    msg = re.compile(
+        r'^\[port_\.\.\]\[epoch:  0, iter: {7}(\d), lr:\(1\.000e-04\)\] '
+        r'\[eta: \d+:\d\d:\d\d, time \(data\): \d+\.\d{3} \(\d+\.\d{3}\)\] '
+        r'l_feat_encoder: \S+e[-+]\d\d cross_entropy_loss: \S+ '
+        r'l_g_total: \S+ $')
+    iters = [int(m.group(1)) for m in map(msg.match, records) if m]
+    assert iters == [1, 2, 3], records
+    vals = [r for r in records if r.startswith('Validation ')]
+    assert len(vals) == 6 and vals[0].startswith('Validation psnr: ')
+    acc = EventAccumulator(str(exp / 'tb_logger'))
+    acc.Reload()
+    tags = set(acc.Tags()['scalars'])
+    assert {'losses/l_feat_encoder', 'losses/l_g_total',
+            'cross_entropy_loss', 'metrics/psnr', 'metrics/ssim'} <= tags
+    assert [e.step for e in acc.Scalars('metrics/psnr')] == [1, 2, 3]
+    assert [e.step for e in acc.Scalars('losses/l_g_total')] == [1, 2, 3]
 
 
 # ----------------------------------------------- losses, schedules, optim
