@@ -126,6 +126,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      BatchNorm statistics within 1e-6; launches equal);
   7d. SRModel (RRDBNet at x2plus width, fp32, B=4): 3 steps, a falling
      loss, ms a step; 7e. ResNetArcFace (B=8, fp32) card vs host, ms.
+After serving (5), the last serving features at full width:
+  5j. --dtype fp32: the restorer serves the plain path (no K1/K2) with
+     TF32 off inside the call and the caller's flags back after it; its
+     forward against the same model on the host (B=2, codes held), the
+     forward with TF32 left on failing the bound; faces/s at B=1 and 8;
+  5k. --quant int8: every int8 conv shape of a forward (conv_in, the
+     ResBlock convs, the Downsamples, the four Upsample phases, conv_out)
+     with its int32 product equal to the host's on the same int8
+     operands; the B=8 forward with no K1/K2 and the expected _int_mm
+     calls; code agreement and generator PSNR against the bf16 kernel
+     path (JAX's budgets); int8 and bf16 faces/s at B=1, 8, 16 and peak
+     memory; one 512^2 int8 conv against cuDNN bf16;
+  5l. CodeFormerRestorer(devices=['cuda:0']) bit-equal to the one-device
+     restorer at B=8 (one card: no two-card reading);
+and after 5e, inference_vqgan's core `reconstruct` at B=4 in bf16 with
+exact launches (K1, K2, one K3), against the plain path with the codes
+held, images/s at fp32 and bf16.
 Every time is per launch: runs of back-to-back launches between two
 CUDA events (`time_ms`), the median run. The last line is the JSON
 result; the line before it lists the kernels, each with its launches on
@@ -2944,7 +2961,7 @@ def codes_held(model, codes: list, replay: bool):
         if not replay:
             codes.append(indices)
             return get(indices, *args, **kw)
-        held = next(calls)
+        held = next(calls).to(indices.device)
         print(f"    codes held: the forward's own picks agree on "
               f'{float((indices == held).float().mean()):.4f}', flush=True)
         return get(held, *args, **kw)
@@ -4039,6 +4056,405 @@ def vqgan_activities(probe) -> None:
                          'one device activity')
 
 
+# ---------------------------------------------- the last serving features
+FP32_BATCH = 8
+FP32_HOST_BATCH = 2
+# fp32 serving on the card (cuDNN, TF32 off) against the same model on the
+# host (codes held): lq_feat and logits rel RMS read 6.0e-6 and 4.5e-6, the
+# images 0.0003 levels apart on average (one value off by one) on an H100;
+# the same forward with TF32 left on reads 1.1e-3 and 0.042 (PERF.md)
+FP32_REL_BOUND = 3e-5
+FP32_DIFF_BOUND = 0.005    # uint8 levels, mean |diff|
+# JAX's int8 budgets (tests/test_int8.py): code agreement with the float
+# path and the generator's PSNR against it on the same codes
+INT8_AGREE_FLOOR = 0.85
+INT8_PSNR_FLOOR = 35.0
+RATE_WINDOWS = 2           # windows a path in the phases below
+
+
+def tf32_flags() -> tuple:
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+def set_tf32(flags) -> None:
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def paths_rate(paths: dict, xb) -> dict:
+    """Faces/s of each restorer in `paths` on the uint8 batch xb,
+    RATE_WINDOWS windows of >= RATE_WINDOW_S s each, the paths in turns
+    (a b b a ...); {name: (median, min, max)}."""
+    got = {k: [] for k in paths}
+    names = list(paths)
+    for rep in range(RATE_WINDOWS):
+        for name in (names if rep % 2 == 0 else names[::-1]):
+            got[name].append(_rate(paths[name], xb))
+    return {k: (statistics.median(v), min(v), max(v)) for k, v in got.items()}
+
+
+def fmt_rate(r) -> str:
+    return f'{r[0]:.2f} [{r[1]:.2f}, {r[2]:.2f}]'
+
+
+def phase_fp32():
+    """--dtype fp32 on the card: CodeFormerRestorer(device='cuda',
+    dtype=float32) at full width serves the plain path (no K1/K2) with
+    TF32 off for the call and the caller's flags back after it; its
+    forward against the same model on the host (B=2, codes held), and a
+    TF32 forward (the guard planted away) that must fail the bound;
+    faces/s at B=1 and 8. Returns the launch counts of the requests."""
+    import copy
+
+    from codeformer_tpu_torch.pipeline import restorer as rmod
+    r = rmod.CodeFormerRestorer(device='cuda', dtype=torch.float32, seed=0)
+    tame_sft(r.model)
+    rng = np.random.default_rng(21)
+    faces = _faces(rng, FP32_BATCH)
+    seen = []
+    hook = r.model.register_forward_pre_hook(
+        lambda m, a: seen.append(tf32_flags()))
+    prev = tf32_flags()
+    set_tf32((True, True))
+    try:
+        reset_all_counts()
+        out = r.restore_batch(faces, w=0.5)
+        torch.cuda.synchronize()
+        counts = all_counts()
+        after = tf32_flags()
+    finally:
+        set_tf32(prev)
+        hook.remove()
+    print(f'fp32 serving, full width, B={FP32_BATCH}: launches {counts} '
+          f'(expected none); TF32 flags (cudnn, matmul) in the forward '
+          f'{seen}, after it {after} (set (True, True) before it)',
+          flush=True)
+    if any(counts.values()) or seen != [(False, False)] \
+            or after != (True, True):
+        raise SystemExit('chip_smoke: fp32 serving launched a kernel or '
+                         'left TF32 on')
+    for face, o in zip(faces, out):
+        if o.shape != face.shape or o.dtype != np.uint8 \
+                or np.array_equal(o, face):
+            raise SystemExit('chip_smoke: fp32 serving output is wrong (or '
+                             'the passthrough fired)')
+    x = torch.from_numpy(np.stack(_faces(rng, FP32_HOST_BATCH))[..., ::-1]
+                         .copy())
+    host = copy.deepcopy(r.model).cpu()
+    codes = []
+    with torch.inference_mode(), rmod.ieee_fp32(), \
+            codes_held(r.model, codes, replay=False):
+        card = r.model(r.normalize(x.cuda()), 0.5, adain=True)
+    t0 = time.perf_counter()
+    with torch.inference_mode(), codes_held(host, codes, replay=True):
+        ref = host(r.normalize(x), 0.5, adain=True)
+    host_s = time.perf_counter() - t0
+
+    def against(label, got):
+        diff = (r.denormalize(got[0]).float().cpu()
+                - r.denormalize(ref[0]).float()).abs()
+        rr = dict(lq=rel_rms(got[2].cpu(), ref[2]),
+                  logits=rel_rms(got[1].cpu(), ref[1]),
+                  diff=float(diff.mean()))
+        inside = (max(rr['lq'], rr['logits']) <= FP32_REL_BOUND
+                  and rr['diff'] <= FP32_DIFF_BOUND)
+        print(f'  {label} vs the host (fp32, codes held): lq_feat rel_rms '
+              f'{rr["lq"]:.3g}, logits rel_rms {rr["logits"]:.3g} (<= '
+              f'{FP32_REL_BOUND}); image diff mean {rr["diff"]:.4f} (<= '
+              f'{FP32_DIFF_BOUND}) max {float(diff.max()):.0f} levels: '
+              f'{"within bounds" if inside else "OUT of bounds"}', flush=True)
+        return inside
+
+    img_std = float(r.denormalize(card[0]).float().std())
+    print(f'  card forward B={FP32_HOST_BATCH}: image std {img_std:.2f} '
+          f'(>= {MIN_IMAGE_STD}); the host forward took {host_s:.1f} s',
+          flush=True)
+    if img_std < MIN_IMAGE_STD or not against('card fp32 forward', card):
+        raise SystemExit('chip_smoke: fp32 serving on the card disagrees '
+                         'with the host')
+    set_tf32((True, True))        # the forward without the restorer's guard
+    try:
+        with torch.inference_mode(), \
+                codes_held(r.model, codes, replay=True):
+            fault = r.model(r.normalize(x.cuda()), 0.5, adain=True)
+    finally:
+        set_tf32(prev)
+    if against('planted fault: TF32 left on', fault):
+        raise SystemExit('chip_smoke: the fp32 bounds let TF32 pass')
+    del host, ref, card, fault
+    print(f'  fp32 faces/s through restore_device, TF32 off, '
+          f'{RATE_WINDOWS} windows of >= {RATE_WINDOW_S} s: median [min, '
+          f'max]', flush=True)
+    for bsz in (1, FP32_BATCH):
+        xb = torch.from_numpy(np.stack(_faces(rng, bsz))).cuda()
+        print(f'  fp32 faces/s at B={bsz}: '
+              f'{fmt_rate(paths_rate({"fp32": r}, xb)["fp32"])}', flush=True)
+    del r
+    torch.cuda.empty_cache()
+    return counts
+
+
+def int8_calls_at(keys, bsz: int) -> int:
+    """_int_mm calls of one forward at batch `bsz`, from the per-image
+    shapes of its int8 convs (whole images a call, nn/quant.py)."""
+    from codeformer_tpu_torch.nn import quant as pq
+    n = 0
+    for (h, w, c), _, kh, kw, stride, pads in keys:
+        ho = (h + pads[0] + pads[1] - kh) // stride + 1
+        wo = (w + pads[2] + pads[3] - kw) // stride + 1
+        kp = -(-kh * kw * c // 8) * 8
+        per = max(1, pq.CHUNK_BYTES // (ho * wo * kp))
+        n += -(-bsz // per)
+    return n
+
+
+def phase_int8(bf16):
+    """--quant int8 on the card: CodeFormerRestorer(device='cuda',
+    quant='int8') at full width. Every int8 conv shape of a B=1 forward
+    (the padded conv_in and conv_out, the ResBlock convs, the
+    Downsamples, the four Upsample phases) against the host's int32
+    product on the same int8 operands, exactly; the B=8 forward with no
+    K1/K2 and the expected _int_mm calls; its codes against the bf16
+    kernel path's and the generator's PSNR against bf16 on the same codes
+    (JAX's budgets); int8 and bf16 faces/s at B=1, 8, 16 in turns and
+    peak memory; the 512^2 64->64 conv's time. Returns the launches of
+    the B=8 forward (all kernels 0) with `int_mm`."""
+    from codeformer_tpu_torch.nn import quant as pq
+    from codeformer_tpu_torch.pipeline.restorer import CodeFormerRestorer
+    r = CodeFormerRestorer(device='cuda', quant='int8', seed=0)
+    tame_sft(r.model)
+    rng = np.random.default_rng(22)
+    calls, first = [], {}
+    real = pq.int8_conv
+
+    def spy(xq, wt, stride=1, pads=(1, 1, 1, 1)):
+        y = real(xq, wt, stride, pads)
+        key = (tuple(xq.shape[1:]), wt.n, wt.kh, wt.kw, stride, tuple(pads))
+        calls.append(key)
+        first.setdefault(key, (xq, wt, y))
+        return y
+
+    x1 = torch.from_numpy(np.stack(_faces(rng, 1))).cuda()
+    with mock.patch.object(pq, 'int8_conv', spy):
+        r.restore_device(x1)
+    torch.cuda.synchronize()
+    bad = []
+    t0 = time.perf_counter()
+    for key, (xq, wt, y) in first.items():
+        host = real(xq.cpu(), wt._replace(mat=wt.mat.cpu()), key[4], key[5])
+        if not torch.equal(host, y.cpu()):
+            bad.append(key)
+    print(f'int8 serving, full width: {len(calls)} int8 convs a forward, '
+          f'{len(first)} distinct shapes ((H, W, Cin), N, kh, kw, stride, '
+          f'pads): ' + '; '.join(str(k) for k in first), flush=True)
+    print(f'  int32 products on the card vs the host on the same int8 '
+          f'operands (B=1, every shape): {len(first) - len(bad)} of '
+          f'{len(first)} equal ({time.perf_counter() - t0:.1f} s on the '
+          f'host)', flush=True)
+    if bad:
+        raise SystemExit(f'chip_smoke: int8 products differ from the host '
+                         f'at {bad}')
+    x8 = torch.from_numpy(np.stack(_faces(rng, 8))).cuda()
+    reset_all_counts()
+    pq.reset_launch_counts()
+    r.restore_device(x8)
+    torch.cuda.synchronize()
+    counts = dict(all_counts(), **pq.launch_counts())
+    want = int8_calls_at(calls, 8)
+    print(f'  B=8 forward: launches {counts} (no kernel; int_mm expected '
+          f'{want})', flush=True)
+    if any(v for k, v in counts.items() if k != 'int_mm') \
+            or counts['int_mm'] != want:
+        raise SystemExit('chip_smoke: the int8 forward launched a kernel or '
+                         'another count of _int_mm calls')
+    xn = bf16.normalize(x8)
+    with torch.inference_mode():
+        _, logits_f, _ = bf16.model(xn, 0.5, adain=True)
+        _, logits_q, _ = r.model(xn, 0.5, adain=True)
+        idx = logits_f.argmax(-1)
+        agree = float((logits_q.argmax(-1) == idx).float().mean())
+        q = bf16.model.quantize.get_codebook_feat(
+            idx, shape=(8, 16, 16, 256), dtype=torch.bfloat16)
+        y_f = bf16.model.generator(q).float()
+        y_q = r.model.generator(q).float()
+    peak = float(y_f.abs().max())
+    mse = float((y_q - y_f).pow(2).mean())
+    psnr = 10.0 * math.log10(peak ** 2 / max(mse, 1e-12))
+    print(f'  int8 vs the bf16 kernel path, B=8: code agreement {agree:.4f} '
+          f'(>= {INT8_AGREE_FLOOR}); generator on the bf16 codes: PSNR '
+          f'{psnr:.2f} dB (>= {INT8_PSNR_FLOOR}; peak {peak:.3g})',
+          flush=True)
+    if agree < INT8_AGREE_FLOOR or psnr < INT8_PSNR_FLOOR \
+            or not torch.isfinite(y_q).all():
+        raise SystemExit('chip_smoke: int8 serving outside JAX\'s budgets')
+    conv = r.model.encoder.blocks[1].conv1
+    xc = torch.randn(8, 64, 512, 512, device='cuda', dtype=torch.bfloat16) \
+        .contiguous(memory_format=torch.channels_last)
+    wc = conv.weight.to(torch.bfloat16)
+    with torch.inference_mode():
+        t_q = time_ms(lambda: conv(xc), iters=5, runs=3)
+        t_c = time_ms(lambda: torch.nn.functional.conv2d(
+            xc, wc, conv.bias.to(torch.bfloat16), padding=1), iters=5,
+            runs=3)
+        xh = xc.permute(0, 2, 3, 1)
+        xq, sx = pq.quantize_act(xh)
+        wt = conv.int8_weight(torch.bfloat16)
+        y32 = pq.int8_conv(xq, wt)
+        a = torch.randint(-127, 128, (7 * 512 * 512, 576), device='cuda',
+                          dtype=torch.int8)
+        parts = {
+            'quantize_act': time_ms(lambda: pq.quantize_act(xh), 5, 3),
+            'int8_conv (patch matrices + _int_mm)':
+                time_ms(lambda: pq.int8_conv(xq, wt), 5, 3),
+            '_int_mm alone, one 7-image chunk':
+                time_ms(lambda: torch._int_mm(a, wt.mat.t()), 5, 3),
+            'dequantize': time_ms(lambda: pq.dequantize(
+                y32, sx, wt.scale, torch.bfloat16), 5, 3)}
+    print(f'  one 512^2 64->64 conv at B=8: int8 (quantize, patch matrix, '
+          f'_int_mm, dequantize, bias) {t_q:.4f} ms {t_q.spread()}, cuDNN '
+          f'bf16 {t_c:.4f} ms {t_c.spread()}; int8 steps: ' + '; '.join(
+              f'{k} {v:.4f} ms' for k, v in parts.items()), flush=True)
+    del xc, xh, xq, y32, a
+    for bsz in (1, 8, 16):
+        xb = torch.from_numpy(np.stack(_faces(rng, bsz))).cuda()
+        rates = paths_rate({'int8': r, 'bf16': bf16}, xb)
+        peaks = {}
+        for name, rr in (('int8', r), ('bf16', bf16)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            rr.restore_device(xb)
+            torch.cuda.synchronize()
+            peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        print(f'  faces/s at B={bsz}: int8 {fmt_rate(rates["int8"])}, bf16 '
+              f'{fmt_rate(rates["bf16"])}, ratio '
+              f'{rates["int8"][0] / rates["bf16"][0]:.3f}; peak memory '
+              f'above the weights int8 {peaks["int8"]:.2f} GiB, bf16 '
+              f'{peaks["bf16"]:.2f} GiB', flush=True)
+    del r
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_multi_device(bf16):
+    """CodeFormerRestorer(devices=['cuda:0']) against the serving
+    restorer (same seed, device='cuda') at B=8: restore_device and
+    restore_batch bit for bit, the same launches. The machine has one
+    card: a two-card reading is not made. Returns its launches."""
+    from codeformer_tpu_torch.pipeline.restorer import CodeFormerRestorer
+    r = CodeFormerRestorer(devices=['cuda:0'], seed=0)
+    tame_sft(r.model)
+    faces = _faces(np.random.default_rng(23), 8)
+    x8 = torch.from_numpy(np.stack(faces)).cuda()
+    reset_all_counts()
+    got = r.restore_device(x8)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    reset_all_counts()
+    want = bf16.restore_device(x8)
+    torch.cuda.synchronize()
+    ref_counts = all_counts()
+    same_batch = all(np.array_equal(a, b) for a, b in zip(
+        r.restore_batch(faces), bf16.restore_batch(faces)))
+    equal = bool(torch.equal(got, want)) and same_batch
+    print(f"multi-device restorer, devices=['cuda:0'] (one card here), B=8: "
+          f'restore_device {"bit-equal" if torch.equal(got, want) else "DIFFERS"}'
+          f', restore_batch {"bit-equal" if same_batch else "DIFFERS"} to '
+          f'the one-device restorer; launches {counts} (one device: '
+          f'{ref_counts}); buckets {r.batch_buckets}', flush=True)
+    if not equal or counts != ref_counts:
+        raise SystemExit('chip_smoke: the multi-device restorer differs from '
+                         'the one-device restorer')
+    del r
+    torch.cuda.empty_cache()
+    return counts
+
+
+VQGAN_CLI_BATCH = 4
+
+
+def phase_vqgan_cli():
+    """inference_vqgan's core (`reconstruct`) at full width on
+    VQGAN_CLI_BATCH seeded faces: --dtype bf16 with exact launches (K1,
+    K2, one K3), against the plain path (K1/K2/K3 plain, the codes held);
+    images/s at fp32 and bf16. Returns the bf16 launches."""
+    from codeformer_tpu_torch.cli import generate_latent_gt as glg
+    from codeformer_tpu_torch.cli import inference_vqgan as ivq
+    from codeformer_tpu_torch.nn.blocks import ResBlock
+    from codeformer_tpu_torch.ops import conv3x3 as cv
+    from codeformer_tpu_torch.ops import vq
+    faces = np.stack(_faces(np.random.default_rng(24), VQGAN_CLI_BATCH))
+    x = torch.from_numpy(faces[..., ::-1].copy()).cuda()
+    m16 = glg.build_vqgan(None, seed=4, dtype=torch.bfloat16, device='cuda')
+    n_res = sum(isinstance(m, ResBlock) for m in m16.modules())
+    picks = []
+    search = vq.nearest_code_indices
+
+    def record(z, e):
+        picks.append(search(z, e))
+        return picks[-1]
+
+    reset_all_counts()
+    with mock.patch.object(vq, 'nearest_code_indices', record):
+        y = ivq.reconstruct(m16, x, torch.bfloat16)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    want = dict(NO_LAUNCHES, conv3x3_dots=2 * n_res + 1, downsample_dots=5,
+                nearest_code=1)
+    print(f'inference_vqgan core, full width, bf16, B={VQGAN_CLI_BATCH}: '
+          f'launches {counts} (expected {want}); output '
+          f'{tuple(y.shape)} {y.dtype}', flush=True)
+    if counts != want or y.shape != x.shape or y.dtype != torch.uint8:
+        raise SystemExit('chip_smoke: inference_vqgan launches or output '
+                         'differ')
+    agree = []
+
+    def held(z, e):
+        agree.append(float((vq._nearest_code_ref(z, e) == picks[0])
+                           .float().mean()))
+        return picks[0]
+
+    with mock.patch.multiple(
+            cv, conv3x3_dots=takes_prepared(cv.conv3x3_dots_ref),
+            downsample_dots=takes_prepared(cv.downsample_dots_ref)), \
+            mock.patch.object(vq, 'nearest_code_indices', held):
+        y_r = ivq.reconstruct(m16, x, torch.bfloat16)
+    diff = (y.float() - y_r.float()).abs()
+    std = float(y.float().std())
+    inside = (float(diff.mean()) <= IMAGE_DIFF_BOUND and std >= MIN_IMAGE_STD
+              and agree[0] >= INDEX_AGREEMENT_FLOOR)
+    print(f'  vs the plain path (K1/K2 fp32 sums, K3 plain; codes held): mean '
+          f'|diff| {float(diff.mean()):.4f} (<= {IMAGE_DIFF_BOUND}) max '
+          f'{float(diff.max()):.0f} levels, image std {std:.2f} (>= '
+          f'{MIN_IMAGE_STD}); the plain path\'s own picks agree on '
+          f'{agree[0]:.4f} (>= {INDEX_AGREEMENT_FLOOR}): '
+          f'{"within bounds" if inside else "OUT of bounds"}', flush=True)
+    if not inside:
+        raise SystemExit('chip_smoke: inference_vqgan disagrees with its '
+                         'plain path')
+    m32 = glg.build_vqgan(None, seed=4, dtype=torch.float32, device='cuda')
+    rates = {'fp32': [], 'bf16': []}
+    models = {'fp32': (m32, torch.float32), 'bf16': (m16, torch.bfloat16)}
+    for name in ('fp32', 'bf16', 'bf16', 'fp32'):
+        m, dt = models[name]
+        for _ in range(2):
+            ivq.reconstruct(m, x, dt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reps = 5
+        for _ in range(reps):
+            ivq.reconstruct(m, x, dt)
+        torch.cuda.synchronize()
+        rates[name].append(reps * len(x) / (time.perf_counter() - t0))
+    print(f'  inference_vqgan images/s at B={VQGAN_CLI_BATCH} (two windows '
+          f'each, in turns): fp32 {rates["fp32"]}, bf16 {rates["bf16"]}',
+          flush=True)
+    del m16, m32
+    torch.cuda.empty_cache()
+    return counts
+
+
 KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
     'conv3x3_dots': ('codeformer_tpu_torch/csrc/conv3x3_dots.cu',
                      'codeformer_tpu/ops/colpack_conv.py:376'),
@@ -4067,6 +4483,9 @@ def main():
     serve_counts, restorer = phase_slice()
     if '--profile' in sys.argv[1:]:
         phase_profile(restorer)
+    fp32_counts = phase_fp32()
+    int8_counts = phase_int8(restorer)
+    multi_counts = phase_multi_device(restorer)
     whole_counts = phase_whole_image(restorer,
                                      profile='--profile' in sys.argv[1:])
     classic_counts = phase_classic(restorer)
@@ -4078,6 +4497,7 @@ def main():
     phase_bisenet()
     task_counts = phase_tasks()
     vq_counts, vq_probe = phase_vqgan()
+    vqcli_counts = phase_vqgan_cli()
     train_counts, trainer = phase_train()
     if '--profile' in sys.argv[1:]:
         phase_train_profile(trainer)
@@ -4100,7 +4520,9 @@ def main():
           f'{train_counts}; stage-I training {stage1_counts}; stage-III '
           f'training {stage3_counts}; remat steps {remat_counts}; '
           f'generate_latent_gt {latent_counts}; data-parallel steps '
-          f'{dp_counts}; ops path {ops_counts}')
+          f'{dp_counts}; ops path {ops_counts}; fp32 serving {fp32_counts}; '
+          f'int8 serving {int8_counts}; multi-device serving '
+          f'{multi_counts}; inference_vqgan {vqcli_counts}')
     phase_k3_activities(k3_calls)
     vqgan_activities(vq_probe)
     del k3_calls, vq_probe
@@ -4126,7 +4548,8 @@ def main():
                              upsample_counts, task_counts, vq_counts,
                              train_counts, stage1_counts, stage3_counts,
                              remat_counts, latent_counts, dp_counts,
-                             ops_counts)),
+                             ops_counts, fp32_counts, int8_counts,
+                             multi_counts, vqcli_counts)),
             'max_abs_err': max(r['max_abs_err'] for r in rows),
             'ms': head['ms'], 'plain_ms': head['plain_ms'],
             'bound_ms': head['bound_ms'], 'bound_by': head['bound_by'],
@@ -4139,12 +4562,13 @@ def main():
         raise SystemExit('chip_smoke: a kernel of the path never launched')
     if not all(c['nearest_code'] > 0 for c in (
             train_counts, vq_counts, stage1_counts, stage3_counts,
-            remat_counts, latent_counts, dp_counts)) \
+            remat_counts, latent_counts, dp_counts, vqcli_counts)) \
             or not all(c[k] > 0 for c in (serve_counts, whole_counts,
                                           classic_counts, upsample_counts,
                                           task_counts, vq_counts,
                                           stage3_counts, remat_counts,
-                                          latent_counts, dp_counts)
+                                          latent_counts, dp_counts,
+                                          multi_counts, vqcli_counts)
                        for k in ('conv3x3_dots', 'downsample_dots')) \
             or not all(ops_counts[k] > 0 for k in (
                 'conv3x3_bias', 'fused_lrelu_fwd', 'fused_lrelu_bwd')):

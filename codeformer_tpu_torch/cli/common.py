@@ -61,10 +61,10 @@ def add_dtype_flag(p) -> None:
     """--dtype of the restorer's activations."""
     p.add_argument('--dtype', type=str, default='bf16',
                    choices=['bf16', 'fp32'],
-                   help='Restorer compute dtype: bf16 (default) or fp32 '
-                        '(the reference numerics; on a CUDA device the '
-                        'kernels compute in bf16 only and the restorer '
-                        'refuses fp32, so fp32 needs --device cpu).')
+                   help='Restorer compute dtype: bf16 (default; the '
+                        'kernels on a CUDA device) or fp32 (reference '
+                        'numerics, for quality parity audits: the plain '
+                        'path in IEEE fp32, TF32 off).')
 
 
 def resolve_dtype(name: str):

@@ -12,7 +12,7 @@ codeformer_tpu/cli/inference_codeformer.py:
         -i clip.mp4 --random-init [--save_video_fps 24]
     # aligned 512x512 faces
     python -m codeformer_tpu_torch.cli.inference_codeformer --has_aligned \
-        -i inputs/cropped_faces --random-init
+        -i inputs/cropped_faces --random-init [--dtype fp32] [--quant int8]
 
 Whole images and videos go through the fused device pipeline where it
 can serve them, else the classic per-stage path (--fused_pipeline), and
@@ -22,15 +22,19 @@ and written to <output>/restored_faces/. The YOLOv5 detectors
 (--detection_model YOLOv5l|YOLOv5n) and the Real-ESRGAN upsamplers
 (--bg_upsampler realesrgan, --face_upsample; weights/realesrgan/
 RealESRGAN_x2plus.pth, or seeded with --random-init) take the classic
-path. cv2 is imported only where images and videos are read and
-written, and by the classic path's host steps.
+path. --dtype fp32 serves the restorer's plain path in IEEE fp32 (bf16,
+the default, runs the kernels); --quant int8 serves JAX's int8 convs.
+cv2 is imported only where images and videos are read and written, and
+by the classic path's host steps.
 """
 from __future__ import annotations
 
 import argparse
 import os
 
-from codeformer_tpu_torch.cli.common import list_inputs, resolve_checkpoint
+from codeformer_tpu_torch.cli.common import (add_dtype_flag, list_inputs,
+                                             resolve_checkpoint,
+                                             resolve_dtype)
 from codeformer_tpu_torch.utils import img_util
 
 
@@ -105,6 +109,14 @@ def build_parser() -> argparse.ArgumentParser:
                         'Default: 8')
     p.add_argument('--device', type=str, default='cuda',
                    help="Torch device, e.g. 'cuda' (default) or 'cpu'.")
+    add_dtype_flag(p)
+    p.add_argument('--quant', type=str, default=None,
+                   choices=['int8'],
+                   help='Quantized serving path for the restorer convs '
+                        '(int8: s8 x s8 -> s32 products, dynamic '
+                        'per-tensor activation scales, per-channel weight '
+                        'scales; slight quality delta, see '
+                        'tests/test_torch_quant.py). Default: off.')
     p.add_argument('--profile', action='store_true',
                    help='Print per-stage host timings at the end.')
     return p
@@ -156,7 +168,8 @@ def main(argv=None):
                               args.random_init)
     restorer = CodeFormerRestorer(
         device=args.device, checkpoint=ckpt,
-        batch_buckets=sorted({1, 2, 4, args.batch}))
+        batch_buckets=sorted({1, 2, 4, args.batch}), quant=args.quant,
+        dtype=resolve_dtype(args.dtype))
     if args.has_aligned:
         run_aligned(args, input_img_list, result_root, restorer)
     else:

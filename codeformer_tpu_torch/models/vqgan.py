@@ -17,8 +17,8 @@ import torch.nn.functional as F
 
 from codeformer_tpu_torch.nn import blocks as nb
 from codeformer_tpu_torch.nn.blocks import (AttnBlock, Conv2d, Downsample,
-                                            GroupNorm32, ResBlock, Upsample,
-                                            decoder_tail)
+                                            GroupNorm32, QConv2d, ResBlock,
+                                            Upsample, decoder_tail)
 from codeformer_tpu_torch.ops import conv3x3 as cv
 from codeformer_tpu_torch.ops import vq
 from codeformer_tpu_torch.utils.registry import ARCH_REGISTRY
@@ -141,8 +141,9 @@ class GumbelQuantizer(nn.Module):
 def _build_encoder_blocks(nf, emb_dim, ch_mult, num_res_blocks, resolution,
                           attn_resolutions, remat=False):
     """Encoder blocks + {feature size: last-ResBlock index} taps, in the
-    reference order (vqgan_arch.py:241-266)."""
-    blocks = [Conv2d(3, nf, 3, padding=1)]
+    reference order (vqgan_arch.py:241-266). conv_in is quantizable
+    (JAX's FastConv3x3), the last conv to emb_dim is not (JAX's nn.Conv)."""
+    blocks = [QConv2d(3, nf, 3, padding=1)]
     taps: Dict[str, int] = {}
     curr_res = resolution
     in_ch_mult = (1,) + tuple(ch_mult)
@@ -171,7 +172,8 @@ def _build_generator_blocks(nf, emb_dim, ch_mult, num_res_blocks, resolution,
                             attn_resolutions, out_channels, remat=False):
     """Generator blocks + fuse taps (vqgan_arch.py:290-316): the first
     ResBlock of each stage, or the last one at attention resolutions
-    (the reference's fuse table, codeformer_arch.py:206)."""
+    (the reference's fuse table, codeformer_arch.py:206). conv_out is
+    quantizable (JAX's FastConv3x3), the first conv is not (nn.Conv)."""
     num_resolutions = len(ch_mult)
     block_in = nf * ch_mult[-1]
     curr_res = resolution // 2 ** (num_resolutions - 1)
@@ -194,7 +196,7 @@ def _build_generator_blocks(nf, emb_dim, ch_mult, num_res_blocks, resolution,
             blocks.append(Upsample(block_in))
             curr_res *= 2
     blocks.append(GroupNorm32(block_in))
-    blocks.append(Conv2d(block_in, out_channels, 3, padding=1))
+    blocks.append(QConv2d(block_in, out_channels, 3, padding=1))
     return blocks, taps
 
 

@@ -18,6 +18,16 @@ convs that autograd records (the JAX package trains through plain XLA
 convs the same way, train/train.py `set_colpack_mode('off')`).
 Attention, Upsample, the SFT convs and the encoder's edges are plain
 PyTorch, as they were plain XLA in JAX.
+
+`set_quant(model, 'int8')` switches a model to JAX's int8 serving path
+(nn/quant.py) on exactly the convs the JAX package quantizes: both 3x3
+convs of every ResBlock (the SFT blocks' too), the Downsample conv, the
+encoder's conv_in and the generator's conv_out (`QConv2d`), and the
+Upsample as four phase-collapsed 2x2 convs on one quantized input. It
+turns the kernels off on those modules: they run GroupNorm -> SiLU ->
+int8 conv -> bias (+ skip). Attention, the transformer, every 1x1 conv,
+the encoder's last and the generator's first 3x3 conv and the SFT
+scale/shift convs stay in the compute dtype.
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from codeformer_tpu_torch.nn import quant
 from codeformer_tpu_torch.ops import conv3x3 as cv
 
 CL = torch.channels_last
@@ -116,20 +127,62 @@ def on_card(x: torch.Tensor) -> bool:
     return x.is_cuda
 
 
-def kept_operands(mod: nn.Module, params, make):
+def kept_operands(mod: nn.Module, params, make, extra=()):
     """`make()` kept on `mod._operands` between calls in eval mode, made
     again when a tensor of `params` is updated in place (`_version`),
-    replaced, moved or cast; None in training mode, where nothing is
-    kept."""
+    replaced, moved or cast, or when `extra` (e.g. the compute dtype)
+    changes; None in training mode, where nothing is kept."""
     if mod.training:
         mod._operands = None
         return None
     key = tuple((t._version, t.data_ptr(), t.device, t.dtype)
-                for t in params)
+                for t in params) + tuple(extra)
     if mod._operands is None or mod._operands[0] != key:
         with torch.no_grad():
             mod._operands = (key, make())
     return mod._operands[1]
+
+
+def refuse_int8_autograd(module: nn.Module, x: torch.Tensor) -> None:
+    """The int8 round has no gradient: a quantized module refuses to run
+    where autograd records (JAX's training entry point forces the mode
+    off the same way)."""
+    if records(module, x):
+        raise RuntimeError(
+            f'{type(module).__name__} is set to int8 serving: it has no '
+            f'gradient (set_quant(model, "off") before training)')
+
+
+class QConv2d(Conv2d):
+    """Conv2d with JAX's int8 serving path (FastConv3x3, _QuantizableConv):
+    with `quant == 'int8'` the weight, cast to the input's dtype, and the
+    input are quantized (nn/quant.py), their exact int32 product is
+    dequantized to the input's dtype and the bias added in it. The int8
+    weight and its scales are kept between calls in eval mode. Its
+    parameters are Conv2d's (the reference `.pth` names)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.quant = 'off'
+        self._operands = None    # (key, quant.Int8Weight)
+
+    def int8_weight(self, dtype: torch.dtype) -> quant.Int8Weight:
+        w = self.weight
+
+        def make():
+            return quant.prepare_weight(w.detach().to(dtype))
+        return kept_operands(self, (w,), make, (dtype,)) or make()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant != 'int8':
+            return super().forward(x)
+        refuse_int8_autograd(self, x)
+        xq, sx = quant.quantize_act(nhwc(x))
+        wt = self.int8_weight(x.dtype)
+        (ph, pw), (s, _) = self.padding, self.stride
+        y = quant.dequantize(quant.int8_conv(xq, wt, s, (ph, ph, pw, pw)),
+                             sx, wt.scale, x.dtype)
+        return nchw(y + self.bias.to(x.dtype))
 
 
 class ResBlock(nn.Module):
@@ -158,9 +211,9 @@ class ResBlock(nn.Module):
         out_ch = out_channels or in_channels
         self.in_channels, self.out_channels = in_channels, out_ch
         self.norm1 = GroupNorm32(in_channels)
-        self.conv1 = Conv2d(in_channels, out_ch, 3, padding=1)
+        self.conv1 = QConv2d(in_channels, out_ch, 3, padding=1)
         self.norm2 = GroupNorm32(out_ch)
-        self.conv2 = Conv2d(out_ch, out_ch, 3, padding=1)
+        self.conv2 = QConv2d(out_ch, out_ch, 3, padding=1)
         if in_channels != out_ch:
             self.conv_out = Conv2d(in_channels, out_ch, 1)
         self._operands = None    # (key, (ops1, ops2, bias2))
@@ -269,7 +322,8 @@ class Downsample(nn.Module):
     def __init__(self, in_channels: int):
         super().__init__()
         self.use_kernels = True
-        self.conv = Conv2d(in_channels, in_channels, 3, stride=2, padding=0)
+        self.conv = QConv2d(in_channels, in_channels, 3, stride=2,
+                            padding=0)
         self._operands = None    # (key, cv.ConvOperands)
 
     def kernel_operands(self):
@@ -286,16 +340,84 @@ class Downsample(nn.Module):
                                        self.conv.bias, prepared=ops))
 
 
+# tap index -> slot of the 2-tap window of each output phase under
+# nearest x2 (phase 0: window {-1, 0}; phase 1: {0, +1}); JAX's
+# _PhaseCollapsedUpConv._MAP
+PHASE_MAP = {0: (0, 1, 1), 1: (0, 0, 1)}
+
+
+def phase_kernels(weight: torch.Tensor, dtype: torch.dtype):
+    """The four 2x2 kernels (p, q order) that a 3x3 OIHW weight collapses
+    to under nearest x2, each summed tap by tap in `dtype` in the loop
+    order of codeformer_tpu/nn/blocks.py:500-507 (every sum rounded to
+    `dtype`, as JAX's)."""
+    w = weight.detach().to(dtype)
+    out = []
+    for p in (0, 1):
+        for q in (0, 1):
+            k2 = w.new_zeros(w.shape[0], w.shape[1], 2, 2)
+            for u in range(3):
+                for v in range(3):
+                    k2[:, :, PHASE_MAP[p][u], PHASE_MAP[q][v]] += w[:, :, u, v]
+            out.append(k2)
+    return out
+
+
 class Upsample(nn.Module):
     """Nearest x2 upsample, then a 3x3 conv (vqgan_arch.py:129-138). The
-    JAX package evaluates the same function phase-collapsed."""
+    JAX package evaluates the same function phase-collapsed; the int8
+    path does too (`quant == 'int8'`): the input is quantized once and
+    each output phase (p, q) is an int8 2x2 conv with its own per-channel
+    weight scales and pads ((1-p, p), (1-q, q)), the four interleaved
+    and the bias added in the input's dtype. The phases' int8 weights
+    are kept between calls in eval mode."""
 
     def __init__(self, in_channels: int):
         super().__init__()
         self.conv = Conv2d(in_channels, in_channels, 3, padding=1)
+        self.quant = 'off'
+        self._operands = None    # (key, [quant.Int8Weight] * 4)
+
+    def int8_weights(self, dtype: torch.dtype):
+        w = self.conv.weight
+
+        def make():
+            return [quant.prepare_weight(k) for k in phase_kernels(w, dtype)]
+        return kept_operands(self, (w,), make, (dtype,)) or make()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.interpolate(x, scale_factor=2.0, mode='nearest'))
+        if self.quant != 'int8':
+            return self.conv(F.interpolate(x, scale_factor=2.0,
+                                           mode='nearest'))
+        refuse_int8_autograd(self, x)
+        b, _, h, w = x.shape
+        c = self.conv.out_channels
+        xq, sx = quant.quantize_act(nhwc(x))
+        wts = self.int8_weights(x.dtype)
+        ys = [quant.dequantize(quant.int8_conv(
+                  xq, wts[2 * p + q], 1, (1 - p, p, 1 - q, q)),
+                  sx, wts[2 * p + q].scale, x.dtype)
+              for p in (0, 1) for q in (0, 1)]
+        y = torch.stack(ys, dim=3).reshape(b, h, w, 2, 2, c)
+        y = y.permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * h, 2 * w, c)
+        return nchw(y + self.conv.bias.to(x.dtype))
+
+
+def set_quant(model: nn.Module, mode: str) -> nn.Module:
+    """Set the int8 serving mode ('int8' or 'off') on every quantizable
+    module of `model` (QConv2d, Upsample). 'int8' also turns the kernels
+    off (`set_kernels(model, False)`): the quantized blocks run their
+    textbook form. 'off' leaves the kernel switch as it is. Returns
+    model."""
+    if mode not in quant.MODES:
+        raise ValueError(f'quant mode must be one of {quant.MODES}, got '
+                         f'{mode!r}')
+    for mod in model.modules():
+        if isinstance(mod, (QConv2d, Upsample)):
+            mod.quant = mode
+    if mode == 'int8':
+        set_kernels(model, False)
+    return model
 
 
 class FuseSftBlock(nn.Module):

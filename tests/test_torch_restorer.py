@@ -19,7 +19,9 @@ from codeformer_tpu.pipeline.restorer import (  # noqa: E402
     CodeFormerRestorer as JaxRestorer)
 from codeformer_tpu_torch.models import CodeFormer  # noqa: E402
 from codeformer_tpu_torch.nn.blocks import FuseSftBlock  # noqa: E402
-from codeformer_tpu_torch.pipeline.restorer import CodeFormerRestorer  # noqa: E402
+from codeformer_tpu_torch.pipeline import restorer as restorer_mod  # noqa: E402
+from codeformer_tpu_torch.pipeline.restorer import (  # noqa: E402
+    CodeFormerRestorer, check_serving_dtype)
 from codeformer_tpu_torch.utils.convert import flax_to_state_dict  # noqa: E402
 
 torch.set_num_threads(2)
@@ -113,13 +115,113 @@ def test_uint8_boundary():
     assert out.dtype == torch.uint8
 
 
+class _Built(Exception):
+    """Raised in place of building the model: the dtype gate passed."""
+
+
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float16])
 def test_cuda_restorer_refuses_non_bf16(dtype):
-    """The CUDA kernels take bf16 only: another dtype is refused when the
-    restorer is built, before any model or device is touched, instead of
-    every request failing into the passthrough."""
-    with pytest.raises(ValueError, match='bfloat16'):
-        CodeFormerRestorer(device='cuda', dtype=dtype)
+    """On a CUDA device the restorer serves bf16 (the kernels) and fp32
+    (the plain path). fp16 is refused when the restorer is built, before
+    any model or device is touched, instead of every request failing
+    into the passthrough. fp32 passes the gate (`check_serving_dtype`,
+    the constructor's first step) and reaches the model's construction,
+    stubbed here: this host has no card to build it on."""
+    with mock.patch.object(restorer_mod, 'CodeFormer',
+                           side_effect=_Built) as build:
+        if dtype == torch.float16:
+            with pytest.raises(ValueError, match='bfloat16'):
+                check_serving_dtype('cuda', dtype)
+            with pytest.raises(ValueError, match='bfloat16'):
+                CodeFormerRestorer(device='cuda', dtype=dtype)
+            assert build.call_count == 0
+        else:
+            check_serving_dtype('cuda', dtype)
+            check_serving_dtype('cuda:0', torch.bfloat16)
+            with pytest.raises(_Built):
+                CodeFormerRestorer(device='cuda', dtype=dtype)
+            assert build.call_count == 1
+
+
+def _tiny_codeformer(**arch):
+    """The tiny topology in place of the restorer's full-width one."""
+    return CodeFormer(**TINY)
+
+
+@pytest.mark.parametrize('flags,dtype,quant', [
+    (['--dtype', 'fp32'], torch.float32, None),
+    ([], torch.bfloat16, None)])
+def test_cli_dtype_flag_builds_the_restorer(tmp_path, flags, dtype, quant):
+    """`--dtype fp32` parses (the JAX CLI's flag) and the restorer that
+    `main` builds at --device cpu computes in float32 on the plain path
+    (kernels off) and restores; the default stays bf16. The model is the
+    tiny topology (`CodeFormer` stubbed), run_aligned replaced by a
+    capture."""
+    from codeformer_tpu_torch.cli import inference_codeformer as cli
+    argv = ['--has_aligned', '-i', str(tmp_path / 'x.png'), '--device',
+            'cpu', '--random-init', '-o', str(tmp_path / 'out')] + flags
+    args = cli.build_parser().parse_args(argv)
+    assert args.dtype == ('fp32' if flags else 'bf16')
+    got = {}
+    with mock.patch.object(restorer_mod, 'CodeFormer', _tiny_codeformer), \
+            mock.patch.object(cli, 'run_aligned',
+                              lambda a, paths, root, r: got.update(r=r)):
+        cli.main(argv)
+    r = got['r']
+    assert r.dtype == dtype and r.quant == quant
+    assert r.device == torch.device('cpu')
+    kernels = {m.use_kernels for m in r.model.modules()
+               if hasattr(m, 'use_kernels')}
+    assert kernels == {dtype == torch.bfloat16}
+    out = r.restore_device(np.stack(_faces(7, 2)), w=0.5)
+    assert out.shape == (2, 64, 64, 3) and out.dtype == torch.uint8
+
+
+@pytest.mark.parametrize('n,buckets', [(2, (1, 2, 4, 8, 16)), (2, (8,)),
+                                       (3, (1, 2, 4, 8, 16))])
+def test_multi_device_buckets_round_as_jax(n, buckets):
+    """Buckets are rounded to multiples of the device count exactly as
+    JAX's mesh restorer rounds them over its 'data' axis."""
+    from codeformer_tpu.parallel import create_mesh
+    jr = JaxRestorer(model=JaxCodeFormer(**TINY), dtype=jnp.float32,
+                     face_size=64, batch_buckets=buckets,
+                     mesh=create_mesh(n, model_parallel=1))
+    pr = CodeFormerRestorer(devices=['cpu'] * n, dtype=torch.float32,
+                            model=CodeFormer(**TINY), face_size=64,
+                            batch_buckets=buckets)
+    assert pr.batch_buckets == list(jr.batch_buckets)
+    assert all(pr._bucket(k) == jr._bucket(k) for k in range(1, 40))
+
+
+def test_multi_device_restorer_equals_one_device(restorers):
+    """devices=['cpu', 'cpu'] against one device (the counterpart of
+    tests/test_pipeline.py:67-108): 5 faces in a bucket of 8, fp32, each
+    replica takes 4; the outputs are bit-equal, and restore_device
+    gathers on devices[0]. Each replica keeps its own model."""
+    _, pr = restorers
+    state = pr.model.state_dict()
+    one = CodeFormerRestorer(device='cpu', dtype=torch.float32,
+                             model=CodeFormer(**TINY), face_size=64,
+                             batch_buckets=(8,))
+    one.model.load_state_dict(state)
+    two = CodeFormerRestorer(devices=['cpu', 'cpu'], dtype=torch.float32,
+                             model=CodeFormer(**TINY), face_size=64,
+                             batch_buckets=(8,))
+    two.model.load_state_dict(state)
+    two.models[1].load_state_dict(state)
+    assert two.models[0] is not two.models[1]
+    assert two._bucket(5) == one._bucket(5) == 8
+    faces = _faces(8, 5)
+    for a, b in zip(two.restore_batch(faces, w=0.5),
+                    one.restore_batch(faces, w=0.5)):
+        np.testing.assert_array_equal(a, b)
+    x = np.stack(_faces(9, 8))
+    got = two.restore_device(x, w=0.7)
+    assert got.device == torch.device('cpu')
+    np.testing.assert_array_equal(got.numpy(),
+                                  one.restore_device(x, w=0.7).numpy())
+    with pytest.raises(ValueError, match='equal shards'):
+        two.restore_device(x[:3])
 
 
 def test_failing_chunk_passes_through(restorers, capsys):
