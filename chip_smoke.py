@@ -142,7 +142,17 @@ After serving (5), the last serving features at full width:
      restorer at B=8 (one card: no two-card reading);
 and after 5e, inference_vqgan's core `reconstruct` at B=4 in bf16 with
 exact launches (K1, K2, one K3), against the plain path with the codes
-held, images/s at fp32 and bf16.
+held, images/s at fp32 and bf16. Last, after training, the serving
+CLIs on the repo's files (`phase_cli_files`): every inputs/ file's cv2
+decode against the sha256 recorded with the tests
+(tests/torch_inputs_digests.json); `main(argv)` of the aligned CLI on
+inputs/cropped_faces (its faces bit-equal to restore_batch in process,
+exact K1/K2 launches, its images/s split into read, restore and write),
+of the whole-image CLI's fused route on each whole_imgs/*.jpg and on the
+cropped faces as whole images (--only_center_face), of colorization,
+inpainting and inference_vqgan --dtype bf16 (K3 once a batch, exact
+launches); and the documented aligned command as a subprocess, which
+must exit 0.
 Every time is per launch: runs of back-to-back launches between two
 CUDA events (`time_ms`), the median run. The last line is the JSON
 result; the line before it lists the kernels, each with its launches on
@@ -1581,9 +1591,9 @@ IDX_AGREEMENT_FLOOR = 0.95
 
 def stage2_options() -> dict:
     """The networks and train block of options/CodeFormer_stage2.yml as a
-    dict (the card's machine has no yaml), bf16, one card, seeded random
-    weights (no vqgan_path or pretrained file). Left out: the yml's
-    val/logger blocks and its net_d_* keys, which stage II does not read."""
+    dict, bf16, one card, seeded random weights (no vqgan_path or
+    pretrained file). Left out: the yml's val/logger blocks and its
+    net_d_* keys, which stage II does not read."""
     return {
         'name': 'chip_smoke_stage2', 'model_type': 'CodeFormerIdxModel',
         'manual_seed': 0, 'mixed_precision': 'bf16', 'device': 'cuda',
@@ -1916,9 +1926,8 @@ def gan_train_block(**over) -> dict:
 
 
 def stage1_options() -> dict:
-    """options/VQGAN_512_ds32_nearest_stage1.yml as a dict (the card's
-    machine has no yaml), bf16, one card, seeded random weights, its val
-    and logger blocks left out."""
+    """options/VQGAN_512_ds32_nearest_stage1.yml as a dict, bf16, one
+    card, seeded random weights, its val and logger blocks left out."""
     return {
         'name': 'chip_smoke_stage1', 'model_type': 'VQGANModel',
         'manual_seed': 0, 'mixed_precision': 'bf16', 'device': 'cuda',
@@ -3449,8 +3458,8 @@ def phase_classic(restorer) -> dict:
     frame = frame + 8.0 * torch.randn(frame.shape, generator=g,
                                       device='cuda')
     frame = frame.clamp(0, 255).round()
-    # the classic path upscales with cv2 on the host; the card's machine
-    # has no cv2, so the canvas here is the same linear upscale on the card
+    # the classic path upscales with cv2 on the host; the canvas here is
+    # the same linear upscale, made on the card
     canvas = resize_linear(frame, (h * up, w * up)).round().clamp(0, 255) \
         .to(torch.uint8)[0].permute(1, 2, 0).contiguous()
     frame = frame.to(torch.uint8).permute(0, 2, 3, 1).contiguous()
@@ -4455,6 +4464,293 @@ def phase_vqgan_cli():
     return counts
 
 
+CLI_FACES = os.path.join('inputs', 'cropped_faces')
+CLI_DIGESTS = os.path.join('tests', 'torch_inputs_digests.json')
+
+
+def run_cli(main_fn, argv) -> tuple:
+    """main_fn(argv) with the launch counts set to 0 just before it and
+    read just after: (counts, its stdout)."""
+    import io
+    out = io.StringIO()
+    reset_all_counts()
+    with contextlib.redirect_stdout(out):
+        main_fn(argv)
+    torch.cuda.synchronize()
+    return all_counts(), out.getvalue()
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def restorer_launches(restorer, n_faces: int, fuse: bool) -> dict:
+    """K1/K2 launches of restore_batch on n_faces: one forward a chunk of
+    the largest bucket, counted as phase_slice counts a forward."""
+    from codeformer_tpu_torch.nn.blocks import Downsample
+    chunks = -(-n_faces // restorer.batch_buckets[-1])
+    n_res = count_resblocks(restorer.model, enable_fuse=fuse)
+    n_down = sum(isinstance(m, Downsample) for m in restorer.model.modules())
+    return dict(NO_LAUNCHES, conv3x3_dots=chunks * (2 * n_res + 1),
+                downsample_dots=chunks * n_down)
+
+
+def cli_digest_check() -> None:
+    """Every inputs/ file decodes with this machine's cv2 to the sha256
+    recorded with the tests (tests/torch_inputs_digests.json), so the CLI
+    runs below restore the pixels the tests hold against JAX."""
+    import hashlib
+
+    import cv2
+    with open(os.path.join(ROOT, CLI_DIGESTS)) as f:
+        files = json.load(f)['files']
+    bad = []
+    for rel, rec in files.items():
+        img = cv2.imread(os.path.join(ROOT, rel), cv2.IMREAD_COLOR)
+        digest = hashlib.sha256(np.ascontiguousarray(img).tobytes()) \
+            .hexdigest()
+        if list(img.shape) != rec['shape'] or digest != rec['sha256']:
+            bad.append(rel)
+    print(f'cv2 {cv2.__version__}: {len(files) - len(bad)} of {len(files)} '
+          f'inputs/ files decode to the recorded sha256 ({CLI_DIGESTS})',
+          flush=True)
+    if bad:
+        raise SystemExit(f'chip_smoke: cv2\'s decode here differs from the '
+                         f'recorded one for {bad}')
+
+
+def phase_cli_files() -> dict:
+    """The serving CLIs' main(argv) on the repo's files, on the card
+    (--random-init): (a) the aligned CLI on
+    inputs/cropped_faces, its faces bit-equal to restore_batch in process
+    and its K1/K2 launches exact, then its images/s split by its stage
+    timer; (b) the whole-image CLI on each whole_imgs/*.jpg alone (the
+    fused route) and on cropped_faces as whole images; (c) colorization
+    and inpainting; (d) inference_vqgan --dtype bf16 (K3); the documented
+    aligned command as a subprocess; every inputs/ decode against its
+    recorded digest. Returns the launches of the CLI runs."""
+    import glob
+    import re
+    import shutil
+    import tempfile
+
+    import cv2
+
+    from codeformer_tpu_torch import pipeline
+    from codeformer_tpu_torch.cli import generate_latent_gt as glg
+    from codeformer_tpu_torch.cli import inference_codeformer as icf
+    from codeformer_tpu_torch.cli import inference_colorization as icol
+    from codeformer_tpu_torch.cli import inference_inpainting as iinp
+    from codeformer_tpu_torch.cli import inference_vqgan as ivq
+    from codeformer_tpu_torch.nn.blocks import ResBlock
+    from codeformer_tpu_torch.pipeline.restorer import CodeFormerRestorer
+    from codeformer_tpu_torch.utils import img_util
+    from codeformer_tpu_torch.utils.profiler import TIMER
+    t_phase = time.perf_counter()
+    cli_digest_check()
+    total: dict = {}
+    made = []
+
+    class Recorded(CodeFormerRestorer):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            made.append(self)
+
+    faces_dir = os.path.join(ROOT, CLI_FACES)
+    paths = sorted(glob.glob(os.path.join(faces_dir, '*.png')))
+    tmp = tempfile.mkdtemp(prefix='cli_files_')
+    try:
+        # (a) the aligned CLI: checked, then timed warm by its stages
+        with mock.patch.object(pipeline, 'CodeFormerRestorer', Recorded):
+            for run in ('checked', 'timed'):
+                out = os.path.join(tmp, f'aligned_{run}')
+                TIMER.reset()
+                counts, _ = run_cli(icf.main, [
+                    '--has_aligned', '-i', faces_dir, '-o', out,
+                    '--random-init'])
+                r = made[-1]
+                want = restorer_launches(r, len(paths), fuse=True)
+                print(f'  aligned CLI ({run}), {len(paths)} faces, full '
+                      f'width, bf16: launches {counts} (expected {want})',
+                      flush=True)
+                if counts != want:
+                    raise SystemExit('chip_smoke: the aligned CLI\'s '
+                                     'launches differ')
+                add_counts(total, counts)
+                if run == 'timed':
+                    st = {k: TIMER.totals[k] for k in
+                          ('read', 'restore', 'write')}
+                    print(f'  aligned CLI images/s without start-up '
+                          f'{len(paths) / sum(st.values()):.2f} (read '
+                          f'{st["read"]:.3f} s, restore '
+                          f'{st["restore"]:.3f} s, write {st["write"]:.3f} '
+                          f's for {len(paths)} faces; utils/profiler.py '
+                          f'stages) [{card_line()}]', flush=True)
+                    continue
+                faces = [cv2.resize(cv2.imread(p, cv2.IMREAD_COLOR),
+                                    (512, 512),
+                                    interpolation=cv2.INTER_LINEAR)
+                         for p in paths]
+                ref = r.restore_batch(faces, w=0.5, adain=True)
+                n_gray = 0
+                for p, face, o in zip(paths, faces, ref):
+                    if img_util.is_gray(face, threshold=10):
+                        n_gray += 1
+                        o = img_util.adain_color_transfer(
+                            img_util.bgr2gray3(o), face)
+                    got = cv2.imread(os.path.join(
+                        out, 'restored_faces', os.path.basename(p)))
+                    if got is None or not np.array_equal(got, o):
+                        raise SystemExit(f'chip_smoke: the aligned CLI\'s '
+                                         f'{os.path.basename(p)} differs '
+                                         f'from restore_batch in process')
+                print(f'  aligned CLI: {len(paths)} restored_faces/*.png '
+                      f'bit-equal to restore_batch in process ({n_gray} '
+                      f'gray, with the gray adaptation)', flush=True)
+            del made[:]
+        # (b) the whole-image CLI on the fused route, one restorer
+        shared = {}
+
+        def one_restorer(**kw):
+            if 'r' not in shared:
+                shared['r'] = CodeFormerRestorer(**kw)
+            return shared['r']
+
+        # the cropped faces with --only_center_face: random RetinaFace
+        # weights find about 10 faces a frame, and the fused pipeline
+        # restores a 16-frame chunk's faces in one forward (B = 160 asks
+        # for 32 GiB at the generator's fp32 statistics)
+        runs = [(n, [os.path.join(ROOT, 'inputs', 'whole_imgs', n)], [])
+                for n in ('00.jpg', '01.jpg', '03.jpg', '04.jpg', '05.jpg')]
+        runs.append(('cropped_faces as whole images', paths,
+                     ['--only_center_face']))
+        found = []
+        with mock.patch.object(pipeline, 'CodeFormerRestorer',
+                               one_restorer):
+            for k, (label, files, flags) in enumerate(runs):
+                src = os.path.join(tmp, f'whole_in_{k}')
+                os.makedirs(src)
+                for f in files:
+                    os.symlink(f, os.path.join(src, os.path.basename(f)))
+                out = os.path.join(tmp, f'whole_out_{k}')
+                counts, said = run_cli(icf.main, ['-i', src, '-o', out,
+                                                  '--random-init', *flags])
+                add_counts(total, counts)
+                faces = [int(m) for m in
+                         re.findall(r'Processing: \S+ \((\d+) faces\)', said)]
+                found.append(sum(faces))
+                finals = sorted(os.listdir(os.path.join(out,
+                                                        'final_results')))
+                crops = os.listdir(os.path.join(out, 'cropped_faces')) \
+                    if os.path.isdir(os.path.join(out, 'cropped_faces')) \
+                    else []
+                rest = os.listdir(os.path.join(out, 'restored_faces')) \
+                    if os.path.isdir(os.path.join(out, 'restored_faces')) \
+                    else []
+                ok = ('unavailable' not in said and len(faces) == len(files)
+                      and len(finals) == len(files)
+                      and len(crops) == len(rest) == sum(faces))
+                for f in files:
+                    img = cv2.imread(f, cv2.IMREAD_COLOR)
+                    up = max(1.0, 512 / min(img.shape[:2]))
+                    h, w = cv2.resize(img, (0, 0), fx=up, fy=up,
+                                      interpolation=cv2.INTER_LINEAR).shape[:2]
+                    name = os.path.splitext(os.path.basename(f))[0] + '.png'
+                    got = cv2.imread(os.path.join(out, 'final_results',
+                                                  name))
+                    ok = ok and got is not None and got.shape == (
+                        2 * h, 2 * w, 3)
+                print(f'  whole-image CLI (fused route) on {label} '
+                      f'{" ".join(flags)}: exit 0, '
+                      f'{len(finals)} final_results at the min-side-512 '
+                      f'size x2, faces found {faces} (random RetinaFace '
+                      f'weights), {len(crops)} cropped / {len(rest)} '
+                      f'restored faces; launches {counts}', flush=True)
+                if not ok:
+                    raise SystemExit(f'chip_smoke: the whole-image CLI on '
+                                     f'{label} wrote the wrong outputs')
+        del shared
+        # (c) colorization and inpainting
+        for mod, src, n_files, fuse in (
+                (icol, 'gray_faces', 13, False),
+                (iinp, 'masked_faces', 5, True)):
+            out = os.path.join(tmp, src)
+            with mock.patch.object(pipeline, 'CodeFormerRestorer',
+                                   Recorded):
+                counts, _ = run_cli(mod.main, [
+                    '-i', os.path.join(ROOT, 'inputs', src), '-o', out,
+                    '--random-init'])
+            want = restorer_launches(made.pop(), n_files, fuse)
+            written = sorted(os.listdir(out))
+            shapes = {cv2.imread(os.path.join(out, n)).shape
+                      for n in written}
+            print(f'  {mod.__name__.rsplit(".", 1)[1]} CLI on inputs/{src}: '
+                  f'{len(written)} files {shapes}; launches {counts} '
+                  f'(expected {want})', flush=True)
+            if counts != want or len(written) != n_files or \
+                    shapes != {(512, 512, 3)}:
+                raise SystemExit(f'chip_smoke: the {src} CLI run differs')
+            add_counts(total, counts)
+        # (d) inference_vqgan --dtype bf16: K3 once a batch
+        models = []
+
+        def recorded_vqgan(*a, **kw):
+            models.append(glg.build_vqgan(*a, **kw))
+            return models[-1]
+
+        out = os.path.join(tmp, 'vqgan')
+        with mock.patch.object(ivq, 'build_vqgan', recorded_vqgan):
+            counts, _ = run_cli(ivq.main, [
+                '-i', faces_dir, '-o', out, '--dtype', 'bf16',
+                '--random-init', '--ckpt_path',
+                os.path.join(tmp, 'missing.pth')])
+        m = models.pop()
+        n_res = sum(isinstance(x, ResBlock) for x in m.modules())
+        calls = -(-len(paths) // 4)
+        want = dict(NO_LAUNCHES, conv3x3_dots=calls * (2 * n_res + 1),
+                    downsample_dots=calls * 5, nearest_code=calls)
+        x = torch.from_numpy(np.stack([cv2.imread(p)[..., ::-1]
+                                       for p in paths[:4]])).cuda()
+        ref = ivq.reconstruct(m, x, torch.bfloat16).cpu().numpy()
+        same = all(np.array_equal(
+            cv2.imread(os.path.join(out, os.path.basename(p))),
+            y[..., ::-1]) for p, y in zip(paths[:4], ref))
+        print(f'  inference_vqgan --dtype bf16 on {CLI_FACES}: '
+              f'{len(os.listdir(out))} files; launches {counts} (expected '
+              f'{want}); the first batch bit-equal to reconstruct in '
+              f'process: {same}', flush=True)
+        if counts != want or len(os.listdir(out)) != len(paths) or not same:
+            raise SystemExit('chip_smoke: the inference_vqgan CLI run '
+                             'differs')
+        add_counts(total, counts)
+        del m, models, x
+        torch.cuda.empty_cache()
+        # the documented command, as a user types it
+        out = os.path.join(tmp, 'subprocess')
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, '-m',
+             'codeformer_tpu_torch.cli.inference_codeformer', '--has_aligned',
+             '-i', CLI_FACES, '--random-init', '-o', out], cwd=ROOT,
+            capture_output=True, text=True, timeout=600)
+        n_out = len(os.listdir(os.path.join(out, 'restored_faces'))) \
+            if os.path.isdir(os.path.join(out, 'restored_faces')) else 0
+        print(f'  python -m codeformer_tpu_torch.cli.inference_codeformer '
+              f'--has_aligned -i {CLI_FACES} --random-init: exit '
+              f'{proc.returncode} in {time.perf_counter() - t0:.1f} s, '
+              f'{n_out} restored faces', flush=True)
+        if proc.returncode != 0 or n_out != len(paths):
+            raise SystemExit(f'chip_smoke: the documented command failed:\n'
+                             f'{proc.stderr[-3000:]}')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f'  CLI files phase: {time.perf_counter() - t_phase:.1f} s; faces '
+          f'found by the whole-image runs {found}', flush=True)
+    return total
+
+
 KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
     'conv3x3_dots': ('codeformer_tpu_torch/csrc/conv3x3_dots.cu',
                      'codeformer_tpu/ops/colpack_conv.py:376'),
@@ -4513,6 +4809,7 @@ def main():
     dp_counts = phase_dp()
     phase_srmodel()
     phase_arcface()
+    cli_counts = phase_cli_files()
     print(f'main-path launches: serving {serve_counts}; whole-image path '
           f'{whole_counts}; classic path {classic_counts}; classic path with '
           f'the upsamplers {upsample_counts}; colorization and inpainting '
@@ -4522,7 +4819,8 @@ def main():
           f'generate_latent_gt {latent_counts}; data-parallel steps '
           f'{dp_counts}; ops path {ops_counts}; fp32 serving {fp32_counts}; '
           f'int8 serving {int8_counts}; multi-device serving '
-          f'{multi_counts}; inference_vqgan {vqcli_counts}')
+          f'{multi_counts}; inference_vqgan {vqcli_counts}; the CLIs on '
+          f'files {cli_counts}')
     phase_k3_activities(k3_calls)
     vqgan_activities(vq_probe)
     del k3_calls, vq_probe
@@ -4549,7 +4847,7 @@ def main():
                              train_counts, stage1_counts, stage3_counts,
                              remat_counts, latent_counts, dp_counts,
                              ops_counts, fp32_counts, int8_counts,
-                             multi_counts, vqcli_counts)),
+                             multi_counts, vqcli_counts, cli_counts)),
             'max_abs_err': max(r['max_abs_err'] for r in rows),
             'ms': head['ms'], 'plain_ms': head['plain_ms'],
             'bound_ms': head['bound_ms'], 'bound_by': head['bound_by'],
@@ -4562,13 +4860,15 @@ def main():
         raise SystemExit('chip_smoke: a kernel of the path never launched')
     if not all(c['nearest_code'] > 0 for c in (
             train_counts, vq_counts, stage1_counts, stage3_counts,
-            remat_counts, latent_counts, dp_counts, vqcli_counts)) \
+            remat_counts, latent_counts, dp_counts, vqcli_counts,
+            cli_counts)) \
             or not all(c[k] > 0 for c in (serve_counts, whole_counts,
                                           classic_counts, upsample_counts,
                                           task_counts, vq_counts,
                                           stage3_counts, remat_counts,
                                           latent_counts, dp_counts,
-                                          multi_counts, vqcli_counts)
+                                          multi_counts, vqcli_counts,
+                                          cli_counts)
                        for k in ('conv3x3_dots', 'downsample_dots')) \
             or not all(ops_counts[k] > 0 for k in (
                 'conv3x3_bias', 'fused_lrelu_fwd', 'fused_lrelu_bwd')):

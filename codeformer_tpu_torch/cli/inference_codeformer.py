@@ -25,7 +25,8 @@ RealESRGAN_x2plus.pth, or seeded with --random-init) take the classic
 path. --dtype fp32 serves the restorer's plain path in IEEE fp32 (bf16,
 the default, runs the kernels); --quant int8 serves JAX's int8 convs.
 cv2 is imported only where images and videos are read and written, and
-by the classic path's host steps.
+by the classic path's host steps. --profile reports the aligned path's
+read, restore and write stages.
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ from codeformer_tpu_torch.cli.common import (add_dtype_flag, list_inputs,
                                              resolve_checkpoint,
                                              resolve_dtype)
 from codeformer_tpu_torch.utils import img_util
+from codeformer_tpu_torch.utils.profiler import stage
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -125,27 +127,32 @@ def build_parser() -> argparse.ArgumentParser:
 def run_aligned(args, input_img_list, result_root, restorer):
     """Read, resize to the restorer's face size (512 for the released
     models), restore in device batches, write restored_faces/; a gray
-    input keeps its tone (face_restoration_helper.py:364-369)."""
+    input keeps its tone (face_restoration_helper.py:364-369). The three
+    steps are the stages `read`, `restore` and `write` of --profile."""
     import cv2
     size = restorer.face_size
     faces, grays, names = [], [], []
-    for i, img_path in enumerate(input_img_list):
-        print(f'[{i + 1}/{len(input_img_list)}] Processing: '
-              f'{os.path.basename(img_path)}')
-        img = cv2.imread(img_path, cv2.IMREAD_COLOR)
-        img = cv2.resize(img, (size, size), interpolation=cv2.INTER_LINEAR)
-        faces.append(img)
-        grays.append(img_util.is_gray(img, threshold=10))
-        names.append(os.path.splitext(os.path.basename(img_path))[0])
-    restored = restorer.restore_batch(faces, w=args.fidelity_weight,
-                                      adain=True)
-    for face, gray, name, out in zip(faces, grays, names, restored):
-        if gray:
-            out = img_util.adain_color_transfer(img_util.bgr2gray3(out),
-                                                face)
-        suffix = '' if args.suffix is None else f'_{args.suffix}'
-        img_util.imwrite(out, os.path.join(result_root, 'restored_faces',
-                                           f'{name}{suffix}.png'))
+    with stage('read'):
+        for i, img_path in enumerate(input_img_list):
+            print(f'[{i + 1}/{len(input_img_list)}] Processing: '
+                  f'{os.path.basename(img_path)}')
+            img = cv2.imread(img_path, cv2.IMREAD_COLOR)
+            img = cv2.resize(img, (size, size),
+                             interpolation=cv2.INTER_LINEAR)
+            faces.append(img)
+            grays.append(img_util.is_gray(img, threshold=10))
+            names.append(os.path.splitext(os.path.basename(img_path))[0])
+    with stage('restore'):
+        restored = restorer.restore_batch(faces, w=args.fidelity_weight,
+                                          adain=True)
+    with stage('write'):
+        for face, gray, name, out in zip(faces, grays, names, restored):
+            if gray:
+                out = img_util.adain_color_transfer(
+                    img_util.bgr2gray3(out), face)
+            suffix = '' if args.suffix is None else f'_{args.suffix}'
+            img_util.imwrite(out, os.path.join(
+                result_root, 'restored_faces', f'{name}{suffix}.png'))
 
 
 def main(argv=None):
