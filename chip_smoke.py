@@ -44,9 +44,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      anchor level, which must fail); the pipeline with K1/K2 on their
      kernels against their plain versions (frames inside the face windows
      within a bound, bit-identical outside, the restored crops equal to
-     restore_device on the same crops, every K1/K2 call on the crops'
-     own activations within the per-call bound, a planted K1 halo fault
-     failing it); exact launch counts a chunk at 1 and 4 faces a frame
+     restore_device on the same crops in runs of the restorer's top
+     bucket, every K1/K2 call on the crops' own activations within the
+     per-call bound, a planted K1 halo fault failing it); exact launch
+     counts a chunk at 1 and 4 faces a frame (a forward a run of 16)
      (the detections handed on are injected at bench.py's offsets while
      the detector's device graph runs on every chunk); frames/s at 1 and
      4 faces a frame and in folder mode, kernel and plain paths in
@@ -148,11 +149,23 @@ decode against the sha256 recorded with the tests
 (tests/torch_inputs_digests.json); `main(argv)` of the aligned CLI on
 inputs/cropped_faces (its faces bit-equal to restore_batch in process,
 exact K1/K2 launches, its images/s split into read, restore and write),
-of the whole-image CLI's fused route on each whole_imgs/*.jpg and on the
-cropped faces as whole images (--only_center_face), of colorization,
-inpainting and inference_vqgan --dtype bf16 (K3 once a batch, exact
-launches); and the documented aligned command as a subprocess, which
-must exit 0.
+of the whole-image CLI's fused route on each whole_imgs/ image and on
+the cropped faces as whole images (about 160 faces a chunk, restored in
+runs of 8; its peak memory under a bound that the same run restoring
+each chunk in one call must fail), of colorization, inpainting and
+inference_vqgan --dtype bf16 (K3 once a batch, exact launches); and the
+documented aligned command as a subprocess, which must exit 0. Then
+(`phase_files_more`) the whole-image CLI's classic route on
+inputs/whole_imgs and a gray image with --fused_pipeline off, the
+Real-ESRGAN upsamplers, YOLOv5n and --draw_box (restored faces
+bit-equal to restore_batch on the run's own crops, exact launches,
+images/s by stage); a 48-frame mp4v clip through the CLI on both routes
+(the frames handed to the writer bit-equal to the same pipeline in
+process, the video reopened, frames/s); crop_align_face (crops
+bit-equal to align_crop_face_landmarks in process); generate_latent_gt
+--dtype bf16 on 16 seeded PNGs (exact K1/K2/K3) and the training entry
+point on them as a subprocess (stage II, exit 0, finite losses,
+training faces/s with the loader against the numpy-batch rate).
 Every time is per launch: runs of back-to-back launches between two
 CUDA events (`time_ms`), the median run. The last line is the JSON
 result; the line before it lists the kernels, each with its launches on
@@ -165,6 +178,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import math
 import os
@@ -1781,8 +1795,8 @@ def phase_train():
         raise SystemExit(f'chip_smoke: frozen modules moved: {moved[:3]}')
 
     idx_gt_check(trainer)
-    phase_train_rates(trainer)
-    return counts, trainer
+    rate = phase_train_rates(trainer)
+    return counts, trainer, rate
 
 
 def _train_rate(trainer, step0: int) -> tuple:
@@ -1852,6 +1866,7 @@ def phase_train_rates(trainer):
           f'{med["kernel"] / med["plain"]:.3f}; frozen-encode share of the '
           f'step: kernel {statistics.median(share["kernel"]):.3f}, plain '
           f'{statistics.median(share["plain"]):.3f}', flush=True)
+    return med['kernel']
 
 
 # stage I (VQGANModel) and stage III (CodeFormerJointModel, CodeFormerModel)
@@ -3006,12 +3021,14 @@ def wi_pipeline_check(pipe, chunk, n_faces: int):
     plan = pipe.last_plan
     inside = torch.from_numpy(plan.windows_mask(out_k.shape)).cuda()
     crops, restored_k, counts = faces_k[0]
-    same_restore = bool(torch.equal(
-        restorer.restore_device(crops, w=0.5), restored_k))
+    top = restorer.batch_buckets[-1]
+    same_restore = bool(torch.equal(torch.cat([
+        restorer.restore_device(crops[i:i + top], w=0.5)
+        for i in range(0, sum(counts), top)]), restored_k))
     print(f'  pipeline, {n_faces} face(s) a frame: {len(chunk)} frames, '
           f'{sum(counts)} faces, m={plan.m}, w_edge {plan.w_edge}, windows '
           f'{plan.roi}^2; restored crops == restore_device on the same '
-          f'crops: {same_restore}', flush=True)
+          f'crops in runs of {top}: {same_restore}', flush=True)
     out_p = run(cv.conv3x3_dots_ref, cv.downsample_dots_ref)
     xn = restorer.normalize(crops)
 
@@ -3106,9 +3123,11 @@ def phase_whole_image(restorer, profile: bool = False) -> dict:
     for n_faces in (1, 4):
         wi_pipeline_check(pipe, chunk, n_faces)
 
-    # 3. the main path: exact launch counts, 1 then 4 faces a frame
+    # 3. the main path: exact launch counts, 1 then 4 faces a frame; a
+    # chunk's faces are restored in runs of the restorer's top bucket
     n_chunks = WI_FRAMES // WI_CHUNK
     n_res = count_resblocks(restorer.model, enable_fuse=True)
+    top = restorer.batch_buckets[-1]
     counts = {}
     for n_faces in (1, 4):
         det.n_faces = n_faces
@@ -3116,11 +3135,13 @@ def phase_whole_image(restorer, profile: bool = False) -> dict:
         out = pipe.restore_frames_device(frames)
         torch.cuda.synchronize()
         got = all_counts()
-        want = {'conv3x3_dots': n_chunks * (2 * n_res + 1),
-                'downsample_dots': n_chunks * 5}
+        fwd = n_chunks * -(-n_faces * WI_CHUNK // top)
+        want = {'conv3x3_dots': fwd * (2 * n_res + 1),
+                'downsample_dots': fwd * 5}
         print(f'  main path, {n_faces} face(s) a frame: m={pipe.last_plan.m} '
-              f'faces a chunk, one restorer forward a chunk; launches '
-              f'{got} (expected K1/K2 {want})', flush=True)
+              f'faces a chunk, {fwd // n_chunks} restorer forward(s) of '
+              f'<= {top} a chunk; launches {got} (expected K1/K2 {want})',
+              flush=True)
         if {k: got[k] for k in want} != want or any(
                 v for k, v in got.items() if k not in want):
             raise SystemExit('chip_smoke: whole-image launch counts differ')
@@ -4466,6 +4487,13 @@ def phase_vqgan_cli():
 
 CLI_FACES = os.path.join('inputs', 'cropped_faces')
 CLI_DIGESTS = os.path.join('tests', 'torch_inputs_digests.json')
+# peak device memory of the whole-image CLI on the 20 cropped faces as
+# whole images (random RetinaFace weights find 200 faces, 162 in the first
+# 16-frame chunk, restored and parsed in runs of 8). Read on an H100
+# (PERF.md): 11.24 GiB; the same run restoring each chunk in one call
+# (--batch 256) asked for 32 GiB more with 56 GiB allocated and ran out
+# of memory
+CLI_PEAK_BOUND_GIB = 32.0
 
 
 def run_cli(main_fn, argv) -> tuple:
@@ -4494,6 +4522,69 @@ def restorer_launches(restorer, n_faces: int, fuse: bool) -> dict:
     n_down = sum(isinstance(m, Downsample) for m in restorer.model.modules())
     return dict(NO_LAUNCHES, conv3x3_dots=chunks * (2 * n_res + 1),
                 downsample_dots=chunks * n_down)
+
+
+def shared_restorer(made: list):
+    """A CodeFormerRestorer factory for mock.patch that builds one
+    restorer on the first call (appending it to `made`) and hands the same
+    one to every later call, so runs of a CLI share weights and warm
+    state."""
+    from codeformer_tpu_torch.pipeline.restorer import CodeFormerRestorer
+
+    def make(**kw):
+        if not made:
+            made.append(CodeFormerRestorer(**kw))
+        return made[0]
+    return make
+
+
+def whole_image_cli_run(files, base: str, label: str, flags=(),
+                        fused: bool = True) -> tuple:
+    """The whole-image CLI's main(argv) on a folder of `files` (linked
+    into `base`_in, written to `base`_out): it must take the fused route
+    (`fused`) or the classic one, and write one final_results file an
+    input at the min-side-512 size x2, and a cropped and a restored face
+    for every face found. Returns (launch counts, its stdout, faces found
+    an image)."""
+    import re
+
+    import cv2
+
+    from codeformer_tpu_torch.cli import inference_codeformer as icf
+    src, out = base + '_in', base + '_out'
+    os.makedirs(src)
+    for f in files:
+        os.symlink(f, os.path.join(src, os.path.basename(f)))
+    counts, said = run_cli(icf.main, ['-i', src, '-o', out, '--random-init',
+                                      *flags])
+    faces = [int(n) for n in re.findall(
+        r'Processing: \S+ \((\d+) faces\)' if fused
+        else r'\tdetect (\d+) faces', said)]
+
+    def listed(sub):
+        d = os.path.join(out, sub)
+        return sorted(os.listdir(d)) if os.path.isdir(d) else []
+
+    finals = listed('final_results')
+    crops, rest = listed('cropped_faces'), listed('restored_faces')
+    ok = len(faces) == len(files) and len(finals) == len(files) and \
+        len(crops) == len(rest) == sum(faces)
+    for f in files:
+        img = cv2.imread(f, cv2.IMREAD_COLOR)
+        up = max(1.0, 512 / min(img.shape[:2]))
+        h, w = cv2.resize(img, (0, 0), fx=up, fy=up,
+                          interpolation=cv2.INTER_LINEAR).shape[:2]
+        name = os.path.splitext(os.path.basename(f))[0] + '.png'
+        got = cv2.imread(os.path.join(out, 'final_results', name))
+        ok = ok and got is not None and got.shape == (2 * h, 2 * w, 3)
+    print(f'  whole-image CLI on {label} {" ".join(flags)}: exit 0, '
+          f'{len(finals)} final_results at the min-side-512 size x2, faces '
+          f'found {faces} (random detector weights), {len(crops)} cropped / '
+          f'{len(rest)} restored faces; launches {counts}', flush=True)
+    if not ok:
+        raise SystemExit(f'chip_smoke: the whole-image CLI on {label} '
+                         f'{" ".join(flags)} wrote the wrong outputs')
+    return counts, said, faces
 
 
 def cli_digest_check() -> None:
@@ -4525,13 +4616,14 @@ def phase_cli_files() -> dict:
     (--random-init): (a) the aligned CLI on
     inputs/cropped_faces, its faces bit-equal to restore_batch in process
     and its K1/K2 launches exact, then its images/s split by its stage
-    timer; (b) the whole-image CLI on each whole_imgs/*.jpg alone (the
-    fused route) and on cropped_faces as whole images; (c) colorization
+    timer; (b) the whole-image CLI's fused route on each whole_imgs/
+    image alone and on cropped_faces as whole images, that run's peak
+    memory under CLI_PEAK_BOUND_GIB, which the same run restoring each
+    chunk's faces in one call (--batch 256) must fail; (c) colorization
     and inpainting; (d) inference_vqgan --dtype bf16 (K3); the documented
     aligned command as a subprocess; every inputs/ decode against its
     recorded digest. Returns the launches of the CLI runs."""
     import glob
-    import re
     import shutil
     import tempfile
 
@@ -4610,67 +4702,65 @@ def phase_cli_files() -> dict:
                       f'gray, with the gray adaptation)', flush=True)
             del made[:]
         # (b) the whole-image CLI on the fused route, one restorer
-        shared = {}
+        shared: list = []
 
-        def one_restorer(**kw):
-            if 'r' not in shared:
-                shared['r'] = CodeFormerRestorer(**kw)
-            return shared['r']
-
-        # the cropped faces with --only_center_face: random RetinaFace
-        # weights find about 10 faces a frame, and the fused pipeline
-        # restores a 16-frame chunk's faces in one forward (B = 160 asks
-        # for 32 GiB at the generator's fp32 statistics)
-        runs = [(n, [os.path.join(ROOT, 'inputs', 'whole_imgs', n)], [])
-                for n in ('00.jpg', '01.jpg', '03.jpg', '04.jpg', '05.jpg')]
-        runs.append(('cropped_faces as whole images', paths,
-                     ['--only_center_face']))
+        # each whole image alone (the JPEGs and the two 4-channel PNGs),
+        # and the 20 cropped faces as whole images: random RetinaFace
+        # weights find about 10 faces a frame there, about 160 in the
+        # first 16-frame chunk, which the pipeline restores and parses in
+        # runs of the CLI's --batch 8; the peak memory of that run is
+        # held under CLI_PEAK_BOUND_GIB
+        whole = os.path.join(ROOT, 'inputs', 'whole_imgs')
+        runs = [(n, [os.path.join(whole, n)]) for n in sorted(
+            os.listdir(whole))]
+        runs.append(('cropped_faces as whole images', paths))
         found = []
         with mock.patch.object(pipeline, 'CodeFormerRestorer',
-                               one_restorer):
-            for k, (label, files, flags) in enumerate(runs):
-                src = os.path.join(tmp, f'whole_in_{k}')
-                os.makedirs(src)
-                for f in files:
-                    os.symlink(f, os.path.join(src, os.path.basename(f)))
-                out = os.path.join(tmp, f'whole_out_{k}')
-                counts, said = run_cli(icf.main, ['-i', src, '-o', out,
-                                                  '--random-init', *flags])
+                               shared_restorer(shared)):
+            for k, (label, files) in enumerate(runs):
+                crowded = files is paths
+                base = os.path.join(tmp, f'whole_{k}')
+                if crowded:
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                counts, _, faces = whole_image_cli_run(
+                    files, base, f'{label} (fused route)')
                 add_counts(total, counts)
-                faces = [int(m) for m in
-                         re.findall(r'Processing: \S+ \((\d+) faces\)', said)]
                 found.append(sum(faces))
-                finals = sorted(os.listdir(os.path.join(out,
-                                                        'final_results')))
-                crops = os.listdir(os.path.join(out, 'cropped_faces')) \
-                    if os.path.isdir(os.path.join(out, 'cropped_faces')) \
-                    else []
-                rest = os.listdir(os.path.join(out, 'restored_faces')) \
-                    if os.path.isdir(os.path.join(out, 'restored_faces')) \
-                    else []
-                ok = ('unavailable' not in said and len(faces) == len(files)
-                      and len(finals) == len(files)
-                      and len(crops) == len(rest) == sum(faces))
-                for f in files:
-                    img = cv2.imread(f, cv2.IMREAD_COLOR)
-                    up = max(1.0, 512 / min(img.shape[:2]))
-                    h, w = cv2.resize(img, (0, 0), fx=up, fy=up,
-                                      interpolation=cv2.INTER_LINEAR).shape[:2]
-                    name = os.path.splitext(os.path.basename(f))[0] + '.png'
-                    got = cv2.imread(os.path.join(out, 'final_results',
-                                                  name))
-                    ok = ok and got is not None and got.shape == (
-                        2 * h, 2 * w, 3)
-                print(f'  whole-image CLI (fused route) on {label} '
-                      f'{" ".join(flags)}: exit 0, '
-                      f'{len(finals)} final_results at the min-side-512 '
-                      f'size x2, faces found {faces} (random RetinaFace '
-                      f'weights), {len(crops)} cropped / {len(rest)} '
-                      f'restored faces; launches {counts}', flush=True)
-                if not ok:
-                    raise SystemExit(f'chip_smoke: the whole-image CLI on '
-                                     f'{label} wrote the wrong outputs')
+                if crowded:
+                    crowded_in = base + '_in'
+                    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                    print(f'  peak memory of the {label} run ({sum(faces)} '
+                          f'faces, restored and parsed in runs of '
+                          f'{shared[0].batch_buckets[-1]}): {peak:.2f} '
+                          f'GiB (<= {CLI_PEAK_BOUND_GIB}) [{card_line()}]',
+                          flush=True)
+                    if peak > CLI_PEAK_BOUND_GIB:
+                        raise SystemExit('chip_smoke: the whole-image CLI\'s '
+                                         'peak memory exceeds its bound')
         del shared
+        torch.cuda.empty_cache()
+        # planted fault: the same run with the restorer's top bucket
+        # widened to 256 restores each chunk's faces in one call; the
+        # bound (or the card's memory) must catch it
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            run_cli(icf.main, ['-i', crowded_in,
+                               '-o', os.path.join(tmp, 'whole_fault'),
+                               '--random-init', '--batch', '256'])
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            caught = peak > CLI_PEAK_BOUND_GIB
+            said = f'peak {peak:.2f} GiB'
+        except torch.cuda.OutOfMemoryError as e:
+            caught, said = True, f'out of memory ({str(e).splitlines()[0]})'
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f'  planted fault: the cropped faces as whole images with '
+              f'--batch 256 (one restore call a chunk): {said}; caught: '
+              f'{caught}', flush=True)
+        if not caught:
+            raise SystemExit('chip_smoke: the peak-memory bound lets a '
+                             'one-call restore of a crowded chunk pass')
         # (c) colorization and inpainting
         for mod, src, n_files, fuse in (
                 (icol, 'gray_faces', 13, False),
@@ -4751,6 +4841,437 @@ def phase_cli_files() -> dict:
     return total
 
 
+# the entry points that read and write files, on the repo's inputs or on
+# seeded files the phase writes: the whole-image CLI's classic route with
+# its flag sets, videos through the CLI on both routes, crop_align_face,
+# and stage II from PNGs on disk (generate_latent_gt, then the training
+# entry point as a subprocess); the CLI's default --batch 8
+FILES_CLASSIC_FLAGS = (('--fused_pipeline', 'off'),
+                       ('--bg_upsampler', 'realesrgan', '--face_upsample'),
+                       ('--detection_model', 'YOLOv5n'),
+                       ('--draw_box',))
+FILES_STAGES = ('folder_detect_align', 'folder_restore', 'folder_parse',
+                'folder_bg_upsample', 'folder_paste')
+VIDEO_FRAMES = 48
+VIDEO_FPS = 24.0
+VIDEO_SHIFT = 2            # px a frame, so that the faces move
+STAGE2_FILES = 16          # seeded 512^2 PNGs
+STAGE2_ITERS = 30          # training iterations from them
+STAGE2_WARM = 10           # iterations left out of the rate
+
+
+def restored_faces_check(r, out: str, gray: set, label: str) -> int:
+    """restored_faces/*.png of a whole-image CLI run bit-equal to
+    r.restore_batch on the run's own cropped_faces/*.png (in the run's
+    order), a gray image's faces with the gray adaptation. Returns the
+    number of faces."""
+    import cv2
+
+    from codeformer_tpu_torch.utils import img_util
+    d = os.path.join(out, 'cropped_faces')
+    names = sorted(os.listdir(d)) if os.path.isdir(d) else []
+    crops = [cv2.imread(os.path.join(d, n)) for n in names]
+    ref = r.restore_batch(crops, w=0.5, adain=True) if crops else []
+    for name, crop, o in zip(names, crops, ref):
+        if name.rsplit('_', 1)[0] in gray:
+            o = img_util.adain_color_transfer(img_util.bgr2gray3(o), crop)
+        got = cv2.imread(os.path.join(out, 'restored_faces', name))
+        if got is None or not np.array_equal(got, o):
+            raise SystemExit(f'chip_smoke: {label}: restored_faces/{name} '
+                             f'differs from restore_batch in process')
+    return len(names)
+
+
+def files_classic(tmp: str, restorer_made: list) -> dict:
+    """The whole-image CLI's classic route on inputs/whole_imgs and a
+    gray image written from 03.jpg, with each of FILES_CLASSIC_FLAGS."""
+    import cv2
+
+    from codeformer_tpu_torch import pipeline
+    from codeformer_tpu_torch.pipeline import realesrgan as pesr
+    from codeformer_tpu_torch.utils import img_util
+    from codeformer_tpu_torch.utils.profiler import TIMER
+    whole = os.path.join(ROOT, 'inputs', 'whole_imgs')
+    gray_path = os.path.join(tmp, '07_gray.png')
+    cv2.imwrite(gray_path, cv2.cvtColor(cv2.imread(
+        os.path.join(whole, '03.jpg')), cv2.COLOR_BGR2GRAY))
+    files = sorted(os.path.join(whole, n) for n in os.listdir(whole))
+    files.append(gray_path)
+    gray = {os.path.splitext(os.path.basename(f))[0] for f in files
+            if img_util.is_gray(cv2.imread(f, cv2.IMREAD_COLOR), 10)}
+    real_esr = pesr.set_realesrgan
+
+    def tamed_realesrgan(**kw):
+        up = real_esr(**kw)
+        tame_rrdb(up.model)
+        return up
+
+    total = {}
+    with mock.patch.object(pipeline, 'CodeFormerRestorer',
+                           shared_restorer(restorer_made)), \
+            mock.patch.object(pesr, 'set_realesrgan', tamed_realesrgan):
+        for k, flags in enumerate(FILES_CLASSIC_FLAGS):
+            TIMER.reset()
+            t0 = time.perf_counter()
+            counts, _, faces = whole_image_cli_run(
+                files, os.path.join(tmp, f'classic_{k}'),
+                f'inputs/whole_imgs + a gray image (classic route)', flags,
+                fused=False)
+            wall = time.perf_counter() - t0
+            r = restorer_made[0]
+            n = restored_faces_check(r, os.path.join(tmp, f'classic_{k}_out'),
+                                     gray, ' '.join(flags))
+            want = restorer_launches(r, n, fuse=True)
+            st = {s: TIMER.totals[s] for s in FILES_STAGES
+                  if s in TIMER.totals}
+            print(f'    {n} restored_faces/*.png bit-equal to restore_batch '
+                  f'in process ({len(gray)} gray image(s), with the gray '
+                  f'adaptation); launches expected {want}; images/s '
+                  f'{len(files) / sum(st.values()):.2f} by its stages ('
+                  + ', '.join(f'{s} {v:.3f} s' for s, v in st.items()) +
+                  f'), main {wall:.2f} s with start-up and writes '
+                  f'[{card_line()}]', flush=True)
+            if counts != want or sum(faces) != n:
+                raise SystemExit(f'chip_smoke: the classic route with '
+                                 f'{" ".join(flags)}: launches or faces '
+                                 f'differ')
+            add_counts(total, counts)
+    return total
+
+
+def write_clip(path: str, src: str) -> list:
+    """VIDEO_FRAMES frames of `src` (cropped to even sides), shifted by
+    VIDEO_SHIFT px a frame, written with cv2's mp4v writer."""
+    import cv2
+    img = cv2.imread(src)
+    h, w = img.shape[0] // 2 * 2, img.shape[1] // 2 * 2
+    img = img[:h, :w]
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*'mp4v'), VIDEO_FPS,
+                         (w, h))
+    if not vw.isOpened():
+        raise SystemExit(f'chip_smoke: cv2 cannot write {path}')
+    for i in range(VIDEO_FRAMES):
+        shift = np.float32([[1, 0, VIDEO_SHIFT * i - VIDEO_FRAMES],
+                            [0, 1, 0]])
+        vw.write(cv2.warpAffine(img, shift, (w, h),
+                                borderMode=cv2.BORDER_REFLECT))
+    vw.release()
+
+
+def read_clip(path: str) -> tuple:
+    """(every frame cv2.VideoCapture decodes, its frame rate)."""
+    import cv2
+    cap = cv2.VideoCapture(path)
+    frames = []
+    ok, f = cap.read()
+    while ok:
+        frames.append(f)
+        ok, f = cap.read()
+    fps = cap.get(cv2.CAP_PROP_FPS)
+    cap.release()
+    return frames, fps
+
+
+def files_video(tmp: str, restorer_made: list) -> dict:
+    """A seeded mp4v clip through the CLI's main on the fused route
+    (restore_frames_stream to the writer) and with --fused_pipeline off
+    (pipeline/video.py restore_video_frames): the frames handed to the
+    writer bit-equal to the same restorer, helper and pipeline in process
+    on the same decoded frames, the same restorer batches, exact K1/K2
+    launches, the written video reopened; frames/s of main."""
+    import cv2
+
+    from codeformer_tpu_torch import pipeline
+    from codeformer_tpu_torch.cli import inference_codeformer as icf
+    from codeformer_tpu_torch.pipeline import device_pipeline as pdp
+    from codeformer_tpu_torch.pipeline import face_helper as pfh
+    from codeformer_tpu_torch.pipeline.restorer import CodeFormerRestorer
+    from codeformer_tpu_torch.pipeline.video import restore_video_frames
+    from codeformer_tpu_torch.utils import video_util
+    clip = os.path.join(tmp, 'clip.mp4')
+    write_clip(clip, os.path.join(ROOT, 'inputs', 'whole_imgs', '00.jpg'))
+    decoded, fps = read_clip(clip)
+    f = 512.0 / min(decoded[0].shape[:2])
+    h, w = cv2.resize(decoded[0], (0, 0), fx=f, fy=f,
+                      interpolation=cv2.INTER_LINEAR).shape[:2]
+    print(f'  video: {len(decoded)} frames of {decoded[0].shape[1]}x'
+          f'{decoded[0].shape[0]} at {fps:g} fps (mp4v, written with cv2 '
+          f'from whole_imgs/00.jpg, {VIDEO_SHIFT} px a frame)', flush=True)
+    if len(decoded) != VIDEO_FRAMES:
+        raise SystemExit('chip_smoke: the written clip does not decode to '
+                         'its frames')
+    real_writer, real_fwd = video_util.make_video_writer, \
+        CodeFormerRestorer._fwd
+    total = {}
+    for route, flags in (('fused', ()),
+                         ('classic', ('--fused_pipeline', 'off'))):
+        written, made, batches = [], {}, []
+
+        def recording_writer(*a, **kw):
+            writer = real_writer(*a, **kw)
+            write = writer.write_frame
+
+            def record(frame):
+                written.append(np.array(frame))
+                write(frame)
+            writer.write_frame = record
+            return writer
+
+        def counted_fwd(self, x, *a, **kw):
+            batches.append(int(x.shape[0]))
+            return real_fwd(self, x, *a, **kw)
+
+        class Pipe(pdp.DeviceRestorePipeline):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made['pipe'] = self
+
+        class Helper(pfh.FaceRestoreHelper):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made['helper'] = self
+
+        out = os.path.join(tmp, f'video_{route}')
+        with mock.patch.object(pipeline, 'CodeFormerRestorer',
+                               shared_restorer(restorer_made)), \
+                mock.patch.object(video_util, 'make_video_writer',
+                                  recording_writer), \
+                mock.patch.object(pdp, 'DeviceRestorePipeline', Pipe), \
+                mock.patch.object(pfh, 'FaceRestoreHelper', Helper), \
+                mock.patch.object(CodeFormerRestorer, '_fwd', counted_fwd):
+            t0 = time.perf_counter()
+            counts, _ = run_cli(icf.main, ['-i', clip, '-o', out,
+                                           '--random-init', *flags])
+            wall = time.perf_counter() - t0
+            cli_batches = batches[:]
+            del batches[:]
+            r = restorer_made[0]
+            if route == 'fused':
+                ref, faces = made['pipe'].restore_frames(decoded,
+                                                         return_faces=True)
+                n_faces = [len(x) for x in faces]
+            else:
+                ref = restore_video_frames(list(decoded), r, made['helper'],
+                                           w=0.5, upscale=2)
+                n_faces = None
+        got, got_fps = read_clip(os.path.join(out, 'clip.mp4'))
+        same = len(written) == len(ref) == VIDEO_FRAMES and all(
+            np.array_equal(a, b) for a, b in zip(written, ref))
+        top = r.batch_buckets[-1]
+        per = restorer_launches(r, 1, fuse=True)
+        want = {k: v * len(cli_batches) for k, v in per.items()}
+        print(f'  video through the CLI ({route} route{" " if flags else ""}'
+              f'{" ".join(flags)}): {VIDEO_FRAMES / wall:.2f} frames/s end '
+              f'to end ({wall:.2f} s: main with decode, restore, PNG and '
+              f'video writes) [{card_line()}]; faces a frame '
+              f'{n_faces if n_faces else "not printed"}, restorer batches '
+              f'{cli_batches} (in process {batches}); frames handed to the '
+              f'writer bit-equal to the in-process run: {same}; the .mp4 '
+              f'reopens with {len(got)} frames of {got[0].shape[1]}x'
+              f'{got[0].shape[0]} at {got_fps:g} fps; launches {counts} '
+              f'(expected {want})', flush=True)
+        if not same or cli_batches != batches or max(cli_batches) > top \
+                or counts != want or len(got) != VIDEO_FRAMES \
+                or got[0].shape != (2 * h, 2 * w, 3) \
+                or abs(got_fps - VIDEO_FPS) > 1e-3:
+            raise SystemExit(f'chip_smoke: the video through the CLI '
+                             f'({route} route) differs')
+        add_counts(total, counts)
+    return total
+
+
+def files_crop_align(tmp: str) -> None:
+    """crop_align_face's main on inputs/whole_imgs, RetinaFace
+    landmarks on the card (--random-init): a 512^2 crop for each image
+    where a face was found, each bit-equal to align_crop_face_landmarks
+    in process on the same detector's landmarks; images/s of main."""
+    import glob
+
+    import cv2
+
+    from codeformer_tpu_torch.cli import crop_align_face as cac
+    from codeformer_tpu_torch.pipeline.face_utils import \
+        align_crop_face_landmarks
+    whole = os.path.join(ROOT, 'inputs', 'whole_imgs')
+    out = os.path.join(tmp, 'crops')
+    dets = []
+    real = cac.init_detection_model
+
+    def recorded(*a, **kw):
+        dets.append(real(*a, **kw))
+        return dets[-1]
+
+    with mock.patch.object(cac, 'init_detection_model', recorded):
+        t0 = time.perf_counter()
+        counts, _ = run_cli(cac.main, ['-i', whole, '-o', out,
+                                       '--landmark-source', 'retinaface',
+                                       '--random-init'])
+        wall = time.perf_counter() - t0
+    paths = sorted(glob.glob(os.path.join(whole, '*.[jpJP][pnPN]*[gG]')))
+    found = 0
+    for p in paths:
+        img = cv2.imread(p)
+        lm = cac.get_landmarks_retinaface(dets[0], img)
+        got = cv2.imread(os.path.join(out, os.path.basename(p).replace(
+            '.jpg', '.png')))
+        if lm is None:
+            ok = got is None
+        else:
+            found += 1
+            face, _ = align_crop_face_landmarks(img, lm, 512)
+            ok = got is not None and got.shape == (512, 512, 3) and \
+                np.array_equal(got, face)
+        if not ok:
+            raise SystemExit(f'chip_smoke: crop_align_face\'s crop of '
+                             f'{os.path.basename(p)} differs from '
+                             f'align_crop_face_landmarks in process')
+    print(f'  crop_align_face --landmark-source retinaface --random-init on '
+          f'inputs/whole_imgs: {found} of {len(paths)} images with a face, '
+          f'{len(os.listdir(out))} crops of 512x512 bit-equal to '
+          f'align_crop_face_landmarks in process; {len(paths) / wall:.2f} '
+          f'images/s ({wall:.2f} s, main with the detector\'s build) '
+          f'[{card_line()}]', flush=True)
+    if any(counts.values()) or len(os.listdir(out)) != found:
+        raise SystemExit('chip_smoke: crop_align_face wrote the wrong files '
+                         'or launched a kernel')
+
+
+def files_stage2(tmp: str, numpy_rate: float) -> dict:
+    """Stage II from files: STAGE2_FILES seeded 512^2 PNGs and a
+    seeded stand-in VQGAN .pth; generate_latent_gt --dtype bf16 on them
+    (K1/K2/K3 on the card, exact launches, codes equal to encode in
+    process); then `python -m codeformer_tpu_torch.train.train -opt
+    options/CodeFormer_stage2.yml` as a subprocess on them, bf16, through
+    the port's FFHQBlindDataset (its degradations) and loader with 2
+    workers: exit 0, finite losses, training faces/s from the log's
+    clock against phase_train's rate on numpy batches."""
+    import re
+
+    import cv2
+
+    from codeformer_tpu_torch.cli import generate_latent_gt as glg
+    from codeformer_tpu_torch.models.vqgan import VQAutoEncoder
+    from codeformer_tpu_torch.utils.checkpoint import init_params_fast
+    imgs = os.path.join(tmp, 'ffhq')
+    os.makedirs(imgs)
+    for i, face in enumerate(_faces(np.random.default_rng(16),
+                                    STAGE2_FILES)):
+        cv2.imwrite(os.path.join(imgs, f'{i:05d}.png'), face)
+    standin = os.path.join(tmp, 'vqgan_code1024.pth')
+    torch.save({'params_ema': init_params_fast(VQAutoEncoder(), 7)
+                .state_dict()}, standin)
+    counts, _ = run_cli(glg.main, ['-i', imgs, '-o', os.path.join(tmp, 'lat'),
+                                   '--ckpt_path', standin, '--dtype', 'bf16'])
+    pth = os.path.join(tmp, 'lat', 'latent_gt_code1024.pth')
+    encodes = 2 * -(-STAGE2_FILES // LATENT_BATCH)
+    want = {k: v * encodes for k, v in ENCODE_LAUNCHES.items()}
+    blob = torch.load(pth, weights_only=True)
+    model = glg.build_vqgan({'codebook_size': 1024}, standin,
+                            dtype=torch.bfloat16, device='cuda')
+    paths = sorted(os.path.join(imgs, n) for n in os.listdir(imgs))
+    x = torch.from_numpy(glg.read_images(paths[:LATENT_BATCH], False))
+    codes = glg.encode(model, x.cuda().permute(0, 3, 1, 2),
+                       torch.bfloat16).cpu()
+    same = all(torch.equal(blob['orig'][os.path.basename(p)[:-4]], c)
+               for p, c in zip(paths, codes))
+    print(f'  generate_latent_gt --dtype bf16 on {STAGE2_FILES} seeded 512^2 '
+          f'PNGs with a seeded stand-in VQGAN .pth: {len(blob["orig"])} + '
+          f'{len(blob["hflip"])} code maps; the first batch equal to encode '
+          f'in process: {same}; launches {counts} (expected {want})',
+          flush=True)
+    if counts != want or not same or \
+            len(blob['orig']) != len(blob['hflip']) != STAGE2_FILES:
+        raise SystemExit('chip_smoke: generate_latent_gt on files differs')
+    del model, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, card = torch.cuda.mem_get_info()
+    held = torch.cuda.memory_reserved() / 2 ** 30
+    print(f'  before the training subprocess: {free / 2 ** 30:.2f} of '
+          f'{card / 2 ** 30:.2f} GiB of the card free', flush=True)
+    exp = os.path.join(tmp, 'experiment')
+    force = [f'datasets:train:dataroot_gt={imgs}',
+             f'datasets:train:latent_gt_path={pth}',
+             'datasets:train:num_worker_per_gpu=2',
+             f'network_g:vqgan_path={standin}',
+             f'path:pretrain_network_vqgan={standin}',
+             'mixed_precision=bf16', f'train:total_iter={STAGE2_ITERS}',
+             'logger:print_freq=1', 'logger:use_tb_logger=false',
+             'logger:save_checkpoint_freq=1000000000',
+             f'path:experiments_root={exp}', f'path:models={exp}/models',
+             f'path:training_states={exp}/training_states',
+             f'path:log={exp}', f'path:visualization={exp}/visualization']
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'codeformer_tpu_torch.train.train', '-opt',
+         os.path.join('options', 'CodeFormer_stage2.yml'), '--force_yml',
+         *force], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    said = proc.stdout + proc.stderr
+    steps = re.findall(r'^(\S+ [\d:]+),(\d+) INFO: \[.*iter:\s*([\d,]+), '
+                       r'lr:.*time \(data\): ([\d.]+) \(([\d.]+)\)\] (l_.*)$',
+                       said, re.M)
+    when, losses, split = {}, [], []
+    for day_time, ms, it, step_s, data_s, rest in steps:
+        stamp = time.mktime(time.strptime(day_time, '%Y-%m-%d %H:%M:%S'))
+        it = int(it.replace(',', ''))
+        when[it] = stamp + int(ms) / 1e3
+        if it > STAGE2_WARM:
+            split.append((float(step_s), float(data_s)))
+        losses.extend(float(v) for v in re.findall(r'\w+: (\S+)', rest))
+    batch = 4      # batch_size_per_gpu of the yml
+    ok = proc.returncode == 0 and torch.cuda.get_device_name(0) in said \
+        and sorted(when) == list(
+        range(1, STAGE2_ITERS + 1)) and losses and \
+        all(math.isfinite(v) for v in losses)
+    rate = batch * (STAGE2_ITERS - STAGE2_WARM) / (
+        when[STAGE2_ITERS] - when[STAGE2_WARM]) if ok else float('nan')
+    print(f'  python -m codeformer_tpu_torch.train.train -opt '
+          f'options/CodeFormer_stage2.yml (PNGs on disk, latent_gt_path, '
+          f'stand-in vqgan_path, bf16, 2 loader workers, {STAGE2_ITERS} '
+          f'iterations): exit {proc.returncode} in {wall:.1f} s; losses '
+          f'finite: {bool(losses) and all(map(math.isfinite, losses))} '
+          f'(last line {steps[-1][-1].strip() if steps else "none"}); '
+          f'training faces/s with the loader {rate:.2f} (iterations '
+          f'{STAGE2_WARM + 1}-{STAGE2_ITERS}, the log\'s clock; mean '
+          f'{statistics.mean(x for x, _ in split or [(0, 0)]):.3f} s in the '
+          f'step\'s host call, '
+          f'{statistics.mean(y for _, y in split or [(0, 0)]):.3f} s waiting '
+          f'for the loader) against {numpy_rate:.2f} on numpy batches '
+          f'(phase_train, kernel path, B=4); this process held '
+          f'{held:.2f} GiB of the card [{card_line()}]', flush=True)
+    if not ok:
+        raise SystemExit(f'chip_smoke: stage II from files failed:\n'
+                         f'{said[-3000:]}')
+    return counts
+
+
+def phase_files_more(numpy_rate: float) -> dict:
+    """The whole-image CLI's classic route, videos through the CLI,
+    crop_align_face and stage II from files, on the card
+    with seeded random weights; one restorer for the CLI runs, as the CLI
+    builds it at its default --batch 8. Returns their launches."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix='files_more_')
+    made: list = []
+    total: dict = {}
+    try:
+        add_counts(total, files_classic(tmp, made))
+        add_counts(total, files_video(tmp, made))
+        del made[:]
+        torch.cuda.empty_cache()
+        files_crop_align(tmp)
+        add_counts(total, files_stage2(tmp, numpy_rate))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f'  files phase (classic route, videos, crop_align_face, stage II '
+          f'from files): {time.perf_counter() - t0:.1f} s', flush=True)
+    return total
+
+
 KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
     'conv3x3_dots': ('codeformer_tpu_torch/csrc/conv3x3_dots.cu',
                      'codeformer_tpu/ops/colpack_conv.py:376'),
@@ -4794,7 +5315,7 @@ def main():
     task_counts = phase_tasks()
     vq_counts, vq_probe = phase_vqgan()
     vqcli_counts = phase_vqgan_cli()
-    train_counts, trainer = phase_train()
+    train_counts, trainer, train_rate = phase_train()
     if '--profile' in sys.argv[1:]:
         phase_train_profile(trainer)
     phase_validation(trainer)
@@ -4810,6 +5331,7 @@ def main():
     phase_srmodel()
     phase_arcface()
     cli_counts = phase_cli_files()
+    files_counts = phase_files_more(train_rate)
     print(f'main-path launches: serving {serve_counts}; whole-image path '
           f'{whole_counts}; classic path {classic_counts}; classic path with '
           f'the upsamplers {upsample_counts}; colorization and inpainting '
@@ -4820,7 +5342,8 @@ def main():
           f'{dp_counts}; ops path {ops_counts}; fp32 serving {fp32_counts}; '
           f'int8 serving {int8_counts}; multi-device serving '
           f'{multi_counts}; inference_vqgan {vqcli_counts}; the CLIs on '
-          f'files {cli_counts}')
+          f'files {cli_counts}; the classic route, videos and stage II from '
+          f'files {files_counts}')
     phase_k3_activities(k3_calls)
     vqgan_activities(vq_probe)
     del k3_calls, vq_probe
@@ -4847,7 +5370,8 @@ def main():
                              train_counts, stage1_counts, stage3_counts,
                              remat_counts, latent_counts, dp_counts,
                              ops_counts, fp32_counts, int8_counts,
-                             multi_counts, vqcli_counts, cli_counts)),
+                             multi_counts, vqcli_counts, cli_counts,
+                             files_counts)),
             'max_abs_err': max(r['max_abs_err'] for r in rows),
             'ms': head['ms'], 'plain_ms': head['plain_ms'],
             'bound_ms': head['bound_ms'], 'bound_by': head['bound_by'],
@@ -4861,14 +5385,14 @@ def main():
     if not all(c['nearest_code'] > 0 for c in (
             train_counts, vq_counts, stage1_counts, stage3_counts,
             remat_counts, latent_counts, dp_counts, vqcli_counts,
-            cli_counts)) \
+            cli_counts, files_counts)) \
             or not all(c[k] > 0 for c in (serve_counts, whole_counts,
                                           classic_counts, upsample_counts,
                                           task_counts, vq_counts,
                                           stage3_counts, remat_counts,
                                           latent_counts, dp_counts,
                                           multi_counts, vqcli_counts,
-                                          cli_counts)
+                                          cli_counts, files_counts)
                        for k in ('conv3x3_dots', 'downsample_dots')) \
             or not all(ops_counts[k] > 0 for k in (
                 'conv3x3_bias', 'fused_lrelu_fwd', 'fused_lrelu_bwd')):

@@ -7,19 +7,22 @@ out, every bulk tensor on the device between stages.
                      (B, max_faces, 15) landmark block crosses to the host)
       -> align      (host: 5-point similarity solves; device: the
                      bilinear warp gather to the face crops)
-      -> restore    (device: CodeFormer, all faces of a chunk in one call;
-                     its ResBlock convs and Downsamples are the
-                     hand-written kernels of ops/conv3x3.py)
-      -> parse      (device: ParseNet at parse_res)
+      -> restore    (device: CodeFormer on the chunk's faces in runs of
+                     the restorer's top bucket; its ResBlock convs and
+                     Downsamples are the hand-written kernels of
+                     ops/conv3x3.py)
+      -> parse      (device: ParseNet at parse_res, in the same runs)
       -> composite  (device: inverse warps into per-face windows, erosion,
                      soft edge, parse-guided blend over the upscaled
                      canvas, faces in the reference's overwrite order)
       -> final frames (uint8, fetched once or kept on the device)
 
 JAX traces warp -> restore -> parse -> composite into one merged graph a
-chunk; here they are one eager call sequence on one device, with the
-same arithmetic and the same order of blends (a plain loop over blend
-rounds takes the place of XLA's unrolled groups). Frames come in and go
+chunk, restoring all m face slots in one call; here they are one eager
+call sequence on one device, with the same arithmetic and the same order
+of blends (a plain loop over blend rounds takes the place of XLA's
+unrolled groups), and the restore and parse split into runs so that a
+crowded chunk does not run the card out of memory. Frames come in and go
 out as uint8 arrays: no cv2 on the device path. cv2 is imported only to
 upsample frames whose short side is under 512 (`restore_frames`,
 `restore_frames_stream`).
@@ -137,16 +140,51 @@ class DeviceRestorePipeline:
         ids."""
         return self.helper._parse(restored, self.parse_res)
 
+    def _restore_parse(self, faces_rgb: torch.Tensor, n_real: int):
+        """Restore, then parse, the first `n_real` crops (the real faces;
+        the plan's padding slots are never restored) in runs of at most
+        the restorer's top bucket, the last run padded with zeros to its
+        bucket, as restore_batch runs them: the batch, and so the
+        memory, stays bounded however many faces a chunk holds. Returns
+        (restored (n, face, face, 3) uint8 RGB, parse ids (n, parse_res,
+        parse_res) or None), n = max(n_real, 1). The composite reads only
+        real faces (its padding slots map to face 0 and sit off the
+        window), so a chunk without faces gets one blank face that
+        blends nothing."""
+        restorer = self.restorer
+        top = restorer.batch_buckets[-1]
+        restored, pids = [], []
+        for i in range(0, n_real, top):
+            run = faces_rgb[i:min(i + top, n_real)]
+            r = run.shape[0]
+            pad = restorer._bucket(r) - r
+            if pad:
+                run = torch.cat([run, run.new_zeros((pad, *run.shape[1:]))])
+            out = restorer.restore_device(run, self.w, adain=True,
+                                          enable_fuse=self.w > 0)
+            restored.append(out[:r])
+            if self.use_parse:
+                pids.append(self._parse_ids(out)[:r])
+        if not restored:
+            face = faces_rgb.shape[1]
+            restored = [faces_rgb.new_zeros((1, face, face, 3))]
+            pids = [torch.zeros((1, self.parse_res, self.parse_res),
+                                dtype=torch.long, device=self.device)]
+        return torch.cat(restored), (torch.cat(pids) if self.use_parse
+                                     else None)
+
     def _composite(self, frames: torch.Tensor, restored: torch.Tensor,
                    pids: Optional[torch.Tensor],
                    plan: ChunkPlan) -> torch.Tensor:
         """Paste the restored faces back: (C, H*up, W*up, 3) uint8 BGR.
 
         With plan.roi > 0 each face warps and filters into a (roi, roi)
-        window of the canvas; else into the whole canvas. Round k blends
-        the k-th face of every frame, so later faces blend over earlier
-        ones as in the reference's per-face loop. The warp and the blend
-        weights are compositor.soft_paste, shared with paste_faces."""
+        window of the canvas; else into the whole canvas. Round k warps
+        and blends the k-th face of every frame, so later faces blend
+        over earlier ones as in the reference's per-face loop, and a
+        round's canvases (one a frame, whatever the faces a frame) bound
+        the memory. The warp and the blend weights are
+        compositor.soft_paste, shared with paste_faces."""
         c, h, w = frames.shape[:3]
         up = self.upscale
         h_up, w_up = h * up, w * up
@@ -183,19 +221,16 @@ class DeviceRestorePipeline:
         if roi:
             roi_pos = torch.as_tensor(plan.roi_pos, device=dev).long()
             span = torch.arange(roi, device=dev)
-            for k in range(f):
-                sel = frame_ids * f + k
-                soft, pasted = paste_pieces(sel)
+        for k in range(f):
+            sel = frame_ids * f + k
+            soft, pasted = paste_pieces(sel)
+            if roi:
                 rows = (roi_pos[sel, 1, None] + span)[:, :, None]
                 cols = (roi_pos[sel, 2, None] + span)[:, None, :]
                 at = (frame_ids[:, None, None], rows, cols)
                 out[at] = blend(soft, pasted, out[at])
-        else:
-            soft, pasted = paste_pieces(torch.arange(c * f, device=dev))
-            soft = soft.reshape(c, f, hc, wc, 1)
-            pasted = pasted.reshape(c, f, hc, wc, 3)
-            for k in range(f):
-                out = blend(soft[:, k], pasted[:, k], out)
+            else:
+                out = blend(soft, pasted, out)
         out = torch.round(out).clamp(0, 255).to(torch.uint8)
         return out[:, :h_up, :w_up]
 
@@ -329,8 +364,8 @@ class DeviceRestorePipeline:
         `_detect_start`, made earlier so the next chunk's detection is
         already queued while the host solves this one's affines.
         `collect_faces`: optional list; gets (cropped RGB (m, face, face,
-        3), restored RGB, faces of each frame) for callers that save
-        faces (the folder CLI)."""
+        3), restored RGB of the real faces (`_restore_parse`), faces of
+        each frame) for callers that save faces (the folder CLI)."""
         c, h, w = frames_dev.shape[:3]
         det_scale, det_hw = self._det_hw(h, w)
         if pending_dets is None:
@@ -343,9 +378,7 @@ class DeviceRestorePipeline:
         plan = self._plan(per_frame, (h, w))
         self.last_plan = plan
         faces_rgb = self._warp(frames_dev, plan)
-        restored = self.restorer.restore_device(
-            faces_rgb, self.w, adain=True, enable_fuse=self.w > 0)
-        pids = self._parse_ids(restored) if self.use_parse else None
+        restored, pids = self._restore_parse(faces_rgb, sum(plan.counts))
         out = self._composite(frames_dev, restored, pids, plan)
         if collect_faces is not None:
             collect_faces.append((faces_rgb, restored, plan.counts))

@@ -286,3 +286,124 @@ def test_stream_equals_batch(models):
     short = list(pp.restore_frames_stream(iter(frames[:1])))
     np.testing.assert_array_equal(short[0], pp.restore_frames(frames[:1])[0])
     assert list(pp.restore_frames_stream(iter([]))) == []
+
+
+# a chunk of 3 frames with 2 faces each: 6 real faces, m = 8 slots
+SPLIT_FRAMES = 3
+SPLIT_RUNS = {(1, 2): [2, 2, 2], (1, 4): [4, 4]}   # buckets: batch sizes
+
+
+def _counting_pipe(models, buckets, use_parse=True):
+    """The port's pipeline on the 'overlap' faces, its restorer (the
+    fixture's weights) on `buckets`; records the batch of every restore
+    and parse call."""
+    _, pr, _, pparse = models
+    r = CodeFormerRestorer(device='cpu', dtype=torch.float32,
+                           model=pr.model, face_size=FACE,
+                           batch_buckets=buckets)
+    pipe = pdp.DeviceRestorePipeline(
+        r, _Helper(_PInjected(CASES['overlap'][0]), use_parse, pparse),
+        upscale=2, w=0.5, parse_res=FACE, frame_chunk=SPLIT_FRAMES)
+    pipe.calls = {'restore': [], 'parse': []}
+    restore, parse = r.restore_device, pipe._parse_ids
+
+    def counted_restore(x, *a, **kw):
+        pipe.calls['restore'].append(x.shape[0])
+        return restore(x, *a, **kw)
+
+    def counted_parse(x):
+        pipe.calls['parse'].append(x.shape[0])
+        return parse(x)
+
+    r.restore_device, pipe._parse_ids = counted_restore, counted_parse
+    return pipe
+
+
+@pytest.mark.parametrize('buckets', sorted(SPLIT_RUNS))
+def test_split_restore_equals_one_call_and_jax(models, buckets):
+    """A chunk with more faces than the restorer's top bucket restores
+    and parses its real faces in runs of that bucket (the last padded to
+    its bucket), never the plan's padding slots: the frames, the
+    collected faces and the plan equal those of the same pipeline whose
+    top bucket holds the chunk (one call, 6 faces padded to 8) bit for
+    bit; and, without ParseNet, the frames are JAX's one-call pipeline's
+    within test_pipeline_matches_jax's bounds. (With ParseNet the two
+    restorers' faces, a level apart at 0.015% of values, flip 0.008% of
+    the parse ids' argmax, and such a pixel of the blend mask moves the
+    frame by up to 6 levels: read mean 0.0013, max 6, with the one-call
+    port pipeline as with the split one.)"""
+    jr, _, _, _ = models
+    frames = _frames(SPLIT_FRAMES, seed=21)
+    split = _counting_pipe(models, buckets)
+    one = _counting_pipe(models, (1, 2, 4, 8))
+    got, want = [], []
+    out = split.restore_frames_device(frames, collect_faces=got).numpy()
+    ref = one.restore_frames_device(frames, collect_faces=want).numpy()
+    assert split.calls == {'restore': SPLIT_RUNS[buckets],
+                           'parse': SPLIT_RUNS[buckets]}
+    assert one.calls == {'restore': [8], 'parse': [8]}
+    plan = split.last_plan
+    assert plan.m == 8 and plan.counts == [2] * SPLIT_FRAMES
+    for key in ('frame_idx', 'affines', 'face_map', 'inv_affines',
+                'roi_pos'):
+        np.testing.assert_array_equal(getattr(plan, key),
+                                      getattr(one.last_plan, key), key)
+    assert plan.face_map.max() < sum(plan.counts)   # real faces only
+    np.testing.assert_array_equal(out, ref)
+    (crops, restored, counts), = got
+    (crops1, restored1, counts1), = want
+    assert counts == counts1 == plan.counts
+    np.testing.assert_array_equal(crops.numpy(), crops1.numpy())
+    assert restored.shape == (6, FACE, FACE, 3)
+    np.testing.assert_array_equal(restored.numpy(), restored1.numpy())
+    assert np.abs(out.astype(int) - _plain_canvas(frames)).max() > 10
+
+    bare = _counting_pipe(models, buckets, use_parse=False)
+    out = bare.restore_frames_device(frames).numpy()
+    assert bare.calls == {'restore': SPLIT_RUNS[buckets], 'parse': []}
+    jp = _JRecord(jr, _Helper(_JInjected(CASES['overlap'][0]), False),
+                  upscale=2, w=0.5, frame_chunk=SPLIT_FRAMES)
+    jp.plans = []
+    jout = np.asarray(jp.restore_frames_device(frames))
+    assert jp.plans[-1]['m'] == plan.m
+    diff = np.abs(out.astype(np.float32) - jout.astype(np.float32))
+    print(f'split {buckets}, no ParseNet: frame |diff| vs JAX mean '
+          f'{diff.mean():.4f} max {diff.max():.0f}')
+    assert diff.mean() <= FRAME_MEAN_BOUND, diff.mean()
+    assert diff.max() <= FRAME_MAX_BOUND, diff.max()
+
+
+def test_whole_canvas_composite_pastes_a_round_at_a_time(models):
+    """Two faces a frame, each about the canvas's size (the whole-canvas
+    path, roi 0): every soft_paste call of the composite warps one face
+    of each frame (c slots), never all c * fpf slots at once, whose
+    canvases ran the card out of memory at 16 frames of 16 faces; the
+    frames are JAX's within test_pipeline_matches_jax's bounds."""
+    from codeformer_tpu_torch.pipeline import compositor
+    jr, pr, _, _ = models
+    landmarks = _lms(0.22, [(-8.0, -24.0), (4.0, -16.0)])
+    jp = _JRecord(jr, _Helper(_JInjected(landmarks), False), upscale=2,
+                  w=0.5, frame_chunk=2)
+    jp.plans = []
+    pp = pdp.DeviceRestorePipeline(pr, _Helper(_PInjected(landmarks), False),
+                                   upscale=2, w=0.5, frame_chunk=2)
+    frames = _frames(2, seed=31)
+    slots = []
+
+    def counted(src, inv_affines, *a, **kw):
+        slots.append(len(inv_affines))
+        return compositor.soft_paste(src, inv_affines, *a, **kw)
+
+    with mock.patch.object(pdp, 'soft_paste', counted):
+        got = pp.restore_frames_device(frames).numpy()
+    plan = pp.last_plan
+    assert plan.roi == 0 and plan.fpf == 2 and plan.counts == [2, 2]
+    assert slots == [2, 2]
+    want = np.asarray(jp.restore_frames_device(frames))
+    assert jp.plans[-1]['roi'] == 0
+    diff = np.abs(got.astype(np.float32) - want.astype(np.float32))
+    print(f'whole canvas, 2 faces a frame: frame |diff| vs JAX mean '
+          f'{diff.mean():.4f} max {diff.max():.0f}')
+    assert diff.mean() <= FRAME_MEAN_BOUND, diff.mean()
+    assert diff.max() <= FRAME_MAX_BOUND, diff.max()
+    assert np.abs(got.astype(int) - _plain_canvas(frames)).max() > 10

@@ -20,6 +20,7 @@ from codeformer_tpu_torch.cli import inference_codeformer as cli  # noqa: E402
 from codeformer_tpu_torch.pipeline import detector as pdet  # noqa: E402
 from codeformer_tpu_torch.pipeline import device_pipeline as pdp  # noqa: E402
 from codeformer_tpu_torch.pipeline import face_helper as pfh  # noqa: E402
+from codeformer_tpu_torch.pipeline.restorer import CodeFormerRestorer  # noqa: E402
 
 TEMPLATE = np.array(
     [[192.98138, 239.94708], [318.90277, 240.1936], [256.63416, 314.01935],
@@ -94,9 +95,12 @@ class _StubPipeline:
 
 
 class _StubRestorer:
-    """The restorer's device surface: inverts the crops."""
+    """The restorer's device surface: inverts the crops, in the batches
+    of the restorer's default buckets."""
     device = torch.device('cpu')
     face_size = 512
+    batch_buckets = (1, 2, 4, 8, 16)
+    _bucket = CodeFormerRestorer._bucket
     calls = []
 
     def __init__(self, **kw):
