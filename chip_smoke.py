@@ -162,10 +162,25 @@ bit-equal to restore_batch on the run's own crops, exact launches,
 images/s by stage); a 48-frame mp4v clip through the CLI on both routes
 (the frames handed to the writer bit-equal to the same pipeline in
 process, the video reopened, frames/s); crop_align_face (crops
-bit-equal to align_crop_face_landmarks in process); generate_latent_gt
---dtype bf16 on 16 seeded PNGs (exact K1/K2/K3) and the training entry
-point on them as a subprocess (stage II, exit 0, finite losses,
-training faces/s with the loader against the numpy-batch rate).
+bit-equal to align_crop_face_landmarks in process). Last
+(`phase_train_files`), the three training stages from 16 seeded 512^2
+PNGs at the ymls' widths and batches in bf16, each from the files the
+stage before it wrote: stage I through train_pipeline in process (the
+discriminator gate inside the run, saves at half of it, one K3 a step,
+its net_g's K3 picks against the plain search), generate_latent_gt
+--dtype bf16 with its net_g (exact K1/K2/K3), stage II as a subprocess
+(training faces/s with the loader and its data wait, the datasets
+held to the native degradation kernel), stage III in process from stage II's net_g and
+stage I's net_d and VQGAN (exact K1/K2/K3 a step, frozen modules
+bit-equal to what it loaded), a resume in process (state bit-equal, the
+next step bit-equal, a planted unrestored Adam moment failing both) and
+as a subprocess from the save at half the run, colorization and
+inpainting through train_pipeline (a loader batch of each against its
+dataset's contract), stage II under torch.distributed.run over NCCL,
+the aligned CLI serving stage III's net_g (bit-equal to restore_batch of
+a restorer loaded in process from the file) and the web demos (bit-equal
+to the whole-image CLI's classic route with the same restorer, helper
+and upsampler).
 Every time is per launch: runs of back-to-back launches between two
 CUDA events (`time_ms`), the median run. The last line is the JSON
 result; the line before it lists the kernels, each with its launches on
@@ -182,6 +197,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -192,6 +208,7 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 
 # Bounds, each a few times the largest sound reading on an H100 (PERF.md,
 # Findings PR 1), each checked against planted faults that must FAIL it.
@@ -2648,8 +2665,11 @@ def phase_dp():
 
     from codeformer_tpu_torch import parallel
     from codeformer_tpu_torch.train.trainers import build_model
-    os.environ.update(RANK='0', WORLD_SIZE='1', LOCAL_RANK='0',
-                      MASTER_ADDR='127.0.0.1', MASTER_PORT=str(_free_port()))
+    # torchrun's variables for this phase only: a later subprocess must
+    # not inherit them
+    torchrun_env = dict(RANK='0', WORLD_SIZE='1', LOCAL_RANK='0',
+                        MASTER_ADDR='127.0.0.1', MASTER_PORT=str(_free_port()))
+    os.environ.update(torchrun_env)
     counts = {k: 0 for k in ENCODE_LAUNCHES}
     det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
@@ -2705,6 +2725,8 @@ def phase_dp():
                 counts[k] += v
     finally:
         torch.backends.cudnn.deterministic = det
+        for k in torchrun_env:
+            os.environ.pop(k, None)
     return counts
 
 
@@ -5136,121 +5158,261 @@ def files_crop_align(tmp: str) -> None:
                          'or launched a kernel')
 
 
-def files_stage2(tmp: str, numpy_rate: float) -> dict:
-    """Stage II from files: STAGE2_FILES seeded 512^2 PNGs and a
-    seeded stand-in VQGAN .pth; generate_latent_gt --dtype bf16 on them
-    (K1/K2/K3 on the card, exact launches, codes equal to encode in
-    process); then `python -m codeformer_tpu_torch.train.train -opt
-    options/CodeFormer_stage2.yml` as a subprocess on them, bf16, through
-    the port's FFHQBlindDataset (its degradations) and loader with 2
-    workers: exit 0, finite losses, training faces/s from the log's
-    clock against phase_train's rate on numpy batches."""
-    import re
-
+def write_training_pngs(imgs: str) -> None:
+    """STAGE2_FILES seeded 512^2 faces as PNGs in `imgs`."""
     import cv2
-
-    from codeformer_tpu_torch.cli import generate_latent_gt as glg
-    from codeformer_tpu_torch.models.vqgan import VQAutoEncoder
-    from codeformer_tpu_torch.utils.checkpoint import init_params_fast
-    imgs = os.path.join(tmp, 'ffhq')
     os.makedirs(imgs)
     for i, face in enumerate(_faces(np.random.default_rng(16),
                                     STAGE2_FILES)):
         cv2.imwrite(os.path.join(imgs, f'{i:05d}.png'), face)
-    standin = os.path.join(tmp, 'vqgan_code1024.pth')
-    torch.save({'params_ema': init_params_fast(VQAutoEncoder(), 7)
-                .state_dict()}, standin)
-    counts, _ = run_cli(glg.main, ['-i', imgs, '-o', os.path.join(tmp, 'lat'),
-                                   '--ckpt_path', standin, '--dtype', 'bf16'])
-    pth = os.path.join(tmp, 'lat', 'latent_gt_code1024.pth')
+
+
+def latent_gt_files(imgs: str, out: str, ckpt: str) -> tuple:
+    """generate_latent_gt --dtype bf16 on `imgs` with the VQGAN `ckpt`:
+    K1/K2/K3 on the card with exact launches, the first batch's codes
+    equal to `encode` in process. Returns (launches, the .pth)."""
+    from codeformer_tpu_torch.cli import generate_latent_gt as glg
+    t0 = time.perf_counter()
+    counts, _ = run_cli(glg.main, ['-i', imgs, '-o', out, '--ckpt_path',
+                                   ckpt, '--dtype', 'bf16'])
+    wall = time.perf_counter() - t0
+    pth = os.path.join(out, 'latent_gt_code1024.pth')
     encodes = 2 * -(-STAGE2_FILES // LATENT_BATCH)
     want = {k: v * encodes for k, v in ENCODE_LAUNCHES.items()}
     blob = torch.load(pth, weights_only=True)
-    model = glg.build_vqgan({'codebook_size': 1024}, standin,
-                            dtype=torch.bfloat16, device='cuda')
+    model = glg.build_vqgan(None, ckpt, dtype=torch.bfloat16)
     paths = sorted(os.path.join(imgs, n) for n in os.listdir(imgs))
     x = torch.from_numpy(glg.read_images(paths[:LATENT_BATCH], False))
-    codes = glg.encode(model, x.cuda().permute(0, 3, 1, 2),
-                       torch.bfloat16).cpu()
+    with torch.no_grad():
+        codes = glg.encode(model, x.cuda().permute(0, 3, 1, 2),
+                           torch.bfloat16).cpu()
     same = all(torch.equal(blob['orig'][os.path.basename(p)[:-4]], c)
                for p, c in zip(paths, codes))
     print(f'  generate_latent_gt --dtype bf16 on {STAGE2_FILES} seeded 512^2 '
-          f'PNGs with a seeded stand-in VQGAN .pth: {len(blob["orig"])} + '
-          f'{len(blob["hflip"])} code maps; the first batch equal to encode '
-          f'in process: {same}; launches {counts} (expected {want})',
-          flush=True)
-    if counts != want or not same or \
-            len(blob['orig']) != len(blob['hflip']) != STAGE2_FILES:
+          f'PNGs, --ckpt_path {os.path.relpath(ckpt, os.path.dirname(imgs))}'
+          f': {len(blob["orig"])} + {len(blob["hflip"])} code maps; the first '
+          f'batch equal to encode in process: {same}; launches {counts} '
+          f'(expected {want}); {2 * STAGE2_FILES / wall:.2f} images/s with '
+          f'start-up [{card_line()}]', flush=True)
+    expect_launches('generate_latent_gt on files', counts, want)
+    if not same or len(blob['orig']) != STAGE2_FILES or \
+            len(blob['hflip']) != STAGE2_FILES:
         raise SystemExit('chip_smoke: generate_latent_gt on files differs')
-    del model, x
+    return counts, pth
+
+
+def tf_paths(exp: str) -> list:
+    """--force_yml entries that put an experiment's files under `exp`."""
+    return [f'path:experiments_root={exp}', f'path:models={exp}/models',
+            f'path:training_states={exp}/training_states',
+            f'path:log={exp}', f'path:visualization={exp}/visualization']
+
+
+def tf_argv(yml: str, exp: str, imgs: str, iters: int, *force) -> list:
+    """The training entry point's argv for options/`yml` on the PNGs in
+    `imgs`: bf16, `iters` iterations, a log line an iteration, files
+    under `exp`, then `force`. The widths, batches and losses stay the
+    yml's."""
+    return ['-opt', os.path.join(ROOT, 'options', yml), '--force_yml',
+            f'datasets:train:dataroot_gt={imgs}', 'mixed_precision=bf16',
+            f'train:total_iter={iters}', 'logger:print_freq=1',
+            'logger:use_tb_logger=false', *tf_paths(exp), *force]
+
+
+def tf_subprocess(argv: list, cwd: str, timeout: int = 600,
+                  torchrun: bool = False) -> tuple:
+    """`python -m codeformer_tpu_torch.train.train argv` (under
+    `python -m torch.distributed.run --standalone --nproc_per_node=1`
+    with `torchrun`) from `cwd`, the repository on its path. Returns
+    (the process, its output, wall s, this process's CPU s meanwhile, the
+    child's CPU s)."""
+    cmd = [sys.executable, '-m']
+    if torchrun:
+        cmd += ['torch.distributed.run', '--standalone', '--nproc_per_node=1',
+                '-m']
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in [os.environ.get('PYTHONPATH')] if p]))
+    t0, c0 = time.perf_counter(), os.times()
+    proc = subprocess.run(cmd + ['codeformer_tpu_torch.train.train', *argv],
+                          cwd=cwd, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    c1 = os.times()
+    return (proc, proc.stdout + proc.stderr, time.perf_counter() - t0,
+            c1.user + c1.system - c0.user - c0.system,
+            c1.children_user + c1.children_system - c0.children_user
+            - c0.children_system)
+
+
+LOG_LINE = re.compile(r'^(\S+ [\d:]+),(\d+) INFO: \[.*\]\[epoch:\s*(\d+), '
+                      r'iter:\s*([\d,]+), lr:\([^)]*\)\] (?:\[eta: [^\]]*\] )?'
+                      r'(.*)$')
+LOG_TIMES = re.compile(r'time \(data\): ([\d.]+) \(([\d.]+)\)')
+
+
+def log_iters(text: str) -> dict:
+    """{iteration: (epoch, {name: value}, clock s, step s, data wait s)}
+    of a training log's iteration lines."""
+    out = {}
+    for line in text.splitlines():
+        m = LOG_LINE.search(line)
+        if not m:
+            continue
+        day_time, ms, epoch, it, rest = m.groups()
+        t = LOG_TIMES.search(line)
+        out[int(it.replace(',', ''))] = (
+            int(epoch), {k: float(v) for k, v in
+                         re.findall(r'(\w+): (\S+)', rest)},
+            time.mktime(time.strptime(day_time, '%Y-%m-%d %H:%M:%S'))
+            + int(ms) / 1e3,
+            float(t.group(1)) if t else math.nan,
+            float(t.group(2)) if t else math.nan)
+    return out
+
+
+@contextlib.contextmanager
+def captured_log():
+    """The port's training log, as text, while the block runs in process;
+    its console handler quiet meanwhile (the phase prints its own
+    lines)."""
+    import io
+    import logging
+
+    from codeformer_tpu_torch.utils.logger import _FORMAT, get_root_logger
+    log = get_root_logger()
+    buf = io.StringIO()
+    keep = logging.StreamHandler(buf)
+    keep.setFormatter(logging.Formatter(_FORMAT))
+    quiet = [(h, h.level) for h in log.handlers
+             if getattr(h, '_root_console', False)]
+    for h, _ in quiet:
+        h.setLevel(logging.WARNING)
+    log.addHandler(keep)
+    try:
+        yield buf
+    finally:
+        log.removeHandler(keep)
+        for h, level in quiet:
+            h.setLevel(level)
+
+
+@contextlib.contextmanager
+def counting_steps(cls, record: list, probe=None):
+    """cls.optimize_parameters recording (iteration, the launches of the
+    step, probe(trainer) before, probe(trainer) after) for every step of
+    an in-process run."""
+    real = cls.optimize_parameters
+
+    def step(self, it):
+        p0 = probe(self) if probe else None
+        before = all_counts()
+        real(self, it)
+        after = all_counts()
+        record.append((it, {k: after[k] - before[k] for k in after}, p0,
+                       probe(self) if probe else None))
+    with mock.patch.object(cls, 'optimize_parameters', step):
+        yield
+
+
+def expect_launches(label: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise SystemExit(f'chip_smoke: {label} launched {got}, expected '
+                         f'{want}')
+
+
+def finite_log(label: str, iters: dict, first: int, last: int) -> None:
+    """Every iteration first..last logged once with finite values."""
+    if sorted(iters) != list(range(first, last + 1)):
+        raise SystemExit(f'chip_smoke: {label} logged iterations '
+                         f'{sorted(iters)}, expected {first}-{last}')
+    bad = [(it, k) for it, (_, vals, *_) in iters.items()
+           for k, v in vals.items() if not math.isfinite(v)]
+    if bad:
+        raise SystemExit(f'chip_smoke: {label}: non-finite log values {bad}')
+
+
+def in_process_run(cls, label: str, argv: list, root: str, want: dict,
+                   probe=None) -> tuple:
+    """train_pipeline(root, argv) in this process with every step's
+    launches recorded and held to `want`, and its log captured. Returns
+    (the trainer, {iteration: log entry}, the step records, wall s, peak
+    GiB)."""
+    from codeformer_tpu_torch.train.train import train_pipeline
+    steps: list = []
     gc.collect()
     torch.cuda.empty_cache()
-    free, card = torch.cuda.mem_get_info()
-    held = torch.cuda.memory_reserved() / 2 ** 30
-    print(f'  before the training subprocess: {free / 2 ** 30:.2f} of '
-          f'{card / 2 ** 30:.2f} GiB of the card free', flush=True)
-    exp = os.path.join(tmp, 'experiment')
-    force = [f'datasets:train:dataroot_gt={imgs}',
-             f'datasets:train:latent_gt_path={pth}',
-             'datasets:train:num_worker_per_gpu=2',
-             f'network_g:vqgan_path={standin}',
-             f'path:pretrain_network_vqgan={standin}',
-             'mixed_precision=bf16', f'train:total_iter={STAGE2_ITERS}',
-             'logger:print_freq=1', 'logger:use_tb_logger=false',
-             'logger:save_checkpoint_freq=1000000000',
-             f'path:experiments_root={exp}', f'path:models={exp}/models',
-             f'path:training_states={exp}/training_states',
-             f'path:log={exp}', f'path:visualization={exp}/visualization']
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, '-m', 'codeformer_tpu_torch.train.train', '-opt',
-         os.path.join('options', 'CodeFormer_stage2.yml'), '--force_yml',
-         *force], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    with counting_steps(cls, steps, probe), captured_log() as buf:
+        model = train_pipeline(root, argv)
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    said = proc.stdout + proc.stderr
-    steps = re.findall(r'^(\S+ [\d:]+),(\d+) INFO: \[.*iter:\s*([\d,]+), '
-                       r'lr:.*time \(data\): ([\d.]+) \(([\d.]+)\)\] (l_.*)$',
-                       said, re.M)
-    when, losses, split = {}, [], []
-    for day_time, ms, it, step_s, data_s, rest in steps:
-        stamp = time.mktime(time.strptime(day_time, '%Y-%m-%d %H:%M:%S'))
-        it = int(it.replace(',', ''))
-        when[it] = stamp + int(ms) / 1e3
-        if it > STAGE2_WARM:
-            split.append((float(step_s), float(data_s)))
-        losses.extend(float(v) for v in re.findall(r'\w+: (\S+)', rest))
-    batch = 4      # batch_size_per_gpu of the yml
-    ok = proc.returncode == 0 and torch.cuda.get_device_name(0) in said \
-        and sorted(when) == list(
-        range(1, STAGE2_ITERS + 1)) and losses and \
-        all(math.isfinite(v) for v in losses)
-    rate = batch * (STAGE2_ITERS - STAGE2_WARM) / (
-        when[STAGE2_ITERS] - when[STAGE2_WARM]) if ok else float('nan')
-    print(f'  python -m codeformer_tpu_torch.train.train -opt '
-          f'options/CodeFormer_stage2.yml (PNGs on disk, latent_gt_path, '
-          f'stand-in vqgan_path, bf16, 2 loader workers, {STAGE2_ITERS} '
-          f'iterations): exit {proc.returncode} in {wall:.1f} s; losses '
-          f'finite: {bool(losses) and all(map(math.isfinite, losses))} '
-          f'(last line {steps[-1][-1].strip() if steps else "none"}); '
-          f'training faces/s with the loader {rate:.2f} (iterations '
-          f'{STAGE2_WARM + 1}-{STAGE2_ITERS}, the log\'s clock; mean '
-          f'{statistics.mean(x for x, _ in split or [(0, 0)]):.3f} s in the '
-          f'step\'s host call, '
-          f'{statistics.mean(y for _, y in split or [(0, 0)]):.3f} s waiting '
-          f'for the loader) against {numpy_rate:.2f} on numpy batches '
-          f'(phase_train, kernel path, B=4); this process held '
-          f'{held:.2f} GiB of the card [{card_line()}]', flush=True)
-    if not ok:
-        raise SystemExit(f'chip_smoke: stage II from files failed:\n'
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for it, got, *_ in steps:
+        expect_launches(f'{label} iteration {it}', got, want)
+    return model, log_iters(buf.getvalue()), steps, wall, peak
+
+
+def tf_rate(iters: dict, batch: int, warm: int) -> tuple:
+    """(training faces/s over the iterations after `warm` by the log's
+    clock, mean step s, mean data wait s there)."""
+    its = sorted(iters)
+    late = [i for i in its if i > warm]
+    if len(late) < 2 or warm not in iters:
+        return float('nan'), float('nan'), float('nan')
+    span = iters[its[-1]][2] - iters[warm][2]
+    return (batch * (its[-1] - warm) / span,
+            statistics.mean(iters[i][3] for i in late),
+            statistics.mean(iters[i][4] for i in late))
+
+
+def stage2_from_files(imgs: str, vqgan: str, latent: str, exp: str,
+                      label: str, numpy_rate: float, *force) -> None:
+    """options/CodeFormer_stage2.yml through the training entry point as a
+    subprocess on the PNGs in `imgs`, bf16, its 2 loader workers, with
+    `vqgan` as vqgan_path and pretrain_network_vqgan and `latent` as its
+    latent_gt_path: exit 0, every iteration logged with finite losses,
+    the datasets on the native degradation kernel (its build loads here
+    and the subprocess logs no fallback to cv2), training faces/s by the
+    log's clock beside the numpy-batch rate and the CPU time of both
+    processes."""
+    from codeformer_tpu_torch.data import native
+    if native.get_lib() is None:
+        raise SystemExit(f'chip_smoke: {label}: the native degradation '
+                         f'kernel did not build or load')
+    argv = tf_argv('CodeFormer_stage2.yml', exp, imgs, STAGE2_ITERS,
+                   f'datasets:train:latent_gt_path={latent}',
+                   f'network_g:vqgan_path={vqgan}',
+                   f'path:pretrain_network_vqgan={vqgan}', *force)
+    proc, said, wall, cpu_me, cpu_child = tf_subprocess(argv, ROOT)
+    iters = log_iters(said)
+    if proc.returncode != 0:
+        raise SystemExit(f'chip_smoke: {label} exited {proc.returncode}:\n'
                          f'{said[-3000:]}')
-    return counts
+    finite_log(label, iters, 1, STAGE2_ITERS)
+    if torch.cuda.get_device_name(0) not in said:
+        raise SystemExit(f'chip_smoke: {label} did not name the card')
+    if 'native degradation kernel unavailable' in said:
+        raise SystemExit(f'chip_smoke: {label}: the datasets fell back to '
+                         f'the cv2 degradations')
+    rate, step_s, wait_s = tf_rate(iters, 4, STAGE2_WARM)
+    print(f'  {label}: python -m codeformer_tpu_torch.train.train -opt '
+          f'options/CodeFormer_stage2.yml (bf16, B=4, 2 loader workers, '
+          f'{STAGE2_ITERS} iterations): exit 0 in {wall:.1f} s; losses finite '
+          f'(iteration {STAGE2_ITERS}: ' + ', '.join(
+              f'{k} {v:.4g}' for k, v in iters[STAGE2_ITERS][1].items())
+          + f'); training faces/s with the loader {rate:.2f} (iterations '
+          f'{STAGE2_WARM + 1}-{STAGE2_ITERS}, the log\'s clock; mean '
+          f'{step_s:.3f} s in the step, {wait_s:.3f} s waiting for the '
+          f'loader) against {numpy_rate:.2f} on numpy batches (phase_train, '
+          f'B=4); CPU s while it ran: this process {cpu_me:.2f}, the '
+          f'subprocess {cpu_child:.2f} [{card_line()}]', flush=True)
 
 
-def phase_files_more(numpy_rate: float) -> dict:
-    """The whole-image CLI's classic route, videos through the CLI,
-    crop_align_face and stage II from files, on the card
-    with seeded random weights; one restorer for the CLI runs, as the CLI
-    builds it at its default --batch 8. Returns their launches."""
+def phase_files_more() -> dict:
+    """The whole-image CLI's classic route, videos through the CLI and
+    crop_align_face from files, on the card with seeded random weights;
+    one restorer for the CLI runs, as the CLI builds it at its default
+    --batch 8. Returns their launches."""
     import shutil
     import tempfile
     t0 = time.perf_counter()
@@ -5263,12 +5425,703 @@ def phase_files_more(numpy_rate: float) -> dict:
         del made[:]
         torch.cuda.empty_cache()
         files_crop_align(tmp)
-        add_counts(total, files_stage2(tmp, numpy_rate))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
-    print(f'  files phase (classic route, videos, crop_align_face, stage II '
-          f'from files): {time.perf_counter() - t0:.1f} s', flush=True)
+    print(f'  files phase (classic route, videos, crop_align_face): '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    return total
+
+
+# the training stages from files (phase_train_files): stage I and III
+# runs, their saves at half the run, stage I's discriminator gate inside
+# it; colorization, inpainting and torchrun take a few iterations
+TF_ITERS = 12
+TF_SAVE = 6
+TF_GATE = 6
+TF_TASK_ITERS = 4
+TF_TASK_GATE = 2          # inpainting's net_d_start_iter inside its run
+TF_TORCHRUN_ITERS = 4
+# the demo upsamples the image it was given, the whole-image CLI the
+# helper's copy with its short side raised to 512 (read_image): the demo
+# is given these images raised so, as PNGs, and the two flows agree
+TF_DEMO_IMAGES = ('00.jpg', '05.jpg')
+# a resumed step against the step of the trainer that saved: bit-equal
+# under cudnn.deterministic (max |difference| of every parameter tensor)
+RESUME_STEP_BOUND = 0.0
+
+
+def tf_stage1(tmp: str, imgs: str, vgg: str) -> tuple:
+    """Stage I through train_pipeline in process on the PNGs: the
+    discriminator gate inside the run, a save at half the run; exact
+    launches (one K3 a step), finite losses, l_g_gan 0 before the gate
+    and not after it, the discriminator still before it and stepping
+    after it; net_g_latest.pth into VQAutoEncoder, whose K3 picks on four
+    PNGs are the plain search's. Returns (launches, the experiment)."""
+    from codeformer_tpu_torch.cli import generate_latent_gt as glg
+    from codeformer_tpu_torch.ops import vq
+    from codeformer_tpu_torch.train import trainers
+    exp = os.path.join(tmp, 'stage1')
+
+    def d_sum(self):
+        return float(torch.cat([p.detach().reshape(-1).double()
+                                for p in self.net_d.parameters()]).sum())
+    model, iters, steps, wall, peak = in_process_run(
+        trainers.VQGANModel, 'stage I from files',
+        tf_argv('VQGAN_512_ds32_nearest_stage1.yml', exp, imgs, TF_ITERS,
+                f'train:net_d_start_iter={TF_GATE}',
+                f'logger:save_checkpoint_freq={TF_SAVE}'),
+        tmp, dict(NO_LAUNCHES, nearest_code=1), d_sum)
+    finite_log('stage I from files', iters, 1, TF_ITERS)
+    d_moved = [(it, a != b) for it, _, a, b in steps]
+    gan = [(it, iters[it][1]['l_g_gan']) for it in sorted(iters)]
+    gate_ok = all(moved == (it > TF_GATE) for it, moved in d_moved) and \
+        all((v == 0) == (it <= TF_GATE) for it, v in gan) and \
+        model.step_d == TF_ITERS - TF_GATE and \
+        all('l_d_real' in iters[it][1] for it in iters)
+    rate, step_s, wait_s = tf_rate(iters, 4, 2)
+    names = sorted(os.listdir(os.path.join(exp, 'models')))
+    states = sorted(os.listdir(os.path.join(exp, 'training_states')))
+    print(f'  stage I (VQGAN_512_ds32_nearest_stage1.yml, bf16, B=4, '
+          f'{TF_ITERS} iterations, net_d_start_iter {TF_GATE}, saves every '
+          f'{TF_SAVE}) through train_pipeline in process: launches a step '
+          f'{steps[0][1]} every step; l_g_gan by iteration '
+          + ', '.join(f'{it} {v:.3g}' for it, v in gan)
+          + f'; the discriminator moved at iterations '
+          f'{[it for it, m in d_moved if m]} ({model.step_d} optimizer_d '
+          f'steps; the port logs l_d_* at every iteration, as JAX\'s step '
+          f'does, and steps the discriminator only past the gate); files '
+          f'{names} + {states}; {wall:.1f} s, training faces/s {rate:.2f} '
+          f'after iteration 2 ({step_s:.3f} s a step, {wait_s:.3f} s waiting '
+          f'for the loader), peak {peak:.2f} GiB [{card_line()}]',
+          flush=True)
+    if not gate_ok:
+        raise SystemExit('chip_smoke: stage I from files: the discriminator '
+                         'gate did not hold')
+    for want in ('net_g_6.pth', 'net_g_12.pth', 'net_g_latest.pth',
+                 'net_d_latest.pth'):
+        if want.replace('6', str(TF_SAVE)).replace(
+                '12', str(TF_ITERS)) not in names:
+            raise SystemExit(f'chip_smoke: stage I wrote no {want}')
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = os.path.join(exp, 'models', 'net_g_latest.pth')
+    vqgan = glg.build_vqgan(None, g, dtype=torch.bfloat16)
+    paths = sorted(os.path.join(imgs, n) for n in os.listdir(imgs))[:4]
+    x = torch.from_numpy(glg.read_images(paths, False)).cuda()
+    with torch.no_grad():
+        z, _ = vqgan.encoder(x.permute(0, 3, 1, 2).to(torch.bfloat16))
+        z = z.permute(0, 2, 3, 1).reshape(-1, z.shape[1]).float()
+        e = vqgan.quantize.embedding.weight
+        got = vq.nearest_code_indices(z, e)
+        verdict = k3_verdict(got, vq._nearest_code_ref(z, e), z, e)
+    print(f'  net_g_latest.pth into VQAutoEncoder in process: K3 picks of '
+          f'{z.shape[0]} latents of four PNGs against the plain search: '
+          f'agreement {verdict["agree"]:.6f}, worst relative gap '
+          f'{verdict["worst_gap"]:.2e} (<= {K3_MARGIN})', flush=True)
+    if not verdict['ok']:
+        raise SystemExit('chip_smoke: stage I\'s VQGAN picks are off the '
+                         'nearest code')
+    del vqgan, x, z
+    counts = {k: sum(s[1][k] for s in steps) for k in steps[0][1]}
+    return counts, exp
+
+
+def sft_tamed_copy(src: str, dst: str) -> None:
+    """The CodeFormer net_g file `src` with every SFT branch's last convs
+    scaled by SFT_SCALE in params and params_ema, as tame_sft scales a
+    model, written to `dst`."""
+    blob = torch.load(src, map_location='cpu', weights_only=True)
+    for sd in blob.values():
+        for k in sd:
+            if re.fullmatch(r'fuse_convs_dict\.\d+\.(scale|shift)\.2\.weight',
+                            k):
+                sd[k] = sd[k] * SFT_SCALE
+    torch.save(blob, dst)
+
+
+def tf_stage3(tmp: str, imgs: str, s1: str, g2: str) -> tuple:
+    """Stage III through train_pipeline in process from stage II's net_g
+    `g2`, stage I's net_d and stage I's VQGAN: exact launches a step (the
+    frozen encode), finite losses, the saved net_g's quantize and
+    generator bit-equal to what it loaded and every other trainable
+    tensor moved. Returns (launches, trainer, its argv, the experiment,
+    the batch paths of each iteration)."""
+    from codeformer_tpu_torch.train import trainers
+    from codeformer_tpu_torch.utils.convert import load_pth
+    exp = os.path.join(tmp, 'stage3')
+    argv = tf_argv(
+        'CodeFormer_stage3.yml', exp, imgs, TF_ITERS,
+        f'path:pretrain_network_g={g2}',
+        f'path:pretrain_network_d={s1}/models/net_d_latest.pth',
+        f'path:pretrain_network_vqgan={s1}/models/net_g_latest.pth',
+        f'logger:save_checkpoint_freq={TF_SAVE}',
+        # an epoch of 5 iterations, so that a save at 6 lies in epoch 1
+        'datasets:train:dataset_enlarge_ratio=1')
+    seen: dict = {}
+    feed = trainers.BaseTrainer.feed_data
+
+    def recorded(self, data):
+        seen[len(seen) + 1] = list(data['gt_path'])
+        return feed(self, data)
+    with mock.patch.object(trainers.BaseTrainer, 'feed_data', recorded):
+        model, iters, steps, wall, peak = in_process_run(
+            trainers.CodeFormerJointModel, 'stage III from files', argv, tmp,
+            ENCODE_LAUNCHES)
+    finite_log('stage III from files', iters, 1, TF_ITERS)
+    loaded = load_pth(g2)
+    saved = torch.load(os.path.join(exp, 'models', 'net_g_latest.pth'),
+                       map_location='cpu', weights_only=True)['params']
+    frozen = [k for k in saved if k.split('.')[0] in model.fix_modules]
+    trainable = [n for n, p in model.net_g.named_parameters()
+                 if p.requires_grad]
+    held = all(torch.equal(saved[k], loaded[k]) for k in frozen)
+    still = [k for k in trainable if torch.equal(saved[k], loaded[k])]
+    rate, step_s, wait_s = tf_rate(iters, 3, 2)
+    print(f'  stage III (CodeFormer_stage3.yml, bf16, B=3, {TF_ITERS} '
+          f'iterations, saves every {TF_SAVE}) from stage II\'s net_g, stage '
+          f'I\'s net_d and VQGAN, through train_pipeline in process: '
+          f'launches {steps[0][1]} every step; losses finite (iteration '
+          f'{TF_ITERS}: ' + ', '.join(f'{k} {v:.4g}' for k, v in
+                                      iters[TF_ITERS][1].items())
+          + f'); {len(frozen)} tensors of {sorted(model.fix_modules)} in '
+          f'net_g_latest.pth bit-equal to stage II\'s: {held}; trainable '
+          f'tensors moved: {len(trainable) - len(still)} of '
+          f'{len(trainable)}; {wall:.1f} s, training faces/s {rate:.2f} '
+          f'after iteration 2 ({step_s:.3f} s a step, {wait_s:.3f} s waiting '
+          f'for the loader), peak {peak:.2f} GiB [{card_line()}]',
+          flush=True)
+    if not held or still or not frozen:
+        raise SystemExit(f'chip_smoke: stage III from files: frozen modules '
+                         f'changed or trainable tensors did not move '
+                         f'({still[:5]})')
+    counts = {k: sum(s[1][k] for s in steps) for k in steps[0][1]}
+    return counts, model, argv, exp, seen
+
+
+def trainer_state(t) -> dict:
+    """Every tensor and counter a resumed trainer must restore: net_g,
+    its EMA, net_d (BatchNorm statistics included), both optimizers'
+    states, step and step_d."""
+    def flat(prefix, tree, out):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                flat(f'{prefix}.{k}', v, out)
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                flat(f'{prefix}.{i}', v, out)
+        else:
+            out[prefix] = tree
+        return out
+    st = {}
+    flat('net_g', t.net_g.state_dict(), st)
+    flat('params_ema', t.params_ema, st)
+    flat('net_d', t.net_d.state_dict(), st)
+    flat('optimizer_g', t.optimizer.state_dict(), st)
+    flat('optimizer_d', t.optimizer_d.state_dict(), st)
+    st['step'], st['step_d'] = t.step, t.step_d
+    return st
+
+
+def state_diff(a: dict, b: dict) -> list:
+    """The entries of two trainer_state dicts that are not bit-equal."""
+    out = [k for k in sorted(set(a) ^ set(b))]
+    for k in sorted(set(a) & set(b)):
+        x, y = a[k], b[k]
+        same = (torch.equal(x.cpu(), y.cpu()) if torch.is_tensor(x)
+                and torch.is_tensor(y) else x == y)
+        if not same:
+            out.append(k)
+    return out
+
+
+def param_diff(a, b) -> float:
+    """max |difference| over the parameters and buffers of two trainers'
+    net_g and net_d."""
+    worst = 0.0
+    for net in ('net_g', 'net_d'):
+        for (k, x), y in zip(getattr(a, net).state_dict().items(),
+                             getattr(b, net).state_dict().values()):
+            if x.is_floating_point():
+                worst = max(worst, float((x.double() - y.double()).abs()
+                                         .max()))
+            elif not torch.equal(x, y):
+                worst = math.inf
+    return worst
+
+
+def tf_resume(model, argv: list, root: str, exp: str, seen: dict,
+              vgg: str) -> None:
+    """Resume on the card. (i) In process: a fresh trainer of stage III's
+    options resumes from training_states/<TF_ITERS>.state; its net_g, EMA,
+    net_d, both optimizers' states, step and step_d bit-equal to the
+    trainer that saved them; then one step of each on the same batch under
+    cudnn.deterministic, parameters within RESUME_STEP_BOUND; a planted
+    fault (one Adam moment of the fresh trainer zeroed, as if not
+    restored) must fail both checks. (ii) The same command as a
+    subprocess from training_states/<TF_SAVE>.state: exit 0, the log
+    resuming at iteration TF_SAVE and showing iterations TF_SAVE+1 to
+    TF_ITERS only, in the saved epoch; the loader built for that epoch
+    gives the batch the saving run took first in it."""
+    from codeformer_tpu_torch.train import train as tt
+    from codeformer_tpu_torch.train.trainers import build_model
+    from codeformer_tpu_torch.utils.logger import get_root_logger
+    t0 = time.perf_counter()
+    opt = tt.parse_options(root, argv)
+    with captured_log():
+        fresh = build_model(opt)
+    epoch, it = fresh.resume_training(os.path.join(
+        exp, 'training_states', f'{TF_ITERS}.state'))
+    diff = state_diff(trainer_state(model), trainer_state(fresh))
+    key = next(iter(fresh.optimizer.state))
+    moment = fresh.optimizer.state[key]['exp_avg']
+    kept = moment.clone()
+    moment.zero_()
+    planted = state_diff(trainer_state(model), trainer_state(fresh))
+    moment.copy_(kept)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        batch = dict(model.batch)
+        fresh.batch = batch
+        model.optimize_parameters(it + 1)
+        fresh.optimize_parameters(it + 1)
+        step_err = param_diff(model, fresh)
+        fresh.optimizer.state[key]['exp_avg'].zero_()
+        model.optimize_parameters(it + 2)
+        fresh.optimize_parameters(it + 2)
+        fault_err = param_diff(model, fresh)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    print(f'  resume in process: a fresh stage-III trainer from '
+          f'training_states/{TF_ITERS}.state (epoch {epoch}, iteration '
+          f'{it}): {len(trainer_state(fresh))} tensors and counters of net_g, '
+          f'params_ema, net_d, both optimizers, step and step_d; differing '
+          f'from the saving trainer: {diff or "none"}; one more step of each '
+          f'on the same batch (cudnn.deterministic): max |difference| '
+          f'{step_err:.3g} (<= {RESUME_STEP_BOUND}); planted fault (one '
+          f'exp_avg not restored): the state check finds {planted}, the step '
+          f'after it max |difference| {fault_err:.3g}', flush=True)
+    if diff or step_err > RESUME_STEP_BOUND:
+        raise SystemExit('chip_smoke: the resumed trainer differs from the '
+                         'one that saved')
+    if not planted or fault_err <= RESUME_STEP_BOUND:
+        raise SystemExit('chip_smoke: the planted resume fault passed')
+    del fresh, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (ii) the documented resume command as a subprocess
+    state = os.path.join(exp, 'training_states', f'{TF_SAVE}.state')
+    proc, said, wall, _, _ = tf_subprocess(
+        argv + [f'path:resume_state={state}'], vgg)
+    iters = log_iters(said)
+    saved_epoch = (TF_SAVE - 1) // (STAGE2_FILES // 3)
+    resumed = f'resuming from epoch {saved_epoch}, iter {TF_SAVE}' in said
+    epochs = {it: iters[it][0] for it in sorted(iters)}
+    if proc.returncode != 0:
+        raise SystemExit(f'chip_smoke: the resumed run exited '
+                         f'{proc.returncode}:\n{said[-3000:]}')
+    finite_log('the resumed stage III run', iters, TF_SAVE + 1, TF_ITERS)
+    from codeformer_tpu_torch.train.train import create_train_val_dataloader
+    opt = tt.parse_options(root, argv + [f'path:resume_state={state}'])
+    with captured_log():
+        loader, _, _ = create_train_val_dataloader(opt, get_root_logger(),
+                                                   saved_epoch)
+    first = list(next(iter(loader))['gt_path'])
+    del loader
+    in_epoch = [i for i in sorted(seen)
+                if (i - 1) // (STAGE2_FILES // 3) == saved_epoch]
+    print(f'  resume as a subprocess: the same command with '
+          f'path:resume_state=.../{TF_SAVE}.state: exit 0 in {wall:.1f} s; '
+          f'the log says "resuming from epoch {saved_epoch}, iter '
+          f'{TF_SAVE}": {resumed}; iterations logged {sorted(iters)} in '
+          f'epochs {sorted(set(epochs.values()))}; the loader of epoch '
+          f'{saved_epoch} gives first the batch iteration {in_epoch[0]} took '
+          f'in the saving run: {first == seen[in_epoch[0]]}; resume checks '
+          f'{time.perf_counter() - t0:.1f} s [{card_line()}]', flush=True)
+    if not resumed or epochs[TF_SAVE + 1] != saved_epoch or \
+            first != seen[in_epoch[0]]:
+        raise SystemExit('chip_smoke: the resumed run did not start at the '
+                         'saved iteration and epoch')
+
+
+def colorization_contract(argv: list, root: str) -> str:
+    """One loader batch of the colorization yml's dataset (seeded), each
+    sample against the same sample with the colour augments off: equal,
+    shifted by one jitter of at most color_jitter_shift a channel, or
+    gray; and one sample each with the jitter and the gray augment
+    forced, which must read as such."""
+    from codeformer_tpu_torch.data import build_dataset
+    from codeformer_tpu_torch.data.loader import build_dataloader
+    from codeformer_tpu_torch.train import train as tt
+    opt = tt.parse_options(root, argv)['datasets']['train']
+    opt = dict(opt, phase='train', seed=5)
+    shift = opt.get('color_jitter_shift', 20) + 1.0    # levels, rounding
+
+    def kind(x, plain):
+        a, p = x * 127.5 + 127.5, plain * 127.5 + 127.5
+        if np.abs(a[..., :1] - a).max() < 0.01 and \
+                np.abs(p[..., :1] - p).max() > 1:
+            return 'gray'
+        d = a - p
+        inside = (a > 0.5) & (a < 254.5) & (p > 0.5) & (p < 254.5)
+        if np.abs(d).max() < 0.01:
+            return 'plain'
+        med = np.array([np.median(d[..., c][inside[..., c]])
+                        for c in range(3)])
+        if np.all(np.abs(med) <= shift) and \
+                np.abs(d - med)[inside].max() <= 1.01:
+            return 'jitter'
+        return 'neither'
+    plain = build_dataset(dict(opt, color_jitter_prob=None, gray_prob=0.0))
+    loader = build_dataloader(build_dataset(opt), dict(
+        opt, num_worker_per_gpu=2))
+    batch = next(iter(loader))
+    del loader
+    index = {p: i for i, p in enumerate(plain.paths)}
+    kinds = [kind(x, plain[index[p]]['in'])
+             for x, p in zip(batch['in'], batch['gt_path'])]
+    forced = {}
+    for name, over in (('jitter', dict(color_jitter_prob=1.0, gray_prob=0.0)),
+                       ('gray', dict(color_jitter_prob=None, gray_prob=1.0))):
+        ds, base = build_dataset(dict(opt, **over)), \
+            build_dataset(dict(opt, color_jitter_prob=None, gray_prob=0.0))
+        forced[name] = kind(ds[0]['in'], base[0]['in'])
+    if 'neither' in kinds or forced != {'jitter': 'jitter', 'gray': 'gray'}:
+        raise SystemExit(f'chip_smoke: colorization inputs off their '
+                         f'contract: {kinds}, forced {forced}')
+    return f'batch {kinds}, forced {forced}'
+
+
+def inpainting_contract(argv: list, root: str) -> str:
+    """One loader batch of the inpainting yml's dataset: every pixel of
+    'in' is the ground truth's (within a level) or a brush stroke's white,
+    and each sample has strokes (data/masks.py)."""
+    from codeformer_tpu_torch.data import build_dataset
+    from codeformer_tpu_torch.data.loader import build_dataloader
+    from codeformer_tpu_torch.train import train as tt
+    opt = dict(tt.parse_options(root, argv)['datasets']['train'],
+               phase='train', seed=6)
+    loader = build_dataloader(build_dataset(opt), opt)
+    batch = next(iter(loader))
+    del loader
+    shares = []
+    for x, gt in zip(batch['in'], batch['gt']):
+        a, g = x * 127.5 + 127.5, gt * 127.5 + 127.5
+        white = np.all(a > 254.5, axis=-1)
+        kept = np.all(np.abs(a - g) <= 1.01, axis=-1)
+        if not np.all(white | kept):
+            raise SystemExit('chip_smoke: an inpainting input pixel is '
+                             'neither the ground truth nor a stroke')
+        shares.append(float((white & ~kept).mean()))
+    if min(shares) <= 0:
+        raise SystemExit('chip_smoke: an inpainting sample has no stroke')
+    return 'stroke shares ' + ', '.join(f'{s:.3f}' for s in shares)
+
+
+def tf_tasks(tmp: str, imgs: str, s1: str, latent: str) -> dict:
+    """Colorization (stage I's VQGAN, the latent codes of step 2) and
+    inpainting (codebook 512, brush masks, the discriminator gate inside
+    the run) through train_pipeline in process: exact launches, finite
+    losses; one loader batch of each against its dataset's contract."""
+    from codeformer_tpu_torch.train import trainers
+    g1 = f'{s1}/models/net_g_latest.pth'
+    total: dict = {}
+    runs = (
+        ('colorization', 'CodeFormer_colorization.yml',
+         trainers.CodeFormerIdxModel, NO_LAUNCHES,
+         (f'network_g:vqgan_path={g1}', f'path:pretrain_network_vqgan={g1}',
+          f'datasets:train:latent_gt_path={latent}'), colorization_contract),
+        ('inpainting', 'CodeFormer_inpainting.yml', trainers.CodeFormerModel,
+         ENCODE_LAUNCHES, (f'train:net_d_start_iter={TF_TASK_GATE}',),
+         inpainting_contract))
+    for label, yml, cls, want, force, contract in runs:
+        argv = tf_argv(yml, os.path.join(tmp, label), imgs, TF_TASK_ITERS,
+                       *force)
+        model, iters, steps, wall, peak = in_process_run(
+            cls, f'{label} from files', argv, tmp, want)
+        finite_log(f'{label} from files', iters, 1, TF_TASK_ITERS)
+        step_d = getattr(model, 'step_d', 0)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        said = contract(argv, tmp)
+        print(f'  {label} ({yml}, bf16, {TF_TASK_ITERS} iterations) through '
+              f'train_pipeline in process: launches {steps[0][1]} every step; '
+              f'losses finite (iteration {TF_TASK_ITERS}: ' + ', '.join(
+                  f'{k} {v:.4g}' for k, v in iters[TF_TASK_ITERS][1].items())
+              + f'); optimizer_d steps {step_d}; a loader batch against the '
+              f'dataset\'s contract: {said}; {wall:.1f} s, peak {peak:.2f} '
+              f'GiB [{card_line()}]', flush=True)
+        if label == 'inpainting' and step_d != TF_TASK_ITERS - TF_TASK_GATE:
+            raise SystemExit('chip_smoke: inpainting\'s discriminator gate '
+                             'did not hold')
+        for s in steps:
+            add_counts(total, s[1])
+    return total
+
+
+def tf_torchrun(tmp: str, imgs: str, s1: str, latent: str) -> None:
+    """Stage II under `python -m torch.distributed.run --standalone
+    --nproc_per_node=1 ... --launcher pytorch`: exit 0, the log naming
+    the NCCL backend and world size 1, finite losses."""
+    exp = os.path.join(tmp, 'torchrun')
+    g1 = f'{s1}/models/net_g_latest.pth'
+    argv = tf_argv('CodeFormer_stage2.yml', exp, imgs, TF_TORCHRUN_ITERS,
+                   f'datasets:train:latent_gt_path={latent}',
+                   f'network_g:vqgan_path={g1}',
+                   f'path:pretrain_network_vqgan={g1}') + ['--launcher',
+                                                          'pytorch']
+    proc, said, wall, _, _ = tf_subprocess(argv, ROOT, torchrun=True)
+    iters = log_iters(said)
+    named = re.search(r'data parallel: rank 0 of 1 \(nccl\)', said)
+    if proc.returncode != 0:
+        raise SystemExit(f'chip_smoke: stage II under torchrun exited '
+                         f'{proc.returncode}:\n{said[-3000:]}')
+    finite_log('stage II under torchrun', iters, 1, TF_TORCHRUN_ITERS)
+    print(f'  python -m torch.distributed.run --standalone '
+          f'--nproc_per_node=1 -m codeformer_tpu_torch.train.train -opt '
+          f'options/CodeFormer_stage2.yml --launcher pytorch ({TF_TORCHRUN_ITERS} '
+          f'iterations): exit 0 in {wall:.1f} s; the log names "'
+          f'{named.group(0) if named else "no process group"}"; losses '
+          f'finite (iteration {TF_TORCHRUN_ITERS}: ' + ', '.join(
+              f'{k} {v:.4g}' for k, v in iters[TF_TORCHRUN_ITERS][1].items())
+          + f') [{card_line()}]', flush=True)
+    if not named:
+        raise SystemExit(f'chip_smoke: stage II under torchrun did not start '
+                         f'an NCCL group of one')
+
+
+def tf_serve(tmp: str, net_g: str) -> dict:
+    """The aligned CLI's main with --has_aligned --checkpoint <stage III's
+    net_g_latest.pth> on inputs/cropped_faces: its faces bit-equal to
+    restore_batch of a restorer built in process from the same file,
+    exact K1/K2 launches."""
+    import glob
+
+    import cv2
+
+    from codeformer_tpu_torch import pipeline
+    from codeformer_tpu_torch.cli import inference_codeformer as icf
+    from codeformer_tpu_torch.pipeline.restorer import CodeFormerRestorer
+    from codeformer_tpu_torch.utils import img_util
+    made = []
+
+    class Recorded(CodeFormerRestorer):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            made.append((self, kw))
+    faces_dir = os.path.join(ROOT, CLI_FACES)
+    paths = sorted(glob.glob(os.path.join(faces_dir, '*.png')))
+    out = os.path.join(tmp, 'served')
+    t0 = time.perf_counter()
+    with mock.patch.object(pipeline, 'CodeFormerRestorer', Recorded):
+        counts, _ = run_cli(icf.main, ['--has_aligned', '-i', faces_dir,
+                                       '-o', out, '--checkpoint', net_g])
+    wall = time.perf_counter() - t0
+    r, kw = made[0]
+    want = restorer_launches(r, len(paths), fuse=True)
+    expect_launches('the aligned CLI on stage III\'s checkpoint', counts,
+                    want)
+    ref = CodeFormerRestorer(**kw)
+    faces = [cv2.resize(cv2.imread(p, cv2.IMREAD_COLOR), (512, 512),
+                        interpolation=cv2.INTER_LINEAR) for p in paths]
+    restored = ref.restore_batch(faces, w=0.5, adain=True)
+    for p, face, o in zip(paths, faces, restored):
+        if img_util.is_gray(face, threshold=10):
+            o = img_util.adain_color_transfer(img_util.bgr2gray3(o), face)
+        got = cv2.imread(os.path.join(out, 'restored_faces',
+                                      os.path.basename(p)))
+        if got is None or not np.array_equal(got, o):
+            raise SystemExit(f'chip_smoke: the aligned CLI on stage III\'s '
+                             f'checkpoint: {os.path.basename(p)} differs '
+                             f'from restore_batch in process')
+    print(f'  the aligned CLI --has_aligned --checkpoint <stage III '
+          f'net_g_latest.pth> on {len(paths)} faces: restored_faces bit-equal '
+          f'to restore_batch of a restorer loaded in process from the same '
+          f'file; launches {counts} (expected {want}); {len(paths) / wall:.2f} '
+          f'images/s with start-up [{card_line()}]', flush=True)
+    return counts
+
+
+def tf_demos(tmp: str) -> dict:
+    """The web demos on the card with CODEFORMER_RANDOM_INIT=1:
+    hugging_face.inference on TF_DEMO_IMAGES (their short side raised to
+    512) with background_enhance and face_upsample off, then on; each
+    image it returns bit-equal to the
+    whole-image CLI's classic route run in process with the same
+    restorer, helper and upsampler; exact K1/K2 launches; replicate.predict
+    writes what inference returns."""
+    import cv2
+
+    from codeformer_tpu_torch import pipeline
+    from codeformer_tpu_torch.cli import inference_codeformer as icf
+    from codeformer_tpu_torch.demos import hugging_face as hf
+    from codeformer_tpu_torch.demos import replicate
+    from codeformer_tpu_torch.pipeline import face_helper as pfh
+    from codeformer_tpu_torch.pipeline import realesrgan as pesr
+    helpers, ups = [], []
+    real_helper, real_up = hf.FaceRestoreHelper, pesr.set_realesrgan
+
+    def helper(*a, **kw):
+        helpers.append(real_helper(*a, **kw))
+        return helpers[-1]
+
+    def upsampler(**kw):
+        ups.append(real_up(**kw))
+        return ups[-1]
+    total: dict = {}
+    whole = os.path.join(ROOT, 'inputs', 'whole_imgs')
+    t0 = time.perf_counter()
+    lines, faces_seen = [], 0
+    with mock.patch.dict(os.environ, CODEFORMER_RANDOM_INIT='1'), \
+            mock.patch.object(hf, 'FaceRestoreHelper', helper), \
+            mock.patch.object(pesr, 'set_realesrgan', upsampler):
+        for on in (False, True):
+            for name in TF_DEMO_IMAGES:
+                src = os.path.join(tmp, f'demo_in_{name[:2]}')
+                path = os.path.join(src, name[:-4] + '.png')
+                if not os.path.exists(path):
+                    img = cv2.imread(os.path.join(whole, name))
+                    f = 512.0 / min(img.shape[:2])
+                    os.makedirs(src)
+                    cv2.imwrite(path, cv2.resize(
+                        img, (0, 0), fx=f, fy=f,
+                        interpolation=cv2.INTER_LINEAR))
+                reset_all_counts()
+                got = hf.inference(path, on, on, 2, 0.5)
+                torch.cuda.synchronize()
+                counts = all_counts()
+                r, h = hf.get_restorer(), helpers[-1]
+                n_faces = len(h.cropped_faces)
+                faces_seen += n_faces
+                want = restorer_launches(r, n_faces, fuse=True)
+                expect_launches(f'hugging_face.inference on {name}', counts,
+                                want)
+                add_counts(total, counts)
+                up = ups[-1] if on else None
+                res = os.path.join(tmp, f'demo_out_{name[:2]}_{int(on)}')
+                flags = ['--bg_upsampler', 'realesrgan', '--face_upsample'] \
+                    if on else []
+                with mock.patch.object(pipeline, 'CodeFormerRestorer',
+                                       lambda **kw: r), \
+                        mock.patch.object(pfh, 'FaceRestoreHelper',
+                                          lambda *a, **kw: h), \
+                        mock.patch.object(pesr, 'set_realesrgan',
+                                          lambda **kw: up):
+                    cli_counts, _ = run_cli(icf.main, [
+                        '-i', src, '-o', res, '-s', '2', '-w', '0.5',
+                        '--fused_pipeline', 'off', '--random-init',
+                        *flags])
+                add_counts(total, cli_counts)
+                ref = cv2.imread(os.path.join(res, 'final_results',
+                                              name[:-4] + '.png'))
+                same = ref is not None and np.array_equal(got, ref)
+                lines.append(f'{name} {"on" if on else "off"}: '
+                             f'{n_faces} faces, {got.shape[1]}x'
+                             f'{got.shape[0]}, bit-equal {same}')
+                if not same:
+                    raise SystemExit(f'chip_smoke: hugging_face.inference on '
+                                     f'{name} ({"on" if on else "off"}) '
+                                     f'differs from the classic route')
+                if on and name == TF_DEMO_IMAGES[0]:
+                    out = os.path.join(tmp, 'replicate.png')
+                    reset_all_counts()
+                    wrote = replicate.predict(path, 0.5, on, on, 2, out)
+                    add_counts(total, all_counts())
+                    if not np.array_equal(cv2.imread(wrote), got):
+                        raise SystemExit('chip_smoke: replicate.predict wrote '
+                                         'another image than inference')
+    hf._restorers.clear()
+    if not faces_seen:
+        raise SystemExit('chip_smoke: the web demos restored no face')
+    print(f'  web demos (CODEFORMER_RANDOM_INIT=1): hugging_face.inference '
+          f'with background_enhance and face_upsample off / on, against the '
+          f'whole-image CLI\'s classic route with the same restorer, helper '
+          f'and upsampler: ' + '; '.join(lines) + f'; launches exact; '
+          f'replicate.predict wrote the image inference returns; '
+          f'{time.perf_counter() - t0:.1f} s [{card_line()}]', flush=True)
+    return total
+
+
+def phase_train_files(numpy_rate: float) -> dict:
+    """The three training stages from 16 seeded 512^2 PNGs on the card,
+    each from the files the stage before it wrote, at the ymls' widths
+    and batches in bf16: stage I (train_pipeline in process) ->
+    generate_latent_gt with its net_g -> stage II (a subprocess; the late
+    reading of the loader's data wait) -> stage III from stage II's net_g
+    and stage I's net_d and VQGAN -> resume (in process and as a
+    subprocess) -> colorization and inpainting -> stage II under torchrun
+    -> the aligned CLI serving stage III's net_g -> the web demos. LPIPS
+    reads seeded stand-ins written into a temporary working directory.
+    Returns the launches of the in-process runs."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    total: dict = {}
+    tmp = tempfile.mkdtemp(prefix='train_files_')
+    clock = {}
+
+    def lap(name, since):
+        clock[name] = time.perf_counter() - since
+        return time.perf_counter()
+    try:
+        imgs = os.path.join(tmp, 'ffhq')
+        write_training_pngs(imgs)
+        with vgg_standins() as vgg:
+            t = time.perf_counter()
+            counts, s1 = tf_stage1(tmp, imgs, vgg)
+            add_counts(total, counts)
+            t = lap('stage I', t)
+            g1 = os.path.join(s1, 'models', 'net_g_latest.pth')
+            counts, latent = latent_gt_files(imgs, os.path.join(tmp, 'lat'),
+                                             g1)
+            add_counts(total, counts)
+            t = lap('generate_latent_gt', t)
+            s2 = os.path.join(tmp, 'stage2')
+            stage2_from_files(
+                imgs, g1, latent, s2, 'stage II from files, late in the run',
+                numpy_rate, f'logger:save_checkpoint_freq={STAGE2_ITERS}')
+            if f'net_g_{STAGE2_ITERS}.pth' not in os.listdir(
+                    os.path.join(s2, 'models')):
+                raise SystemExit('chip_smoke: stage II saved no net_g at its '
+                                 'last iteration')
+            # stage II trains no SFT branch (w = 0): at their random init
+            # they take the generator's activations to 1e23, the tail
+            # GroupNorm's sums overflow, the image is constant and stage
+            # III's gradients never reach them; tamed as every serving
+            # phase tames them
+            g2 = os.path.join(s2, 'models', 'net_g_latest_sft_tamed.pth')
+            sft_tamed_copy(os.path.join(s2, 'models', 'net_g_latest.pth'),
+                           g2)
+            print(f'  stage III starts from stage II\'s net_g_latest.pth with '
+                  f'its SFT branches\' last convs scaled by {SFT_SCALE} '
+                  f'(tame_sft), written as {os.path.basename(g2)}',
+                  flush=True)
+            t = lap('stage II', t)
+            counts, model, argv, s3, seen = tf_stage3(tmp, imgs, s1, g2)
+            add_counts(total, counts)
+            t = lap('stage III', t)
+            tf_resume(model, argv, tmp, s3, seen, vgg)
+            del model
+            t = lap('resume', t)
+            add_counts(total, tf_tasks(tmp, imgs, s1, latent))
+            t = lap('colorization and inpainting', t)
+        tf_torchrun(tmp, imgs, s1, latent)
+        t = lap('torchrun', t)
+        add_counts(total, tf_serve(tmp, os.path.join(
+            s3, 'models', 'net_g_latest.pth')))
+        t = lap('serving', t)
+        add_counts(total, tf_demos(tmp))
+        lap('web demos', t)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f'  training-from-files phase: {time.perf_counter() - t0:.1f} s ('
+          + ', '.join(f'{k} {v:.1f}' for k, v in clock.items()) + ')',
+          flush=True)
     return total
 
 
@@ -5331,7 +6184,8 @@ def main():
     phase_srmodel()
     phase_arcface()
     cli_counts = phase_cli_files()
-    files_counts = phase_files_more(train_rate)
+    files_counts = phase_files_more()
+    train_files_counts = phase_train_files(train_rate)
     print(f'main-path launches: serving {serve_counts}; whole-image path '
           f'{whole_counts}; classic path {classic_counts}; classic path with '
           f'the upsamplers {upsample_counts}; colorization and inpainting '
@@ -5342,8 +6196,10 @@ def main():
           f'{dp_counts}; ops path {ops_counts}; fp32 serving {fp32_counts}; '
           f'int8 serving {int8_counts}; multi-device serving '
           f'{multi_counts}; inference_vqgan {vqcli_counts}; the CLIs on '
-          f'files {cli_counts}; the classic route, videos and stage II from '
-          f'files {files_counts}')
+          f'files {cli_counts}; the classic route, videos and crop_align_face '
+          f'from files {files_counts}; the training stages from files, '
+          f'serving their checkpoint and the web demos {train_files_counts}; '
+          f'the whole run {time.perf_counter() - T_START:.1f} s')
     phase_k3_activities(k3_calls)
     vqgan_activities(vq_probe)
     del k3_calls, vq_probe
@@ -5371,7 +6227,7 @@ def main():
                              remat_counts, latent_counts, dp_counts,
                              ops_counts, fp32_counts, int8_counts,
                              multi_counts, vqcli_counts, cli_counts,
-                             files_counts)),
+                             files_counts, train_files_counts)),
             'max_abs_err': max(r['max_abs_err'] for r in rows),
             'ms': head['ms'], 'plain_ms': head['plain_ms'],
             'bound_ms': head['bound_ms'], 'bound_by': head['bound_by'],
@@ -5385,14 +6241,15 @@ def main():
     if not all(c['nearest_code'] > 0 for c in (
             train_counts, vq_counts, stage1_counts, stage3_counts,
             remat_counts, latent_counts, dp_counts, vqcli_counts,
-            cli_counts, files_counts)) \
+            cli_counts, train_files_counts)) \
             or not all(c[k] > 0 for c in (serve_counts, whole_counts,
                                           classic_counts, upsample_counts,
                                           task_counts, vq_counts,
                                           stage3_counts, remat_counts,
                                           latent_counts, dp_counts,
                                           multi_counts, vqcli_counts,
-                                          cli_counts, files_counts)
+                                          cli_counts, files_counts,
+                                          train_files_counts)
                        for k in ('conv3x3_dots', 'downsample_dots')) \
             or not all(ops_counts[k] > 0 for k in (
                 'conv3x3_bias', 'fused_lrelu_fwd', 'fused_lrelu_bwd')):
