@@ -22,6 +22,7 @@ from codeformer_tpu_torch.nn.blocks import (FuseSftBlock,
                                             adaptive_instance_normalization)
 from codeformer_tpu_torch.nn.transformer import (LayerNorm, Linear,
                                                  TransformerSALayer)
+from codeformer_tpu_torch.utils.profiler import span
 from codeformer_tpu_torch.utils.registry import ARCH_REGISTRY
 from .vqgan import VQAutoEncoder
 
@@ -74,31 +75,35 @@ class CodeFormer(VQAutoEncoder):
         (:139). `enable_fuse` is the reference's `w > 0` gate (False skips
         the SFT fusion)."""
         taps = [self.encoder.tap_by_size[s] for s in self.connect_list]
-        lq_feat, enc_feats = self.encoder(x, taps)
+        with span('model.encode'):
+            lq_feat, enc_feats = self.encoder(x, taps)
         b, _, h, wd = lq_feat.shape
-        query = self.feat_emb(lq_feat.flatten(2).transpose(1, 2))
-        pos = self.position_emb[None].to(query.dtype)
-        for layer in self.ft_layers:
-            query = layer(query, query_pos=pos)
-        logits = self.idx_pred_layer(query)                 # (B, S, K)
-        if code_only:
-            return logits, lq_feat
+        with span('model.transformer'):
+            query = self.feat_emb(lq_feat.flatten(2).transpose(1, 2))
+            pos = self.position_emb[None].to(query.dtype)
+            for layer in self.ft_layers:
+                query = layer(query, query_pos=pos)
+            logits = self.idx_pred_layer(query)             # (B, S, K)
+            if code_only:
+                return logits, lq_feat
 
-        top_idx = logits.argmax(-1)
-        quant_feat = self.quantize.get_codebook_feat(
-            top_idx, shape=(b, h, wd, self.emb_dim), dtype=lq_feat.dtype)
-        if detach_16:
-            quant_feat = quant_feat.detach()
-        if adain:
-            quant_feat = adaptive_instance_normalization(quant_feat, lq_feat)
+            top_idx = logits.argmax(-1)
+            quant_feat = self.quantize.get_codebook_feat(
+                top_idx, shape=(b, h, wd, self.emb_dim), dtype=lq_feat.dtype)
+            if detach_16:
+                quant_feat = quant_feat.detach()
+            if adain:
+                quant_feat = adaptive_instance_normalization(quant_feat,
+                                                             lq_feat)
 
-        fuse_fns = {}
-        if enable_fuse:
-            gen_taps = self.generator.tap_by_size
-            for f_size in self.connect_list:
-                fuse = self.fuse_convs_dict[f_size]
-                enc = enc_feats[f_size].detach()
-                fuse_fns[gen_taps[f_size]] = (
-                    lambda dec, fuse=fuse, enc=enc: fuse(enc, dec, w))
-        out = self.generator(quant_feat, fuse_fns=fuse_fns)
+        with span('model.generate'):
+            fuse_fns = {}
+            if enable_fuse:
+                gen_taps = self.generator.tap_by_size
+                for f_size in self.connect_list:
+                    fuse = self.fuse_convs_dict[f_size]
+                    enc = enc_feats[f_size].detach()
+                    fuse_fns[gen_taps[f_size]] = (
+                        lambda dec, fuse=fuse, enc=enc: fuse(enc, dec, w))
+            out = self.generator(quant_feat, fuse_fns=fuse_fns)
         return out, logits, lq_feat

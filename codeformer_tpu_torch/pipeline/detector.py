@@ -31,6 +31,7 @@ from codeformer_tpu_torch.ops.geometry import resize_linear
 from codeformer_tpu_torch.ops.nms import decode_boxes, decode_landmarks, nms
 from codeformer_tpu_torch.utils.checkpoint import init_params_fast
 from codeformer_tpu_torch.utils.convert import load_pth
+from codeformer_tpu_torch.utils.profiler import span
 
 # BGR means subtracted before the backbone (retinaface.py:88)
 _MEANS = (104.0, 117.0, 123.0)
@@ -188,12 +189,14 @@ class FaceDetector(_DetectorService):
 
         @torch.inference_mode()
         def run(x, conf_threshold, nms_threshold):
-            x = (x.float() - means).to(self.dtype)
-            loc, conf, landm = self.model(x)
-            boxes = decode_boxes(loc.float(), priors) * scale_b
-            landms = decode_landmarks(landm.float(), priors) * scale_l
-            return _select(boxes, conf[..., 1], landms, conf_threshold,
-                           nms_threshold, self.pre_nms_topk, max_faces)
+            with span('detect.net'):
+                x = (x.float() - means).to(self.dtype)
+                loc, conf, landm = self.model(x)
+            with span('detect.select'):
+                boxes = decode_boxes(loc.float(), priors) * scale_b
+                landms = decode_landmarks(landm.float(), priors) * scale_l
+                return _select(boxes, conf[..., 1], landms, conf_threshold,
+                               nms_threshold, self.pre_nms_topk, max_faces)
 
         return run
 
@@ -261,18 +264,21 @@ class FaceDetector(_DetectorService):
         detection, with an event, so `..._finish` waits for this chunk's
         detection only and not for work enqueued after it (the next
         chunk's detection)."""
-        outs, valids = self._device_graph(tuple(det_hw), self.max_faces)(
-            frames_dev, conf_threshold, nms_threshold)
-        if not outs.is_cuda:
-            return outs, valids, None
-        h_outs = torch.empty(outs.shape, dtype=outs.dtype, pin_memory=True)
-        h_valids = torch.empty(valids.shape, dtype=valids.dtype,
-                               pin_memory=True)
-        h_outs.copy_(outs, non_blocking=True)
-        h_valids.copy_(valids, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return h_outs, h_valids, done
+        with span('detect'):
+            outs, valids = self._device_graph(tuple(det_hw),
+                                              self.max_faces)(
+                frames_dev, conf_threshold, nms_threshold)
+            if not outs.is_cuda:
+                return outs, valids, None
+            h_outs = torch.empty(outs.shape, dtype=outs.dtype,
+                                 pin_memory=True)
+            h_valids = torch.empty(valids.shape, dtype=valids.dtype,
+                                   pin_memory=True)
+            h_outs.copy_(outs, non_blocking=True)
+            h_valids.copy_(valids, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            return h_outs, h_valids, done
 
     def batched_detect_device_finish(self, frames_dev, det_hw, pending,
                                      conf_threshold: float = 0.8,
@@ -280,20 +286,22 @@ class FaceDetector(_DetectorService):
         """Wait for a `..._start` dispatch, escalating to a larger
         keep-bucket (synchronously; rare) if any frame's NMS saturated.
         Returns host (B, max_faces, 15) and (B, max_faces) arrays."""
-        outs, valids, done = pending
-        if done is not None:
-            done.synchronize()
-        valids = valids.cpu().numpy()
-        max_f = self.max_faces
-        while valids.all(axis=1).any() and max_f < self.MAX_FACES_CEILING:
-            max_f = min(max_f * 4, self.MAX_FACES_CEILING)
-            outs, valids = self._device_graph(tuple(det_hw), max_f)(
-                frames_dev, conf_threshold, nms_threshold)
+        with span('detect.finish'):
+            outs, valids, done = pending
+            if done is not None:
+                done.synchronize()
             valids = valids.cpu().numpy()
-        outs = outs.cpu().numpy().copy()
-        outs[~valids] = 0.0
-        valids = valids & np.isfinite(outs).all(axis=2)
-        return outs, valids
+            max_f = self.max_faces
+            while valids.all(axis=1).any() and \
+                    max_f < self.MAX_FACES_CEILING:
+                max_f = min(max_f * 4, self.MAX_FACES_CEILING)
+                outs, valids = self._device_graph(tuple(det_hw), max_f)(
+                    frames_dev, conf_threshold, nms_threshold)
+                valids = valids.cpu().numpy()
+            outs = outs.cpu().numpy().copy()
+            outs[~valids] = 0.0
+            valids = valids & np.isfinite(outs).all(axis=2)
+            return outs, valids
 
     def batched_detect_device(self, frames_dev, det_hw,
                               conf_threshold: float = 0.8,

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from codeformer_tpu_torch.ops.geometry import (estimate_similarity,
                                                invert_affine, resize_linear,
                                                warp_affine)
+from codeformer_tpu_torch.utils.profiler import span
 from .compositor import (_pow2_bucket, _round_up, _shape_parse_masks, blend,
                          edge_width, soft_paste)
 
@@ -128,17 +129,19 @@ class DeviceRestorePipeline:
         crops (the restorer's input). The warp gathers bytes from the
         frames, the frame index folded into the gather."""
         face = self.helper.face_size[0]
-        faces = warp_affine(frames, plan.affines, (face, face),
-                            border_value=_BORDER_BGR,
-                            img_idx=torch.as_tensor(plan.frame_idx,
-                                                    device=self.device))
-        faces = torch.round(faces.flip(-1)).clamp(0, 255)
-        return faces.to(torch.uint8)
+        with span('pipeline.warp'):
+            faces = warp_affine(frames, plan.affines, (face, face),
+                                border_value=_BORDER_BGR,
+                                img_idx=torch.as_tensor(plan.frame_idx,
+                                                        device=self.device))
+            faces = torch.round(faces.flip(-1)).clamp(0, 255)
+            return faces.to(torch.uint8)
 
     def _parse_ids(self, restored: torch.Tensor) -> torch.Tensor:
         """(m, face, face, 3) uint8 RGB -> (m, parse_res, parse_res) class
         ids."""
-        return self.helper._parse(restored, self.parse_res)
+        with span('parse'):
+            return self.helper._parse(restored, self.parse_res)
 
     def _restore_parse(self, faces_rgb: torch.Tensor, n_real: int):
         """Restore, then parse, the first `n_real` crops (the real faces;
@@ -185,54 +188,55 @@ class DeviceRestorePipeline:
         round's canvases (one a frame, whatever the faces a frame) bound
         the memory. The warp and the blend weights are
         compositor.soft_paste, shared with paste_faces."""
-        c, h, w = frames.shape[:3]
-        up = self.upscale
-        h_up, w_up = h * up, w * up
-        hc, wc = _round_up(h_up, 128), _round_up(w_up, 128)
-        face = restored.shape[1]
-        roi, f = plan.roi, plan.fpf
-        out_hw = (roi, roi) if roi else (hc, wc)
-        dev = self.device
+        with span('composite'):
+            c, h, w = frames.shape[:3]
+            up = self.upscale
+            h_up, w_up = h * up, w * up
+            hc, wc = _round_up(h_up, 128), _round_up(w_up, 128)
+            face = restored.shape[1]
+            roi, f = plan.roi, plan.fpf
+            out_hw = (roi, roi) if roi else (hc, wc)
+            dev = self.device
 
-        canv = resize_linear(frames.permute(0, 3, 1, 2).float(),
-                             (h_up, w_up))
-        canv = F.pad(canv, (0, wc - w_up, 0, hc - h_up))
-        canv = canv.permute(0, 2, 3, 1).contiguous()   # (C, hc, wc, 3)
-        if pids is not None:
-            pm = _shape_parse_masks(pids, face)
-            pm_u8 = torch.round(pm * 255.0).clamp(0, 255).to(torch.uint8)
-            src = torch.cat([restored, pm_u8.permute(0, 2, 3, 1)], dim=-1)
-        else:
-            src = restored
-        inv_affines = torch.as_tensor(plan.inv_affines, device=dev)
-        face_map = torch.as_tensor(plan.face_map, device=dev)
-
-        def paste_pieces(sel):
-            """Warp + filter the slots `sel`: (soft blend weights (n, oh,
-            ow, 1), eroded pasted faces (n, oh, ow, 3) BGR)."""
-            soft, pasted, _ = soft_paste(
-                src, inv_affines[sel], out_hw, up, plan.w_edge,
-                parse_div=255.0 if pids is not None else None,
-                img_idx=face_map[sel])
-            return soft, pasted
-
-        out = canv
-        frame_ids = torch.arange(c, device=dev)
-        if roi:
-            roi_pos = torch.as_tensor(plan.roi_pos, device=dev).long()
-            span = torch.arange(roi, device=dev)
-        for k in range(f):
-            sel = frame_ids * f + k
-            soft, pasted = paste_pieces(sel)
-            if roi:
-                rows = (roi_pos[sel, 1, None] + span)[:, :, None]
-                cols = (roi_pos[sel, 2, None] + span)[:, None, :]
-                at = (frame_ids[:, None, None], rows, cols)
-                out[at] = blend(soft, pasted, out[at])
+            canv = resize_linear(frames.permute(0, 3, 1, 2).float(),
+                                 (h_up, w_up))
+            canv = F.pad(canv, (0, wc - w_up, 0, hc - h_up))
+            canv = canv.permute(0, 2, 3, 1).contiguous()   # (C, hc, wc, 3)
+            if pids is not None:
+                pm = _shape_parse_masks(pids, face)
+                pm_u8 = torch.round(pm * 255.0).clamp(0, 255).to(torch.uint8)
+                src = torch.cat([restored, pm_u8.permute(0, 2, 3, 1)], dim=-1)
             else:
-                out = blend(soft, pasted, out)
-        out = torch.round(out).clamp(0, 255).to(torch.uint8)
-        return out[:, :h_up, :w_up]
+                src = restored
+            inv_affines = torch.as_tensor(plan.inv_affines, device=dev)
+            face_map = torch.as_tensor(plan.face_map, device=dev)
+
+            def paste_pieces(sel):
+                """Warp + filter the slots `sel`: (soft blend weights (n, oh,
+                ow, 1), eroded pasted faces (n, oh, ow, 3) BGR)."""
+                soft, pasted, _ = soft_paste(
+                    src, inv_affines[sel], out_hw, up, plan.w_edge,
+                    parse_div=255.0 if pids is not None else None,
+                    img_idx=face_map[sel])
+                return soft, pasted
+
+            out = canv
+            frame_ids = torch.arange(c, device=dev)
+            if roi:
+                roi_pos = torch.as_tensor(plan.roi_pos, device=dev).long()
+                offsets = torch.arange(roi, device=dev)
+            for k in range(f):
+                sel = frame_ids * f + k
+                soft, pasted = paste_pieces(sel)
+                if roi:
+                    rows = (roi_pos[sel, 1, None] + offsets)[:, :, None]
+                    cols = (roi_pos[sel, 2, None] + offsets)[:, None, :]
+                    at = (frame_ids[:, None, None], rows, cols)
+                    out[at] = blend(soft, pasted, out[at])
+                else:
+                    out = blend(soft, pasted, out)
+            out = torch.round(out).clamp(0, 255).to(torch.uint8)
+            return out[:, :h_up, :w_up]
 
     # ------------------------------------------------------------------
     # host-side orchestration
@@ -368,18 +372,21 @@ class DeviceRestorePipeline:
         each frame) for callers that save faces (the folder CLI)."""
         c, h, w = frames_dev.shape[:3]
         det_scale, det_hw = self._det_hw(h, w)
-        if pending_dets is None:
-            pending_dets = self._detect_start(frames_dev)
-        dets, valids = self.detector.batched_detect_device_finish(
-            frames_dev, det_hw, pending_dets,
-            conf_threshold=self.conf_threshold)
-        per_frame = self._landmarks_from_dets(dets, valids, det_scale,
-                                              (h, w))
-        plan = self._plan(per_frame, (h, w))
-        self.last_plan = plan
-        faces_rgb = self._warp(frames_dev, plan)
-        restored, pids = self._restore_parse(faces_rgb, sum(plan.counts))
-        out = self._composite(frames_dev, restored, pids, plan)
+        with span('pipeline.chunk'):
+            if pending_dets is None:
+                pending_dets = self._detect_start(frames_dev)
+            dets, valids = self.detector.batched_detect_device_finish(
+                frames_dev, det_hw, pending_dets,
+                conf_threshold=self.conf_threshold)
+            with span('pipeline.plan'):
+                per_frame = self._landmarks_from_dets(dets, valids,
+                                                      det_scale, (h, w))
+                plan = self._plan(per_frame, (h, w))
+            self.last_plan = plan
+            faces_rgb = self._warp(frames_dev, plan)
+            restored, pids = self._restore_parse(faces_rgb,
+                                                 sum(plan.counts))
+            out = self._composite(frames_dev, restored, pids, plan)
         if collect_faces is not None:
             collect_faces.append((faces_rgb, restored, plan.counts))
         return out
@@ -388,7 +395,8 @@ class DeviceRestorePipeline:
         """frames: (N, H, W, 3) uint8 BGR (numpy or tensor). Returns the
         restored (N, H*up, W*up, 3) uint8 BGR as a tensor on the
         device."""
-        frames = torch.as_tensor(frames, device=self.device)
+        with span('pipeline.upload'):
+            frames = torch.as_tensor(frames, device=self.device)
         n = frames.shape[0]
         ck = min(self.frame_chunk, n)  # short inputs run at their size
         chunks, reals = [], []
@@ -449,20 +457,27 @@ class DeviceRestorePipeline:
         prev = None  # (device chunk, pending detection, real frames)
         for buf in chunked():
             r = len(buf)
-            arr = np.stack(buf)
-            if r < self.frame_chunk and prev is not None:
-                arr = np.concatenate(
-                    [arr, np.repeat(arr[-1:], self.frame_chunk - r,
-                                    axis=0)])
-            chunk = torch.as_tensor(arr, device=self.device)
+            with span('pipeline.upload'):
+                arr = np.stack(buf)
+                if r < self.frame_chunk and prev is not None:
+                    arr = np.concatenate(
+                        [arr, np.repeat(arr[-1:], self.frame_chunk - r,
+                                        axis=0)])
+                chunk = torch.as_tensor(arr, device=self.device)
             pending = self._detect_start(chunk)
             if prev is not None:
-                out = self._restore_chunk_device(prev[0],
-                                                 pending_dets=prev[1])
-                yield from out[:prev[2]].cpu().numpy()
+                yield from self._fetch(self._restore_chunk_device(
+                    prev[0], pending_dets=prev[1])[:prev[2]])
             prev = (chunk, pending, r)
-        out = self._restore_chunk_device(prev[0], pending_dets=prev[1])
-        yield from out[:prev[2]].cpu().numpy()
+        yield from self._fetch(self._restore_chunk_device(
+            prev[0], pending_dets=prev[1])[:prev[2]])
+
+    @staticmethod
+    def _fetch(frames: torch.Tensor) -> np.ndarray:
+        """Restored frames back on the host (no span open once they are
+        handed on: a stream's consumer runs between its frames)."""
+        with span('pipeline.fetch'):
+            return frames.cpu().numpy()
 
     def restore_frames(self, frames: List[np.ndarray],
                        return_faces: bool = False):
@@ -483,7 +498,7 @@ class DeviceRestorePipeline:
         collect = [] if return_faces else None
         out = self.restore_frames_device(np.stack(frames),
                                          collect_faces=collect)
-        out = list(out.cpu().numpy())
+        out = list(self._fetch(out))
         if not return_faces:
             return out
         faces_per_frame = []

@@ -25,6 +25,7 @@ from codeformer_tpu_torch.models import CodeFormer
 from codeformer_tpu_torch.nn.blocks import set_kernels, set_quant
 from codeformer_tpu_torch.utils.checkpoint import init_params_fast
 from codeformer_tpu_torch.utils.convert import load_pth
+from codeformer_tpu_torch.utils.profiler import span
 
 # bf16 runs the kernels (bf16 only); fp32 the plain path. JAX serves no
 # fp16 either.
@@ -158,7 +159,7 @@ class CodeFormerRestorer:
             raise ValueError(f'a batch of {x.shape[0]} does not split into '
                              f'{n} equal shards')
         outs = []
-        with ieee_fp32() if self.dtype == torch.float32 \
+        with span('restore'), ieee_fp32() if self.dtype == torch.float32 \
                 else contextlib.nullcontext():
             for model, dev, xs in zip(self.models, self.devices,
                                       x.chunk(n)):

@@ -136,7 +136,7 @@ def test_normalize_img_dtype_matches_jax():
 
 def test_profiler_matches_jax(monkeypatch):
     """The same clock readings give the same totals, counts and report;
-    annotate names a torch.profiler region."""
+    span names a torch.profiler region."""
     timers = (pprof.StageTimer(), jprof.StageTimer())
     for mod, timer in zip((pprof, jprof), timers):
         ticks = iter([0.0, 0.25, 1.0, 1.5, 2.0, 2.125])
@@ -153,9 +153,9 @@ def test_profiler_matches_jax(monkeypatch):
     assert timers[0].report() == jprof.StageTimer().report()
     assert pprof.stage == pprof.TIMER.stage
     with torch.profiler.profile() as prof:
-        with pprof.annotate('classic_paste'):
+        with pprof.span('classic_paste'):
             torch.ones(2).sum()
-    assert 'classic_paste' in {e.key for e in prof.key_averages()}
+    assert 'cf.classic_paste' in {e.key for e in prof.key_averages()}
 
 
 def test_largest_and_center_face_match_jax():
