@@ -1507,11 +1507,15 @@ def plain_ops():
     """Patch K1/K2 to their plain versions in bf16 (cuDNN conv): the
     port's forward as plain PyTorch, for timing."""
     from codeformer_tpu_torch.ops import conv3x3 as cv
-    return mock.patch.multiple(
+    from codeformer_tpu_torch.pipeline.restorer import eager_forwards
+    stack = contextlib.ExitStack()
+    stack.enter_context(eager_forwards())   # a graph would replay K1/K2
+    stack.enter_context(mock.patch.multiple(
         cv, conv3x3_dots=takes_prepared(functools.partial(
             cv.conv3x3_dots_ref, compute_dtype=torch.bfloat16)),
         downsample_dots=takes_prepared(functools.partial(
-            cv.downsample_dots_ref, compute_dtype=torch.bfloat16)))
+            cv.downsample_dots_ref, compute_dtype=torch.bfloat16))))
+    return stack
 
 
 def phase_rates(restorer, batches, w=0.5, adain=True, label='aligned'):
@@ -3026,14 +3030,17 @@ def wi_pipeline_check(pipe, chunk, n_faces: int):
     version. A planted K1 halo fault must fail both the frames and the
     per-call check. Raises SystemExit on a failure."""
     from codeformer_tpu_torch.ops import conv3x3 as cv
+    from codeformer_tpu_torch.pipeline.restorer import eager_forwards
     restorer = pipe.restorer
     pipe.detector.n_faces = n_faces
 
     codes = []
 
     def run(k1, k2):
-        with mock.patch.multiple(cv, conv3x3_dots=takes_prepared(k1),
-                                 downsample_dots=takes_prepared(k2)), \
+        # eager: a graph would replay the kernels it captured
+        with eager_forwards(), mock.patch.multiple(
+                cv, conv3x3_dots=takes_prepared(k1),
+                downsample_dots=takes_prepared(k2)), \
                 codes_held(restorer.model, codes, replay=True):
             return pipe.restore_frames_device(chunk)
 
@@ -3063,6 +3070,9 @@ def wi_pipeline_check(pipe, chunk, n_faces: int):
               f'{float(win.mean()):.4f} (<= {WI_FRAME_DIFF_BOUND}) max '
               f'{float(win.max()):.0f} levels; outside bit-identical: '
               f'{same_out}', flush=True)
+        # the eager per-call check at m faces needs the graphs' memory
+        restorer.release_graphs()
+        torch.cuda.empty_cache()
         worst = per_call(restorer.model, xn,
                          f'whole-image crops (m={plan.m}), {label}', k1, k2)
         return (same_out and float(win.mean()) <= WI_FRAME_DIFF_BOUND,
@@ -4165,7 +4175,9 @@ def phase_fp32():
     rng = np.random.default_rng(21)
     faces = _faces(rng, FP32_BATCH)
     seen = []
-    hook = r.model.register_forward_pre_hook(
+    # on the encoder: a graphed forward calls the model's halves, and
+    # its first call runs them eagerly, then captures them
+    hook = r.model.encoder.register_forward_pre_hook(
         lambda m, a: seen.append(tf32_flags()))
     prev = tf32_flags()
     set_tf32((True, True))
@@ -4182,8 +4194,8 @@ def phase_fp32():
           f'(expected none); TF32 flags (cudnn, matmul) in the forward '
           f'{seen}, after it {after} (set (True, True) before it)',
           flush=True)
-    if any(counts.values()) or seen != [(False, False)] \
-            or after != (True, True):
+    if any(counts.values()) or not seen \
+            or set(seen) != {(False, False)} or after != (True, True):
         raise SystemExit('chip_smoke: fp32 serving launched a kernel or '
                          'left TF32 on')
     for face, o in zip(faces, out):
@@ -4273,6 +4285,7 @@ def phase_int8(bf16):
     peak memory; the 512^2 64->64 conv's time. Returns the launches of
     the B=8 forward (all kernels 0) with `int_mm`."""
     from codeformer_tpu_torch.nn import quant as pq
+    from codeformer_tpu_torch.pipeline import restorer as rmod
     from codeformer_tpu_torch.pipeline.restorer import CodeFormerRestorer
     r = CodeFormerRestorer(device='cuda', quant='int8', seed=0)
     tame_sft(r.model)
@@ -4288,7 +4301,8 @@ def phase_int8(bf16):
         return y
 
     x1 = torch.from_numpy(np.stack(_faces(rng, 1))).cuda()
-    with mock.patch.object(pq, 'int8_conv', spy):
+    with mock.patch.object(pq, 'int8_conv', spy), \
+            rmod.eager_forwards():     # one call each, none captured
         r.restore_device(x1)
     torch.cuda.synchronize()
     bad = []

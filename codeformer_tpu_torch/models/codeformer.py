@@ -65,38 +65,45 @@ class CodeFormer(VQAutoEncoder):
             {f: FuseSftBlock(channels[f], channels[f], remat)
              for f in self.connect_list})
 
-    def forward(self, x: torch.Tensor, w=0.0, detach_16: bool = True,
-                code_only: bool = False, adain: bool = False,
-                enable_fuse: bool = True):
-        """x: (B, 3, H, W) in [-1, 1]. Returns (out, logits, lq_feat), or
-        (logits, lq_feat) with code_only. `detach_16` stops the gradient at
-        the codebook features before AdaIN (JAX models/codeformer.py:
-        124-125); the encoder taps reach the fuse blocks detached, always
-        (:139). `enable_fuse` is the reference's `w > 0` gate (False skips
-        the SFT fusion)."""
+    def predict_codes(self, x: torch.Tensor, code_only: bool = False):
+        """The forward's first half: the encoder, the transformer and
+        the argmax. x: (B, 3, H, W) in [-1, 1]. Returns (logits, top_idx,
+        lq_feat, enc_feats); top_idx is None with `code_only`. The
+        codebook lookup between the halves is `quantize.get_codebook_feat`
+        (the restorer calls it eagerly between its two CUDA graphs)."""
         taps = [self.encoder.tap_by_size[s] for s in self.connect_list]
         with span('model.encode'):
             lq_feat, enc_feats = self.encoder(x, taps)
-        b, _, h, wd = lq_feat.shape
         with span('model.transformer'):
             query = self.feat_emb(lq_feat.flatten(2).transpose(1, 2))
             pos = self.position_emb[None].to(query.dtype)
             for layer in self.ft_layers:
                 query = layer(query, query_pos=pos)
             logits = self.idx_pred_layer(query)             # (B, S, K)
-            if code_only:
-                return logits, lq_feat
+            top_idx = None if code_only else logits.argmax(-1)
+        return logits, top_idx, lq_feat, enc_feats
 
-            top_idx = logits.argmax(-1)
-            quant_feat = self.quantize.get_codebook_feat(
-                top_idx, shape=(b, h, wd, self.emb_dim), dtype=lq_feat.dtype)
-            if detach_16:
-                quant_feat = quant_feat.detach()
+    def lookup_codes(self, top_idx: torch.Tensor,
+                     lq_feat: torch.Tensor) -> torch.Tensor:
+        """The codebook features of top_idx (B, S), an NCHW map shaped
+        as lq_feat, in its dtype."""
+        b, _, h, wd = lq_feat.shape
+        return self.quantize.get_codebook_feat(
+            top_idx, shape=(b, h, wd, self.emb_dim), dtype=lq_feat.dtype)
+
+    def decode_codes(self, quant_feat: torch.Tensor, lq_feat: torch.Tensor,
+                     enc_feats, w=0.0, detach_16: bool = True,
+                     adain: bool = False,
+                     enable_fuse: bool = True) -> torch.Tensor:
+        """The forward's second half: AdaIN of the looked-up features to
+        lq_feat's statistics, then the generator with SFT fusion of the
+        encoder taps. Returns the image (B, 3, H, W)."""
+        if detach_16:
+            quant_feat = quant_feat.detach()
+        with span('model.generate'):
             if adain:
                 quant_feat = adaptive_instance_normalization(quant_feat,
                                                              lq_feat)
-
-        with span('model.generate'):
             fuse_fns = {}
             if enable_fuse:
                 gen_taps = self.generator.tap_by_size
@@ -105,5 +112,23 @@ class CodeFormer(VQAutoEncoder):
                     enc = enc_feats[f_size].detach()
                     fuse_fns[gen_taps[f_size]] = (
                         lambda dec, fuse=fuse, enc=enc: fuse(enc, dec, w))
-            out = self.generator(quant_feat, fuse_fns=fuse_fns)
+            return self.generator(quant_feat, fuse_fns=fuse_fns)
+
+    def forward(self, x: torch.Tensor, w=0.0, detach_16: bool = True,
+                code_only: bool = False, adain: bool = False,
+                enable_fuse: bool = True):
+        """x: (B, 3, H, W) in [-1, 1]. Returns (out, logits, lq_feat), or
+        (logits, lq_feat) with code_only: `predict_codes`, `lookup_codes`,
+        `decode_codes`. `detach_16` stops the gradient at the codebook
+        features before AdaIN (JAX models/codeformer.py:124-125); the
+        encoder taps reach the fuse blocks detached, always (:139).
+        `enable_fuse` is the reference's `w > 0` gate (False skips the
+        SFT fusion)."""
+        logits, top_idx, lq_feat, enc_feats = self.predict_codes(x,
+                                                                 code_only)
+        if code_only:
+            return logits, lq_feat
+        quant_feat = self.lookup_codes(top_idx, lq_feat)
+        out = self.decode_codes(quant_feat, lq_feat, enc_feats, w,
+                                detach_16, adain, enable_fuse)
         return out, logits, lq_feat

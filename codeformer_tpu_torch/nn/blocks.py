@@ -442,5 +442,7 @@ class FuseSftBlock(nn.Module):
         enc = self.encode_enc(torch.cat([enc_feat, dec_feat], dim=1))
         scale = self.scale(enc)
         shift = self.shift(enc)
-        w = torch.as_tensor(w, dtype=dec_feat.dtype, device=dec_feat.device)
+        # w rounded to the map's dtype, as a Python scalar: the product
+        # rounds as with a tensor of w, without a copy to the device
+        w = float(torch.tensor(w, dtype=dec_feat.dtype))
         return dec_feat + w * (dec_feat * scale + shift)

@@ -50,6 +50,13 @@ def reset_launch_counts() -> None:
         _launches[k] = 0
 
 
+def add_launch_counts(counts: dict) -> None:
+    """Add `counts` (by kernel) to the counters: a CUDA graph's replay
+    runs the launches its capture recorded (pipeline/restorer.py)."""
+    for k, v in counts.items():
+        _launches[k] += v
+
+
 def _amax_scale(amax: torch.Tensor) -> torch.Tensor:
     # a device tensor divisor: CUDA divides by a Python scalar as a
     # multiply by its reciprocal, one ulp off the IEEE quotient

@@ -56,6 +56,13 @@ def reset_launch_counts() -> None:
         _launches[k] = 0
 
 
+def add_launch_counts(counts: dict) -> None:
+    """Add `counts` (by kernel) to the counters: a CUDA graph's replay
+    runs the launches its capture recorded (pipeline/restorer.py)."""
+    for k, v in counts.items():
+        _launches[k] += v
+
+
 # ------------------------------------------------------- GroupNorm fold
 def channel_stats(x: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) -> (B, 1, 2, C) fp32 [sum, sumsq] over H, W, in the

@@ -10,19 +10,28 @@ path in IEEE fp32 (TF32 off for the call), as JAX's fp32 runs on XLA's
 convs; `quant='int8'` serves JAX's int8 path (nn/quant.py). With several
 devices each holds a replica of the model and takes an equal shard of
 every batch, as JAX's `mesh=` shards the batch over its 'data' axis.
+
+On one CUDA device a forward is two CUDA graphs, captured once a key
+(batch, face size, w, adain, enable_fuse) and replayed after: about
+1,900 launches a forward from one Python thread cost more host time
+than the card spends on a face at B=1. The graphs split at the codebook
+lookup, which runs eagerly between them (`ForwardGraphs`).
 """
 from __future__ import annotations
 
 import contextlib
 import copy
 import math
+from collections import OrderedDict
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from codeformer_tpu_torch.models import CodeFormer
+from codeformer_tpu_torch.nn import quant as nn_quant
 from codeformer_tpu_torch.nn.blocks import set_kernels, set_quant
+from codeformer_tpu_torch.ops import conv3x3 as cv
 from codeformer_tpu_torch.utils.checkpoint import init_params_fast
 from codeformer_tpu_torch.utils.convert import load_pth
 from codeformer_tpu_torch.utils.profiler import span
@@ -62,6 +71,85 @@ def _on(device: torch.device):
     """The CUDA device context of `device` (launches go to its card)."""
     return torch.cuda.device(device) if device.type == 'cuda' \
         else contextlib.nullcontext()
+
+
+# graph keys a restorer keeps, the least recently used dropped first:
+# each holds its static tensors in the restorer's pool, and the web
+# demo's fidelity slider sends a new w with every move
+GRAPH_KEYS = 8
+# the launch counters a forward feeds; a replay adds what its capture
+# launched, so they count the kernels that ran
+_COUNTERS = (cv, nn_quant)
+_eager_only = False
+
+
+@contextlib.contextmanager
+def eager_forwards():
+    """Every forward inside runs eagerly, neither captured nor replayed.
+    A graph replays the launches it captured, so a caller that swaps a
+    kernel function for a while (a check against the plain version, a
+    planted fault) runs inside this."""
+    global _eager_only
+    prev, _eager_only = _eager_only, True
+    try:
+        yield
+    finally:
+        _eager_only = prev
+
+
+def _add_launch_counts(counts, sign: int = 1) -> None:
+    for m, c in zip(_COUNTERS, counts):
+        m.add_launch_counts({k: sign * v for k, v in c.items()})
+
+
+class ForwardGraphs:
+    """One key's forward as two CUDA graphs: A is uint8 x -> normalize
+    -> `predict_codes` (encoder, transformer, argmax), B is the looked-up
+    features -> `decode_codes` (AdaIN, generator with SFT fusion) ->
+    uint8. `run` replays A, calls the codebook lookup eagerly on a copy
+    of A's codes (so each forward hands `quantize.get_codebook_feat` an
+    index tensor no later forward writes), copies its result into B's
+    input, replays B and returns a copy of B's output. No host sync
+    between A and B: the stream orders them. Built after an eager forward
+    of the same key, which made the kept operands, plans and kernel
+    attributes outside the capture; `quant_feat` is that forward's
+    lookup (B's input takes its layout).
+
+    Every key of a restorer captures into one memory `pool` (None: a new
+    one, `a.pool()` after). A key's graphs write all of their static
+    tensors before they read them, and `run` copies the output out
+    before another key replays, so the keys may reuse each other's
+    temporaries: the pool holds about one forward's activations of the
+    largest key, plus each key's static tensors."""
+
+    def __init__(self, restorer, x: torch.Tensor, quant_feat: torch.Tensor,
+                 w: float, adain: bool, enable_fuse: bool, pool=None):
+        model = restorer.model
+        self.x = torch.empty_like(x)
+        self.quant = torch.empty_like(quant_feat)
+        before = [m.launch_counts() for m in _COUNTERS]
+        self.a = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.a, pool=pool):
+            _, self.top_idx, self.lq_feat, self.enc = model.predict_codes(
+                restorer.normalize(self.x))
+        self.b = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.b, pool=self.a.pool()):
+            self.out = restorer.denormalize(model.decode_codes(
+                self.quant, self.lq_feat, self.enc, w, adain=adain,
+                enable_fuse=enable_fuse))
+        # the capture recorded these launches; none of them ran
+        self.launches = [{k: v - b[k] for k, v in m.launch_counts().items()}
+                         for m, b in zip(_COUNTERS, before)]
+        _add_launch_counts(self.launches, -1)
+
+    def run(self, model, x: torch.Tensor) -> torch.Tensor:
+        self.x.copy_(x)
+        self.a.replay()
+        self.quant.copy_(model.lookup_codes(self.top_idx.clone(),
+                                            self.lq_feat))
+        self.b.replay()
+        _add_launch_counts(self.launches)
+        return self.out.clone()
 
 
 class CodeFormerRestorer:
@@ -129,6 +217,87 @@ class CodeFormerRestorer:
         self.models = [model] + [copy.deepcopy(model) for _ in devices[1:]]
         self.models = [m.to(d) for m, d in zip(self.models, devices)]
         self.model = self.models[0]
+        self._graphs = OrderedDict()     # key -> ForwardGraphs
+        self._graph_pool = self._graph_state = self._watched = None
+        self._graph_counts = {'captures': 0, 'replays': 0, 'eager': 0}
+
+    def graphs_engage(self) -> bool:
+        """Whether forwards run as CUDA graphs: on one CUDA device, on
+        every route (bf16 kernels, fp32 plain path, int8), outside
+        `eager_forwards`. Elsewhere (the CPU, several devices) every
+        forward runs eagerly."""
+        return (len(self.devices) == 1 and self.device.type == 'cuda'
+                and not _eager_only)
+
+    def graph_counts(self) -> dict:
+        """Forwards since the last reset: `captures` (a key's first
+        forward, eager, then captured), `replays`, `eager` (no graph)."""
+        return dict(self._graph_counts)
+
+    def reset_graph_counts(self) -> None:
+        for k in self._graph_counts:
+            self._graph_counts[k] = 0
+
+    def release_graphs(self) -> None:
+        """Drop every captured graph and their pool (about one forward's
+        activations at the largest key), for a caller that needs the
+        memory back; each key captures again at its next forward."""
+        self._graphs.clear()
+        self._graph_pool = None
+
+    def _model_state(self):
+        """What the captured graphs hold fixed besides their key: the
+        version of every parameter and buffer (an in-place update, as
+        load_state_dict's, bumps it) and every module's kernel and
+        quantization switches (set_kernels, set_quant). The tensors and
+        modules are collected at the first graphed forward: a parameter
+        replaced by another tensor after it goes unseen."""
+        if self._watched is None:
+            m = self.model
+            self._watched = (list(m.parameters()) + list(m.buffers()),
+                             [mod for mod in m.modules()
+                              if hasattr(mod, 'use_kernels')
+                              or hasattr(mod, 'quant')])
+        tensors, switches = self._watched
+        return (tuple(t._version for t in tensors),
+                tuple((getattr(mod, 'use_kernels', None),
+                       getattr(mod, 'quant', None)) for mod in switches))
+
+    def _graphed(self, x: torch.Tensor, w: float, adain: bool,
+                 enable_fuse: bool) -> torch.Tensor:
+        """One forward on devices[0] through the key's graphs; a new key
+        runs eagerly once and is captured after, into the restorer's one
+        pool (the least recently used key dropped beyond GRAPH_KEYS). A
+        change of the model's state (`_model_state`) drops every graph
+        and the pool."""
+        state = self._model_state()
+        if state != self._graph_state:
+            self.release_graphs()
+            self._graph_state = state
+        # the TF32 flags: fp32 matmuls and convs (attention's q k^T in
+        # bf16 too) are captured under the flags of their capture
+        key = (tuple(x.shape), w, adain, enable_fuse,
+               torch.backends.cuda.matmul.allow_tf32,
+               torch.backends.cudnn.allow_tf32)
+        graphs = self._graphs.get(key)
+        if graphs is not None:
+            self._graphs.move_to_end(key)
+            self._graph_counts['replays'] += 1
+            return graphs.run(self.model, x)
+        model = self.model
+        x = x.to(self.device)
+        _, top_idx, lq_feat, enc = model.predict_codes(self.normalize(x))
+        quant_feat = model.lookup_codes(top_idx, lq_feat)
+        out = self.denormalize(model.decode_codes(
+            quant_feat, lq_feat, enc, w, adain=adain,
+            enable_fuse=enable_fuse))
+        while len(self._graphs) >= GRAPH_KEYS:
+            self._graphs.popitem(last=False)
+        graphs = ForwardGraphs(self, x, quant_feat, w, adain, enable_fuse,
+                               self._graph_pool)
+        self._graphs[key], self._graph_pool = graphs, graphs.a.pool()
+        self._graph_counts['captures'] += 1
+        return out
 
     def _bucket(self, n: int) -> int:
         for b in self.batch_buckets:
@@ -161,12 +330,19 @@ class CodeFormerRestorer:
         outs = []
         with span('restore'), ieee_fp32() if self.dtype == torch.float32 \
                 else contextlib.nullcontext():
-            for model, dev, xs in zip(self.models, self.devices,
-                                      x.chunk(n)):
-                with _on(dev):
-                    out, _, _ = model(self.normalize(xs.to(dev)), w,
-                                      adain=adain, enable_fuse=enable_fuse)
-                    outs.append(self.denormalize(out))
+            if self.graphs_engage():
+                with _on(self.device):
+                    outs.append(self._graphed(x, float(w), bool(adain),
+                                              bool(enable_fuse)))
+            else:
+                self._graph_counts['eager'] += 1
+                for model, dev, xs in zip(self.models, self.devices,
+                                          x.chunk(n)):
+                    with _on(dev):
+                        out, _, _ = model(self.normalize(xs.to(dev)), w,
+                                          adain=adain,
+                                          enable_fuse=enable_fuse)
+                        outs.append(self.denormalize(out))
         out_device = self.device if out_device is None else out_device
         if n == 1:
             return outs[0].to(out_device)

@@ -11,6 +11,8 @@ abs + 1e-4 rel, and the code indices must be EQUAL: the smallest top-2
 logit gap at this seed is 3e-4, far above the noise, so a flipped index
 would mean a bug.
 """
+from unittest import mock
+
 import numpy as np
 import pytest
 
@@ -116,6 +118,69 @@ def test_bf16_forward_is_finite(models):
     assert out.dtype == logits.dtype == lq.dtype == torch.bfloat16
     assert torch.isfinite(out.float()).all()
     assert next(pm.parameters()).dtype == torch.float32
+
+
+def _unsplit_forward(pm, x, w, adain, enable_fuse):
+    """The forward as one function, before its split at the codebook
+    lookup: encoder, transformer, argmax, lookup, AdaIN, generator."""
+    from codeformer_tpu_torch.nn.blocks import \
+        adaptive_instance_normalization
+    taps = [pm.encoder.tap_by_size[s] for s in pm.connect_list]
+    lq_feat, enc_feats = pm.encoder(x, taps)
+    b, _, h, wd = lq_feat.shape
+    query = pm.feat_emb(lq_feat.flatten(2).transpose(1, 2))
+    pos = pm.position_emb[None].to(query.dtype)
+    for layer in pm.ft_layers:
+        query = layer(query, query_pos=pos)
+    logits = pm.idx_pred_layer(query)
+    quant_feat = pm.quantize.get_codebook_feat(
+        logits.argmax(-1), shape=(b, h, wd, pm.emb_dim), dtype=lq_feat.dtype)
+    if adain:
+        quant_feat = adaptive_instance_normalization(quant_feat, lq_feat)
+    fuse_fns = {}
+    if enable_fuse:
+        for f_size in pm.connect_list:
+            fuse = pm.fuse_convs_dict[f_size]
+            fuse_fns[pm.generator.tap_by_size[f_size]] = (
+                lambda dec, fuse=fuse, enc=enc_feats[f_size]:
+                fuse(enc, dec, w))
+    return pm.generator(quant_feat, fuse_fns=fuse_fns), logits, lq_feat
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('adain,enable_fuse', [
+    (True, True), (False, True), (True, False), (False, False)])
+def test_split_forward_equals_unsplit(models, dtype, adain, enable_fuse):
+    """predict_codes -> lookup_codes -> decode_codes, the halves the
+    restorer's CUDA graphs capture with the lookup between them, and
+    forward itself equal the unsplit forward bit for bit; the lookup is
+    called once a forward, with the argmax of the logits."""
+    _, _, pm, x = models
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).to(dtype)
+    seen = []
+    lookup = pm.quantize.get_codebook_feat
+
+    def recorded(idx, *a, **kw):
+        seen.append(idx)
+        return lookup(idx, *a, **kw)
+    with torch.no_grad(), mock.patch.object(pm.quantize, 'get_codebook_feat',
+                                            recorded):
+        want = _unsplit_forward(pm, xt, 0.7, adain, enable_fuse)
+        logits, top_idx, lq_feat, enc = pm.predict_codes(xt)
+        quant_feat = pm.lookup_codes(top_idx, lq_feat)
+        out = pm.decode_codes(quant_feat, lq_feat, enc, 0.7, adain=adain,
+                              enable_fuse=enable_fuse)
+        got = pm(xt, 0.7, adain=adain, enable_fuse=enable_fuse)
+    assert len(seen) == 3 and torch.equal(seen[1], seen[0])
+    assert torch.equal(top_idx, logits.argmax(-1))
+    for a, b in ((out, want[0]), (logits, want[1]), (lq_feat, want[2])):
+        assert a.dtype == dtype and torch.equal(a, b)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    with torch.no_grad():
+        logits_c, lq_c = pm(xt, 0.7, code_only=True)
+        assert pm.predict_codes(xt, code_only=True)[1] is None
+    assert torch.equal(logits_c, want[1]) and torch.equal(lq_c, want[2])
 
 
 # Parameter gradients of loss = sum(out * r) against jax.grad of the same

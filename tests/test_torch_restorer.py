@@ -260,3 +260,119 @@ def test_cli_run_aligned_writes_restored_faces(restorers, tmp_path):
     gray = cv2.imread(str(outs[1]))
     assert gray.shape == (64, 64, 3)
     assert np.array_equal(gray[..., 0], gray[..., 1])
+
+
+def test_lookup_sees_one_fresh_index_tensor_a_forward(restorers):
+    """A wrapper on quantize.get_codebook_feat built as the benchmark's
+    CodeRecorder (benchmark/compare.py) sees exactly one index tensor a
+    restore_device call, a distinct tensor each time; on the CPU every
+    forward runs eagerly (graph_counts)."""
+    _, pr = restorers
+    pr.reset_graph_counts()
+    seen = []
+    lookup = pr.model.quantize.get_codebook_feat
+
+    def recorded(indices, *a, **kw):
+        seen.append(indices)
+        return lookup(indices, *a, **kw)
+    x = np.stack(_faces(10, 2))
+    with mock.patch.object(pr.model.quantize, 'get_codebook_feat',
+                           recorded):
+        outs = [pr.restore_device(x, w=0.5) for _ in range(3)]
+    assert len(seen) == 3
+    assert len({t.data_ptr() for t in seen}) == 3
+    assert all(torch.equal(t, seen[0]) for t in seen)
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    assert pr.graph_counts() == {'captures': 0, 'replays': 0, 'eager': 3}
+
+
+def test_graphs_engage_on_one_cuda_device_only():
+    """The rule: one CUDA device, outside eager_forwards(); the CPU and
+    several devices stay eager. Decided from the restorer's devices (a
+    stub: this host has no card to build a model on)."""
+    r = CodeFormerRestorer.__new__(CodeFormerRestorer)
+    r.devices = [torch.device('cuda:0')]
+    r.device = r.devices[0]
+    assert r.graphs_engage()
+    with restorer_mod.eager_forwards():
+        assert not r.graphs_engage()
+    assert r.graphs_engage()
+    r.devices = [torch.device('cuda:0'), torch.device('cuda:1')]
+    assert not r.graphs_engage()
+    r.devices = r.device = [torch.device('cpu')]
+    r.device = r.devices[0]
+    assert not r.graphs_engage()
+
+
+class _FakeGraphs:
+    """Stands in for ForwardGraphs on the CPU: records its key's w and
+    the pool it was given (its own `pool()` is 'pool'), and its replays
+    return a marker."""
+
+    def __init__(self, restorer, x, quant_feat, w, adain, enable_fuse,
+                 pool):
+        self.w, self.given_pool, self.a = w, pool, self
+
+    def pool(self):
+        return 'pool'
+
+    def run(self, model, x):
+        return ('replayed', self.w)
+
+
+def test_graph_keys_lru_and_model_state():
+    """The first forward of a key runs eagerly (the output of the eager
+    forward, bit for bit) and captures; later ones replay. At most
+    GRAPH_KEYS keys stay, the least recently used dropped first, all in
+    the pool of the first capture; an in-place update of a parameter, or
+    a kernel switch, drops them all and the pool."""
+    from codeformer_tpu_torch.nn.blocks import set_kernels
+    pm = CodeFormer(**TINY).eval()
+    r = CodeFormerRestorer(device='cpu', dtype=torch.float32, model=pm,
+                           face_size=64, batch_buckets=BUCKETS)
+    x = torch.from_numpy(np.stack(_faces(11, 1)))
+    ws = [round(0.1 * i, 1) for i in range(restorer_mod.GRAPH_KEYS + 2)]
+    with mock.patch.object(restorer_mod, 'ForwardGraphs', _FakeGraphs), \
+            torch.inference_mode():
+        first = r._graphed(x, ws[0], True, True)
+        assert torch.equal(first, r._fwd(x, ws[0], True, True))
+        for w in ws[1:]:
+            r._graphed(x, w, True, True)
+        assert r.graph_counts()['captures'] == len(ws)
+        assert [k[1] for k in r._graphs] == ws[2:]
+        assert {g.given_pool for g in r._graphs.values()} == {'pool'}
+        assert r._graphed(x, ws[2], True, True) == ('replayed', ws[2])
+        assert [k[1] for k in r._graphs][-1] == ws[2]
+        assert r.graph_counts()['replays'] == 1
+        assert r._graphed(x, ws[2], False, True) is not None   # a new key
+        assert r.graph_counts()['captures'] == len(ws) + 1
+        with torch.no_grad():
+            pm.fuse_convs_dict['32'].shift[2].weight.mul_(1.0)
+        assert isinstance(r._graphed(x, ws[2], True, True), torch.Tensor)
+        assert len(r._graphs) == 1
+        assert next(iter(r._graphs.values())).given_pool is None
+        set_kernels(pm, True)       # fp32 serves with them off
+        assert isinstance(r._graphed(x, ws[2], True, True), torch.Tensor)
+        assert len(r._graphs) == 1
+        assert r._graphed(x, ws[2], True, True) == ('replayed', ws[2])
+        r.release_graphs()
+        assert not r._graphs and r._graph_pool is None
+        assert isinstance(r._graphed(x, ws[2], True, True), torch.Tensor)
+
+
+@pytest.mark.parametrize('w', [0.0, 0.3, 0.5, 0.7, 1.0])
+def test_fuse_weight_scalar_rounds_as_a_tensor(w):
+    """FuseSftBlock multiplies by w rounded to the map's dtype as a Python
+    scalar (nothing copied to the device, so a CUDA graph captures it):
+    bf16 outputs equal those of w as a bf16 tensor."""
+    torch.manual_seed(0)
+    blk = FuseSftBlock(32, 32).eval()
+    enc, dec = (torch.randn(2, 32, 8, 8).to(torch.bfloat16)
+                .contiguous(memory_format=torch.channels_last)
+                for _ in range(2))
+    with torch.no_grad():
+        got = blk(enc, dec, w)
+        e = blk.encode_enc(torch.cat([enc, dec], dim=1))
+        want = dec + torch.as_tensor(w, dtype=dec.dtype) * (
+            dec * blk.scale(e) + blk.shift(e))
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
