@@ -4,13 +4,16 @@ inference_codeformer.py:160-272).
 
 Two routes, chosen as the JAX CLI chooses them (`--fused_pipeline`):
 - the fused device pipeline (pipeline/device_pipeline.py) for a folder of
-  same-size colour images or a video with a RetinaFace detector and no
-  upsampler: frames stay on the device between detect, align, restore,
-  parse and paste; a video streams through it chunk by chunk to the
-  writer;
+  same-size colour images or a video with a RetinaFace detector, no face
+  upsampler, and the x2 background upsampler only at --upscale 2: frames
+  stay on the device between detect, align, restore, parse, the
+  background upsample and paste; a video streams through it chunk by
+  chunk to the writer. Here the port parts from the JAX CLI, which sends
+  --bg_upsampler realesrgan to the classic path;
 - the classic per-stage path for everything else it serves (gray
-  images, mixed sizes, --draw_box, a YOLOv5 detector, the Real-ESRGAN
-  upsamplers, --fused_pipeline off): per image, read, detect and align
+  images, mixed sizes, --draw_box, a YOLOv5 detector, --face_upsample,
+  the background upsampler at another --upscale, --fused_pipeline off):
+  per image, read, detect and align
   on the host (cv2); ONE restoration stream over the faces of every
   image; gray adaptation, then ONE parsing stream (with --face_upsample
   each image's upsampled faces are parsed at its paste, as the
@@ -45,8 +48,11 @@ def _fused_ineligibility(args, input_video, input_img_list):
     """Why the fused device pipeline cannot serve this invocation, or
     None if it can. Folder images must already be loaded (size and gray
     checks)."""
-    if args.bg_upsampler == 'realesrgan' or args.face_upsample:
-        return 'bg/face upsampler requested'
+    if args.face_upsample:
+        return 'face upsampler requested'
+    if args.bg_upsampler == 'realesrgan' and args.upscale != 2:
+        return (f'--upscale {args.upscale} with the x2 background '
+                f'upsampler needs its output resized on the host')
     if args.draw_box:
         return 'draw_box requested'
     if not args.detection_model.startswith('retinaface'):
@@ -113,8 +119,12 @@ def run_whole_images(args, input_img_list, result_root, restorer,
     video_name = (os.path.splitext(os.path.basename(args.input_path))[0]
                   if input_video else None)
     if use_fused:
+        extra = ' with the Real-ESRGAN background upsampler' \
+            if bg_upsampler is not None else ''
+        print(f'Fused device pipeline{extra}.')
         _run_fused(args, input_img_list, names, result_root, restorer,
-                   face_helper, input_video, video_name, video_meta)
+                   face_helper, input_video, video_name, video_meta,
+                   bg_upsampler)
     elif input_video and not args.draw_box and bg_upsampler is None \
             and face_upsampler is None:
         # the classic batched video path: frames flow through each stage
@@ -171,14 +181,16 @@ def _save_final(args, result_root, basename, img):
 
 
 def _run_fused(args, input_img_list, names, result_root, restorer,
-               face_helper, input_video, video_name, video_meta):
+               face_helper, input_video, video_name, video_meta,
+               bg_upsampler=None):
     """Everything on the device between stages."""
     from codeformer_tpu_torch.pipeline.device_pipeline import \
         DeviceRestorePipeline
     pipe = DeviceRestorePipeline(
         restorer, face_helper, upscale=args.upscale,
         w=args.fidelity_weight, only_center_face=args.only_center_face,
-        parse_res=getattr(args, 'parse_res', 256))
+        parse_res=getattr(args, 'parse_res', 256),
+        bg_upsampler=bg_upsampler)
     if not input_video:
         restored_frames, faces = pipe.restore_frames(input_img_list,
                                                      return_faces=True)

@@ -9,7 +9,11 @@ square window fits, the windows are cut with `unfold`, run `tile_batch`
 at a time (the last batch padded with zero tiles, so every batch has one
 shape), each upscaled tile is rounded to uint8, and the core of each is
 written back. An image that fits one tile runs whole, reflect-padded to
-a multiple of the scale. Only the uint8 result crosses back to the host,
+a multiple of the scale. The same walk serves one image (`enhance`,
+`upscale_device`) and a batch of device frames
+(`upscale_frames_device`, the fused pipeline's background), whose
+windows are batched across the frames. Only the uint8 result crosses
+back to the host,
 where the reference's mode handling (gray, alpha, 16-bit, the Lanczos
 `outscale` resize) runs; cv2 is imported only there.
 """
@@ -71,6 +75,7 @@ class RealESRGANer:
         if self.device.type == 'cuda':   # cuDNN's bf16 convs are NHWC
             model = model.to(memory_format=torch.channels_last)
         self.model = model
+        self._tile_counts = {'calls': 0, 'tiles': 0, 'pad_tiles': 0}
 
     @torch.inference_mode()
     def _fwd(self, tiles: torch.Tensor) -> torch.Tensor:
@@ -82,54 +87,99 @@ class RealESRGANer:
         out = self.model(x).float().clamp(0.0, 1.0)
         return torch.round(out * 255.0).to(torch.uint8)
 
-    def _process_whole(self, x: torch.Tensor) -> torch.Tensor:
-        """(3, h, w) fp32 -> (3, h*s, w*s) uint8. The input is reflect-
-        padded to a multiple of the scale (the scale-2 model pixel-
-        unshuffles it; the reference's mod_pad, realesrgan_utils.py:
-        79-87) and the output cropped back."""
-        _, h, w = x.shape
+    def tile_counts(self) -> dict:
+        """Model forwards since the last reset: `calls` (forwards),
+        `tiles` (windows of an image run through them, a whole image
+        counting as one), `pad_tiles` (zero windows that filled a last
+        batch)."""
+        return dict(self._tile_counts)
+
+    def reset_tile_counts(self) -> None:
+        for k in self._tile_counts:
+            self._tile_counts[k] = 0
+
+    def _count(self, tiles: int, pad_tiles: int = 0) -> None:
+        c = self._tile_counts
+        c['calls'] += 1
+        c['tiles'] += tiles
+        c['pad_tiles'] += pad_tiles
+
+    def _process_whole(self, x: torch.Tensor,
+                       batch: Optional[int] = None) -> torch.Tensor:
+        """(N, 3, h, w) fp32 -> (N, 3, h*s, w*s) uint8, `batch` images a
+        forward (default tile_batch). The input is reflect-padded to a
+        multiple of the scale (the scale-2 model pixel-unshuffles it; the
+        reference's mod_pad, realesrgan_utils.py:79-87) and the output
+        cropped back."""
+        h, w = x.shape[2:]
         s = self.scale
         ph, pw = (s - h % s) % s, (s - w % s) % s
-        x = x[None]
         if ph or pw:
             x = F.pad(x, (0, pw, 0, ph), mode='reflect')
-        return self._fwd(x)[0, :, :h * s, :w * s]
+        batch = batch or self.tile_batch
+        outs = []
+        for i in range(0, x.shape[0], batch):
+            part = x[i:i + batch]
+            self._count(part.shape[0])
+            outs.append(self._fwd(part)[:, :, :h * s, :w * s])
+        return torch.cat(outs)
 
-    def _process_tiled(self, x: torch.Tensor) -> torch.Tensor:
-        """(3, h, w) fp32 -> (3, h*s, w*s) uint8 from tile + 2*tile_pad
-        windows of the edge-padded image, tile_batch at a time, the core
-        of each upscaled window written back."""
-        c, h, w = x.shape
+    def _process_tiled(self, x: torch.Tensor,
+                       batch: Optional[int] = None) -> torch.Tensor:
+        """(N, 3, h, w) fp32 -> (N, 3, h*s, w*s) uint8 from tile +
+        2*tile_pad windows of each edge-padded image, the windows of all
+        N images run tile_batch at a time, or `batch` but never more than
+        there are windows (the last batch padded with zero windows), the
+        core of each upscaled window written back."""
+        n, c, h, w = x.shape
         t, pad, s = self.tile_size, self.tile_pad, self.scale
         tiles_y, tiles_x = math.ceil(h / t), math.ceil(w / t)
-        padded = F.pad(x[None], (pad, t * tiles_x - w + pad,
-                                 pad, t * tiles_y - h + pad),
-                       mode='replicate')[0]
+        padded = F.pad(x, (pad, t * tiles_x - w + pad,
+                           pad, t * tiles_y - h + pad), mode='replicate')
         tin = t + 2 * pad
-        tiles = padded.unfold(1, tin, t).unfold(2, tin, t)  # (c, ty, tx, ..)
-        tiles = tiles.permute(1, 2, 0, 3, 4).reshape(-1, c, tin, tin)
-        n, chunk = tiles.shape[0], self.tile_batch
-        outs = []
-        for i in range(0, n, chunk):
+        tiles = padded.unfold(2, tin, t).unfold(3, tin, t)  # n, c, ty, tx
+        tiles = tiles.permute(0, 2, 3, 1, 4, 5).reshape(-1, c, tin, tin)
+        chunk = self.tile_batch if batch is None \
+            else min(batch, tiles.shape[0])
+        cores = []
+        for i in range(0, tiles.shape[0], chunk):
             part = tiles[i:i + chunk]
             k = part.shape[0]
             if k < chunk:   # one batch shape: pad with zero tiles
                 part = torch.cat([part, part.new_zeros(
                     (chunk - k,) + part.shape[1:])])
-            outs.append(self._fwd(part)[:k])
-        core = torch.cat(outs)[:, :, pad * s:(pad + t) * s,
-                               pad * s:(pad + t) * s]
-        core = core.reshape(tiles_y, tiles_x, c, t * s, t * s) \
-            .permute(2, 0, 3, 1, 4).reshape(c, tiles_y * t * s,
-                                            tiles_x * t * s)
-        return core[:, :h * s, :w * s]
+            self._count(k, chunk - k)
+            cores.append(self._fwd(part)[:k, :, pad * s:(pad + t) * s,
+                                         pad * s:(pad + t) * s])
+        ts = t * s
+        core = torch.cat(cores).reshape(n, tiles_y, tiles_x, c, ts, ts) \
+            .permute(0, 3, 1, 4, 2, 5).reshape(n, c, tiles_y * ts,
+                                               tiles_x * ts)
+        return core[:, :, :h * s, :w * s]
+
+    def _upscale(self, x: torch.Tensor,
+                 batch: Optional[int] = None) -> torch.Tensor:
+        """(N, 3, h, w) fp32 RGB in [0, 1] on the device -> (N, 3, h*s,
+        w*s) uint8 RGB: tiled when a side exceeds the tile."""
+        if self.tile_size > 0 and max(x.shape[2:]) > self.tile_size:
+            return self._process_tiled(x, batch)
+        return self._process_whole(x, batch)
 
     def upscale_device(self, rgb: torch.Tensor) -> torch.Tensor:
         """(3, h, w) fp32 RGB in [0, 1] on the device -> (3, h*s, w*s)
-        uint8 RGB on the device: tiled when a side exceeds the tile."""
-        if self.tile_size > 0 and max(rgb.shape[1:]) > self.tile_size:
-            return self._process_tiled(rgb)
-        return self._process_whole(rgb)
+        uint8 RGB on the device."""
+        return self._upscale(rgb[None])[0]
+
+    def upscale_frames_device(self, frames: torch.Tensor,
+                              tile_batch: Optional[int] = None
+                              ) -> torch.Tensor:
+        """(C, H, W, 3) uint8 BGR frames on the device -> (C, H*s, W*s, 3)
+        uint8 BGR on the device: enhance's arithmetic on each frame (RGB
+        in [0, 1], the same walk, each window rounded on its own), the
+        windows of all C frames batched together, `tile_batch` (default
+        the upsampler's) a forward, at most as many as there are."""
+        x = frames.flip(-1).permute(0, 3, 1, 2).float() / 255.0
+        return self._upscale(x, tile_batch).permute(0, 2, 3, 1).flip(-1)
 
     def enhance(self, img: np.ndarray, outscale: Optional[float] = None,
                 alpha_upsampler: str = 'realesrgan'):

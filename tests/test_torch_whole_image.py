@@ -1,9 +1,11 @@
 """Routing of the port's whole-image CLI (codeformer_tpu_torch/cli/
 whole_image.py), after tests/test_whole_image_batched.py: a uniform
-folder and a video take the fused device pipeline; gray images, mixed
-sizes, --draw_box, a YOLOv5 detector, the Real-ESRGAN upsamplers and
---fused_pipeline off take the classic per-stage path (auto says why, on
-raises), the upsamplers' routes against the JAX CLI's; and runs of the
+folder and a video take the fused device pipeline, also with the
+Real-ESRGAN background upsampler (where the JAX CLI takes the classic
+path); gray images, mixed sizes, --draw_box, a YOLOv5 detector,
+--face_upsample and --fused_pipeline off take the classic per-stage path
+(auto says why, on raises), the upsamplers' routes against the JAX
+CLI's; and runs of the
 CLI end to end on the CPU, fused and classic, write cropped_faces/,
 restored_faces/ and final_results/ with the JAX CLI's names."""
 import os
@@ -74,8 +76,10 @@ class _StubHelper:
 
 
 class _StubPipeline:
-    """Records restore_frames calls; 2x nearest upscale, one face a
-    frame."""
+    """Records restore_frames calls; one face a frame, the stub helper's
+    (its top-left 64 x 64 corner resized to 512, inverted), pasted
+    nowhere: the frames come back upscaled, by the background upsampler's
+    batched device walk when it is given, else 2x nearest."""
     calls = []
 
     def __init__(self, restorer, helper, **kw):
@@ -83,8 +87,14 @@ class _StubPipeline:
 
     def restore_frames(self, frames, return_faces=False):
         _StubPipeline.calls.append(len(frames))
-        up = [np.repeat(np.repeat(f, 2, 0), 2, 1) for f in frames]
-        faces = [[(f[:64, :64].copy(), 255 - f[:64, :64])] for f in frames]
+        bg = self.kw.get('bg_upsampler')
+        if bg is None:
+            up = [np.repeat(np.repeat(f, 2, 0), 2, 1) for f in frames]
+        else:
+            up = list(bg.upscale_frames_device(
+                torch.as_tensor(np.stack(frames))).numpy())
+        crops = [cv2.resize(f[:64, :64], (512, 512)) for f in frames]
+        faces = [[(c, 255 - c)] for c in crops]
         return (up, faces) if return_faces else up
 
     def restore_frames_stream(self, frames_iter):
@@ -200,7 +210,7 @@ class _UpsamplingStubHelper(_StubHelper):
 ROUTES = {  # case: (CLI arguments, what the JAX CLI does)
     'yolo_on': (dict(fused='on', detection='YOLOv5n'), 'raises'),
     'yolo_auto': (dict(detection='YOLOv5l'), 'classic'),
-    'realesrgan': (dict(bg_upsampler='realesrgan', bg_tile=64), 'classic'),
+    'realesrgan': (dict(bg_upsampler='realesrgan', bg_tile=64), 'fused'),
     'face_upsample': (dict(face_upsample=True, bg_tile=256), 'classic'),
 }
 
@@ -208,12 +218,14 @@ ROUTES = {  # case: (CLI arguments, what the JAX CLI does)
 @pytest.mark.parametrize('case', sorted(ROUTES))
 def test_detectors_and_upsamplers_route_as_jax(tmp_path, stubs, monkeypatch,
                                                capsys, case):
-    """A YOLOv5 detector or an upsampler keeps the fused pipeline out:
-    with --fused_pipeline on both CLIs raise RuntimeError, with auto both
-    say why and take the classic path; the upsamplers (a narrow RRDBNet
+    """A YOLOv5 detector or a face upsampler keeps the fused pipeline
+    out: with --fused_pipeline on both CLIs raise RuntimeError, with auto
+    both say why and take the classic path. The background upsampler
+    alone takes the port's fused pipeline (the JAX CLI's classic path),
+    built with the CLI's set_realesrgan. The upsamplers (a narrow RRDBNet
     with the same weights in both CLIs' set_realesrgan, tiles of
-    --bg_tile) are called there, and the port writes the JAX CLI's files, the final
-    images within 1 level."""
+    --bg_tile) are called, and the port writes the JAX CLI's files, the
+    final images within 1 level."""
     import codeformer_tpu.cli.whole_image as jwi
     from codeformer_tpu.pipeline import realesrgan as jesr
     from codeformer_tpu_torch.pipeline import realesrgan as pesr
@@ -242,20 +254,28 @@ def test_detectors_and_upsamplers_route_as_jax(tmp_path, stubs, monkeypatch,
             continue
         run(args, paths, str(out), _StubRestorer(), input_video=False)
         said = capsys.readouterr().out
-        reason = 'keeps host preprocessing' if case == 'yolo_auto' \
-            else 'bg/face upsampler requested'
-        assert reason in said and 'using the classic per-stage path' in said
         outs[name] = out
-    assert _StubPipeline.calls == []
+        if name == 'port' and route == 'fused':
+            assert 'Fused device pipeline with the Real-ESRGAN background ' \
+                'upsampler.' in said
+            assert 'using the classic per-stage path' not in said
+            continue
+        reason = {'yolo_auto': 'keeps host preprocessing',
+                  'face_upsample': 'face upsampler requested'}.get(
+                      case, 'bg/face upsampler requested')
+        assert reason in said and 'using the classic per-stage path' in said
+    fused = route == 'fused'
+    assert _StubPipeline.calls == ([2] if fused else [])
     if route == 'raises':
         assert _StubRestorer.calls == [] and _StubHelper.pastes == []
         return
-    assert _StubRestorer.calls == [2, 2]       # one stream a CLI
+    # one stream a CLI on the classic path
+    assert _StubRestorer.calls == ([2] if fused else [2, 2])
     assert _UpsamplingStubHelper.built == [kw.get('detection',
                                                   'retinaface_resnet50')] * 2
     bg, face = case == 'realesrgan', case == 'face_upsample'
     # with a face upsampler the faces are parsed at their paste
-    assert _StubHelper.pastes == [(bg, face, face)] * 4
+    assert _StubHelper.pastes == [(bg, face, face)] * (2 if fused else 4)
     assert made == (['jax', 'port'] if bg or face else [])
     for sub in ('final_results', 'restored_faces', 'cropped_faces'):
         names = sorted(os.listdir(outs['jax'] / sub))
