@@ -31,6 +31,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      path, kernel, plain and library-call times; then the ops path (conv3x3_bias ->
      fused_leaky_relu forward and backward at 16 x 512^2 x 64 bf16) with
      exact launch counts;
+  4c. RRDBNet's dense conv (conv3x3_dense: a channel prefix of a
+     192-channel workspace in, a channel slice out, the LeakyReLU and
+     residuals in its epilogue) at the five shapes of a dense block and
+     conv_body's, B=16 at 240^2 and a ragged map, against its plain
+     version (the bytes outside the slice untouched, planted faults that
+     must fail), each shape's plan and bound, and kernel, whole-call,
+     plain and library (concatenation + cuDNN conv) times;
   5. serving: the full-width CodeFormerRestorer on the card with seeded
      random weights: a few requests, exact kernel launch counts, a
      reference forward with both ops patched to their plain versions
@@ -64,7 +71,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      tiles of 400 with a pad of 40, 4 a batch; seeded weights, tamed so
      the output spans levels) on a 512x683 frame and a 512^2 face against
      the same calls in fp32 (a seam one pixel off and a dense block
-     without its residual scale must fail), tiled against whole at 320^2,
+     without its residual scale must fail; the bf16 calls run the trunk
+     on the dense conv), tiled against whole at 320^2,
      ms a call, tiles/s, peak memory;
   5g. the classic path with both upsamplers (5c's frame, 1 and 4 faces):
      restore_batch with exact launches, each face upsampled to 1024 and
@@ -1037,6 +1045,158 @@ def phase_conv_bias():
     return rows
 
 
+# RRDBNet's dense conv (ops/conv3x3.py conv3x3_dense) at the trunk's
+# shapes: a forward of 16 windows of 480^2 is B = 16 at 240^2 after the
+# pixel-unshuffle; (Cin, Cout, off, epi) of conv1-5 of a dense block
+# (conv5 of an RRDB's third block, with both residuals) and conv_body
+DENSE_HW, DENSE_B, DENSE_W = 240, 16, 192
+DENSE_CASES = ((64, 32, 64, 'lrelu'), (96, 32, 96, 'lrelu'),
+               (128, 32, 128, 'lrelu'), (160, 32, 160, 'lrelu'),
+               (192, 64, 0, 'rrdb'), (64, 64, 0, 'add'))
+DENSE_RAGGED = (3, 37, 53)
+
+
+def dense_fault(kind: str, x, wt, bias, out, epi, s1, s2):
+    """A deliberately wrong plain dense conv (a control the bound must
+    catch): the last 32 input channels of the prefix dropped, or the
+    epilogue dropped (conv + bias alone: no LeakyReLU, no 0.2 scale, no
+    skip)."""
+    from codeformer_tpu_torch.ops import conv3x3 as cv
+    want = out.clone()
+    if kind == 'prefix tail dropped':
+        w2 = wt.clone()
+        w2[:, -32:] = 0
+        return cv.conv3x3_dense_ref(x, w2, bias, want, epi, s1, s2)
+    return cv.conv3x3_dense_ref(x, wt, bias, want, 'add',
+                                torch.zeros_like(out))
+
+
+def phase_rrdb_dense():
+    """The dense conv against its plain version (fp32 sums, TF32 off) at
+    DENSE_CASES on 192-channel workspaces (B = 16, 240^2, and a ragged
+    map), the bytes outside the written slice untouched, two planted
+    faults; kernel (the launch on prepared operands), call, plain (bf16,
+    cuDNN) and library (the prefix concatenated from its pieces, then one
+    F.conv2d, bf16, channels_last: what the module path runs but its
+    epilogue's passes) times beside the bound."""
+    import torch.nn.functional as F
+    from codeformer_tpu_torch.ops import conv3x3 as cv
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device='cuda').manual_seed(22)
+    print(f'conv3x3_dense checks ({card_line()}): bf16 workspaces of '
+          f'{DENSE_W} channels; ref = plain version in fp32, TF32 off; rel '
+          f'RMS <= {REL_RMS_BOUND}; kernel = the launch on prepared '
+          f'operands, call = the whole conv3x3_dense call; library = '
+          f'torch.cat of the prefix\'s pieces + F.conv2d (channels_last) in '
+          f'bf16; ms per launch, median of 5 runs of {OPS_ITERS} [min, max]',
+          flush=True)
+    rows = []
+    for cin, cout, off, epi in DENSE_CASES:
+        for bsz, h, w in ((DENSE_B, DENSE_HW, DENSE_HW), DENSE_RAGGED):
+            buf = torch.randn(bsz, h, w, DENSE_W, generator=g,
+                              device='cuda').to(torch.bfloat16)
+            skip = torch.randn(bsz, h, w, 64, generator=g,
+                               device='cuda').to(torch.bfloat16)
+            wt = torch.randn(cout, cin, 3, 3, generator=g, device='cuda') \
+                * (9 * cin) ** -0.5
+            bias = torch.randn(cout, generator=g, device='cuda') * 0.1
+            # where the trunk writes: conv1-4 a slice of the workspace they
+            # read, conv5 the first 64 channels of the next one (in place
+            # over its s2 for an RRDB's third block), conv_body a packed map
+            nxt = torch.randn(bsz, h, w, DENSE_W if epi != 'add' else cout,
+                              generator=g, device='cuda').to(torch.bfloat16)
+
+            def out_of(src, dst):
+                return src[..., off:off + cout] if epi == 'lrelu' \
+                    else dst[..., off:off + cout]
+            x, out = buf[..., :cin], out_of(buf, nxt)
+            s1 = skip[..., :cout] if epi != 'lrelu' else None
+            s2 = out if epi == 'rrdb' else None
+            before, nxt0 = buf.clone(), nxt.clone()
+            ref = cv.conv3x3_dense_ref(
+                before[..., :cin], wt, bias, out_of(before, nxt0).clone(),
+                epi, s1, out_of(before, nxt0) if epi == 'rrdb' else None)
+            faults = {k: rel_rms(ref, dense_fault(
+                k, before[..., :cin], wt, bias, out_of(before, nxt0), epi,
+                s1, out_of(before, nxt0) if s2 is not None else None))
+                for k in ('prefix tail dropped', 'epilogue dropped')}
+            y = cv.conv3x3_dense(x, wt, bias, out, epi, s1, s2)
+            torch.cuda.synchronize()
+            written = torch.zeros(DENSE_W, dtype=torch.bool, device='cuda')
+            written[off:off + cout] = True
+            if epi == 'lrelu':
+                untouched = bool(torch.equal(buf[..., ~written],
+                                             before[..., ~written]))
+            else:
+                kept = ~written[:nxt.shape[-1]]
+                untouched = bool(torch.equal(buf, before)) and bool(
+                    torch.equal(nxt[..., kept], nxt0[..., kept]))
+            err = float((y.float() - ref.float()).abs().max())
+            rr = rel_rms(y, ref)
+            name = f'conv3x3_dense B={bsz} {h}x{w} {cin}->{cout}@{off} {epi}'
+            ok = rr <= REL_RMS_BOUND and untouched
+            caught = all(v > REL_RMS_BOUND for v in faults.values())
+            plan = cv.conv_plan(bsz, h, w, cin, cout, 1,
+                                torch.cuda.get_device_properties(0)
+                                .multi_processor_count, dense=True)
+            line = (f'  {name:44s} max_abs {err:.4g} rel_rms {rr:.3g} (<= '
+                    f'{REL_RMS_BOUND}), outside the slice untouched '
+                    f'{untouched}  plan TH={plan.th} BN={plan.bn} '
+                    f'split={plan.split} stages={plan.stages} '
+                    f'grid={plan.grid_x}x{plan.n_slices * plan.split}  '
+                    f'{"ok" if ok else "FAIL"}; planted faults: ' + ', '.join(
+                        f'{k} {v:.3g}' for k, v in faults.items())
+                    + f' {"FAIL as they must" if caught else "PASS (bound too loose)"}')
+            if not ok:
+                raise SystemExit(f'chip_smoke: {name} disagrees with its '
+                                 f'plain version\n{line}')
+            if not caught:
+                raise SystemExit(f'chip_smoke: {name}: a planted fault '
+                                 f'passes the bound\n{line}')
+            if bsz != DENSE_B:
+                print(line, flush=True)
+                continue
+            # timing: the rrdb epilogue's s2 is read and written in place,
+            # so repeated launches compound; its values stay bf16-finite
+            launch = cv.prepare_dense(x, cv.conv_operands(wt, bias), out, epi,
+                                      s1, s2)
+            ms = time_ms(lambda: cv.launch_dense(launch), iters=OPS_ITERS)
+            cms = time_ms(lambda: cv.conv3x3_dense(x, wt, bias, out, epi, s1,
+                                                   s2), iters=OPS_ITERS)
+            pout = out.clone()
+            pms = time_ms(lambda: cv.conv3x3_dense_ref(
+                x, wt, bias, pout, epi, s1, pout if s2 is not None else None,
+                compute_dtype=torch.bfloat16), iters=OPS_ITERS)
+            edges = [0, 64] + list(range(96, cin + 1, 32)) if cin > 64 \
+                else [0, 64]
+            pieces = [buf[..., a:b].permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last)
+                for a, b in zip(edges, edges[1:])]
+            wb = wt.to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+            bb = bias.to(torch.bfloat16)
+            lms = time_ms(lambda: F.conv2d(
+                torch.cat(pieces, 1) if len(pieces) > 1 else pieces[0], wb,
+                bb, padding=1), iters=OPS_ITERS)
+            pix = bsz * h * w
+            skips = (epi != 'lrelu') + (epi == 'rrdb')
+            lim = bound(2 * pix * 9 * cin * cout,
+                        2 * pix * (cin + cout * (1 + skips))
+                        + 18 * cin * cout + 4 * cout, BF16_TC_FLOPS)
+            print(line + f'  kernel {ms:.4f} {ms.spread()} ms  call '
+                  f'{cms:.4f} ms  plain {pms:.4f} ms  library {lms:.4f} '
+                  f'{lms.spread()} ms  bound {lim["bound_ms"]:.4f} ms '
+                  f'({lim["bound_by"]}, {lim["bound_ms"] / ms:.1%} of it)',
+                  flush=True)
+            rows.append(dict(shape=name, max_abs_err=err, rel_rms=rr, ms=ms,
+                             call_ms=cms, plain_ms=pms, library_ms=lms,
+                             plan=plan._asdict(), **lim))
+            del launch, pieces, pout
+        del buf, skip, nxt, before, nxt0, ref, y
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_ops_path() -> dict:
     """The ops layer's main path, with every count set to 0 just before
     it and read just after: conv3x3_bias at OPS_PATH_SHAPE, then
@@ -1363,7 +1523,7 @@ def phase_slice():
         torch.cuda.synchronize()
         counts = cv.launch_counts()
         want = {'conv3x3_dots': 2 * n_res + 1, 'downsample_dots': n_down,
-                'conv3x3_bias': 0}
+                'conv3x3_bias': 0, 'conv3x3_dense': 0}
         print(f'  request: {n} face(s) w={w}: launches {counts} '
               f'(expected {want})', flush=True)
         if counts != want:
@@ -1612,8 +1772,8 @@ TRAIN_BATCH = 4           # batch_size_per_gpu of the config
 TRAIN_STEPS = 8
 ENCODE_LAUNCHES = {'conv3x3_dots': 28, 'downsample_dots': 5,
                    'nearest_code': 1,   # one frozen HQ encode, per microbatch
-                   'conv3x3_bias': 0, 'fused_lrelu_fwd': 0,
-                   'fused_lrelu_bwd': 0}
+                   'conv3x3_bias': 0, 'conv3x3_dense': 0,
+                   'fused_lrelu_fwd': 0, 'fused_lrelu_bwd': 0}
 # idx_gt of the kernel path against the same encode with K1/K2/K3 on
 # their plain versions (fp32 sums, TF32 off): random-init codebooks give
 # near-flat code scores, so bf16 rounding flips a share of the picks.
@@ -3670,17 +3830,27 @@ def level_diff(got: np.ndarray, ref: np.ndarray):
     return float(d.mean()), float(d.max())
 
 
+@contextlib.contextmanager
 def rdb_fault(rdb):
-    """A dense block without its 0.2 residual scale: a planted fault."""
-    import torch.nn.functional as F
+    """A dense block without its 0.2 residual scale: a planted fault,
+    made in the weights (conv5 five times larger) so that both the module
+    path and the dense trunk (models/rrdbnet.py) run it."""
+    with torch.no_grad():
+        rdb.conv5.weight.mul_(5.0)
+        rdb.conv5.bias.mul_(5.0)
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            rdb.conv5.weight.div_(5.0)
+            rdb.conv5.bias.div_(5.0)
 
-    def forward(x):
-        feats = [x]
-        for conv in (rdb.conv1, rdb.conv2, rdb.conv3, rdb.conv4):
-            feats.append(F.leaky_relu(conv(torch.cat(feats, 1)), 0.2))
-        return rdb.conv5(torch.cat(feats, 1)) + x
 
-    return mock.patch.object(rdb, 'forward', forward)
+def dense_launches(ups) -> int:
+    """conv3x3_dense launches of the upsamplers' forwards on the dense
+    trunk since their counts were reset: 15 an RRDB and conv_body's."""
+    return sum((15 * len(u.model.body) + 1) * u.tile_counts()['fused_calls']
+               for u in ups)
 
 
 def seam_fault(up):
@@ -3853,18 +4023,22 @@ def phase_classic_upsample(restorer, up) -> dict:
             return restored, faces, canvas, pids
 
         reset_all_counts()
+        up.reset_tile_counts()
         restored, faces, canvas, pids = run()
         torch.cuda.synchronize()
         got = all_counts()
-        want = {'conv3x3_dots': 2 * n_res + 1, 'downsample_dots': 5}
-        print(f'  {n_faces} face(s): launches {got} (expected K1/K2 {want} '
-              f'from restore_batch, none from the upsampler); faces '
+        want = {'conv3x3_dots': 2 * n_res + 1, 'downsample_dots': 5,
+                'conv3x3_dense': dense_launches([up])}
+        print(f'  {n_faces} face(s): launches {got} (expected K1/K2 from '
+              f'restore_batch and the upsampler\'s dense trunk, '
+              f'{up.tile_counts()["fused_calls"]} forwards: {want}); faces '
               f'{faces[0].shape}, canvas {canvas.shape}', flush=True)
         if {k: got[k] for k in want} != want or any(
                 v for k, v in got.items() if k not in want) or any(
                 np.array_equal(r, c) for r, c in zip(restored, crops)) or \
                 faces[0].shape != (1024, 1024, 3) or \
-                canvas.shape != (h * s, w * s, 3):
+                canvas.shape != (h * s, w * s, 3) or \
+                up.tile_counts()['fused_calls'] != up.tile_counts()['calls']:
             raise SystemExit('chip_smoke: the classic path with upsamplers '
                              'launched other than expected')
         for k in want:
@@ -4936,10 +5110,12 @@ def files_classic(tmp: str, restorer_made: list) -> dict:
     gray = {os.path.splitext(os.path.basename(f))[0] for f in files
             if img_util.is_gray(cv2.imread(f, cv2.IMREAD_COLOR), 10)}
     real_esr = pesr.set_realesrgan
+    ups = []
 
     def tamed_realesrgan(**kw):
         up = real_esr(**kw)
         tame_rrdb(up.model)
+        ups.append(up)
         return up
 
     total = {}
@@ -4948,6 +5124,7 @@ def files_classic(tmp: str, restorer_made: list) -> dict:
             mock.patch.object(pesr, 'set_realesrgan', tamed_realesrgan):
         for k, flags in enumerate(FILES_CLASSIC_FLAGS):
             TIMER.reset()
+            ups.clear()
             t0 = time.perf_counter()
             counts, _, faces = whole_image_cli_run(
                 files, os.path.join(tmp, f'classic_{k}'),
@@ -4957,7 +5134,8 @@ def files_classic(tmp: str, restorer_made: list) -> dict:
             r = restorer_made[0]
             n = restored_faces_check(r, os.path.join(tmp, f'classic_{k}_out'),
                                      gray, ' '.join(flags))
-            want = restorer_launches(r, n, fuse=True)
+            want = dict(restorer_launches(r, n, fuse=True),
+                        conv3x3_dense=dense_launches(ups))
             st = {s: TIMER.totals[s] for s in FILES_STAGES
                   if s in TIMER.totals}
             print(f'    {n} restored_faces/*.png bit-equal to restore_batch '
@@ -6004,13 +6182,16 @@ def tf_demos(tmp: str) -> dict:
                         img, (0, 0), fx=f, fy=f,
                         interpolation=cv2.INTER_LINEAR))
                 reset_all_counts()
+                for u in ups:
+                    u.reset_tile_counts()
                 got = hf.inference(path, on, on, 2, 0.5)
                 torch.cuda.synchronize()
                 counts = all_counts()
                 r, h = hf.get_restorer(), helpers[-1]
                 n_faces = len(h.cropped_faces)
                 faces_seen += n_faces
-                want = restorer_launches(r, n_faces, fuse=True)
+                want = dict(restorer_launches(r, n_faces, fuse=True),
+                            conv3x3_dense=dense_launches(ups))
                 expect_launches(f'hugging_face.inference on {name}', counts,
                                 want)
                 add_counts(total, counts)
@@ -6140,6 +6321,8 @@ def phase_train_files(numpy_rate: float) -> dict:
 
 
 KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
+    'conv3x3_dense': ('codeformer_tpu_torch/csrc/conv3x3_dense.cu',
+                      'none: the JAX package runs RRDBNet on XLA convs'),
     'conv3x3_dots': ('codeformer_tpu_torch/csrc/conv3x3_dots.cu',
                      'codeformer_tpu/ops/colpack_conv.py:376'),
     'downsample_dots': ('codeformer_tpu_torch/csrc/downsample_dots.cu',
@@ -6164,6 +6347,7 @@ def main():
     results = phase_kernels()
     k3_rows, k3_calls = phase_k3()
     k4_rows, conv_rows, ops_counts = phase_ops()
+    dense_rows = phase_rrdb_dense()
     serve_counts, restorer = phase_slice()
     if '--profile' in sys.argv[1:]:
         phase_profile(restorer)
@@ -6228,6 +6412,7 @@ def main():
              plain_ms=r['bwd_plain_ms'], library_ms=None, **r['bwd_bound'])
         for r in k4_rows]
     results['conv3x3_bias'] = conv_rows
+    results['conv3x3_dense'] = dense_rows
     kernels = []
     for name, rows in results.items():
         head = rows[0]

@@ -3,7 +3,10 @@
 // conv3x3_bias.cu (stride 1, SAME zero padding), downsample_dots.cu
 // (stride 2, zero padding on the bottom and the right only) and K1,
 // conv3x3_dots.cu (stride 1, FUSED: a GroupNorm-apply and activation
-// prologue, a skip, the GroupNorm statistics of its output).
+// prologue, a skip, the GroupNorm statistics of its output) and
+// conv3x3_dense.cu (stride 1, DENSE: a channel prefix of a wider buffer
+// in, a channel slice of one out, RRDBNet's LeakyReLU and residuals in the
+// epilogue).
 //
 // GEMM view: M = output pixels, N = output channels, K = 9 taps x input
 // channels. A tile is TH x TW output pixels (TW = 16, TH = 8 * MB); a
@@ -159,6 +162,9 @@ __host__ __device__ constexpr int stats_bytes(int bn) {
 
 enum { ACT_NONE = 0, ACT_SILU = 1 };
 enum { SKIP_NONE = 0, SKIP_IDENTITY = 1, SKIP_PROJ = 2 };
+// the dense conv's epilogues on v = acc + bias, fp32, one rounding after:
+// lrelu(v, 0.2); 0.2 v + s1; 0.2 (0.2 v + s1) + s2; v + s1
+enum { EPI_LRELU = 0, EPI_RES = 1, EPI_RRDB = 2, EPI_ADD = 3 };
 
 struct Args {
   const __nv_bfloat16* w;   // (nch, 9, CoutP, 64) bf16, rows swizzled
@@ -178,6 +184,11 @@ struct Args {
   const __nv_bfloat16* w1;  // (s_chunks, CoutP, 64) bf16 1x1 weights, swizzled
   float* stats;             // (B, tiles_y * tiles_x, 2, Cout) fp32
   int Cin, act, s_chunks, w1_bytes;
+  // DENSE only: y is the first channel of the written slice, ld_y
+  // channels a pixel; the skips s1, s2 (or null) ld_s1, ld_s2 a pixel
+  const __nv_bfloat16* s1;
+  const __nv_bfloat16* s2;
+  int ld_y, ld_s1, ld_s2, epi;
 };
 
 // ------------------------------------------------------------------ PTX
@@ -451,6 +462,17 @@ __device__ __forceinline__ uint4 ldg_v4(const void* p) {
   return v;
 }
 
+// A coherent 16-byte global load, volatile so that it stays where it is
+// written: the dense conv's skips, one of which its output may overwrite
+// in place (each element by the thread that loaded it).
+__device__ __forceinline__ uint4 ld_v4(const void* p) {
+  uint4 v;
+  asm volatile("ld.global.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
 __device__ __forceinline__ uint32_t ldg_u32(const void* p) {
   uint32_t v;
   asm volatile("ld.global.nc.u32 %0, [%1];" : "=r"(v) : "l"(p));
@@ -717,11 +739,123 @@ __device__ __forceinline__ void plain_epilogue(
   }
 }
 
+// The dense conv's epilogue arithmetic on v = acc + bias (fp32).
+__device__ __forceinline__ float dense_epi(float v, float s1, float s2,
+                                           int epi) {
+  switch (epi) {
+    case EPI_LRELU:
+      return fmaxf(v, 0.2f * v);
+    case EPI_RES:
+      return fmaf(0.2f, v, s1);
+    case EPI_RRDB:
+      return fmaf(0.2f, fmaf(0.2f, v, s1), s2);
+    default:   // EPI_ADD
+      return v + s1;
+  }
+}
+
+// A dense skip of one tile (t, ld channels a pixel, or null), loaded when
+// the tile starts: r[mb][i] holds the 16 bytes of n8 block 4g + q as
+// words 4g..4g+3, as load_skip's BN >= 32 layout. Zero outside the map.
+template <int BN, int MB>
+__device__ __forceinline__ void load_dense_skip(
+    const Args& a, const __nv_bfloat16* t, int ld,
+    uint32_t (&r)[MB][2][BN / 8], int b, int tx, int ty, int n0, int lane,
+    int rwg, int wl) {
+  static_assert(BN >= 32, "the dense conv stores 16 bytes a lane");
+  constexpr int TH = tile_h(MB);
+  const int q = lane & 3;
+#pragma unroll
+  for (int mb = 0; mb < MB; ++mb) {
+    const int oy = ty * TH + (rwg + mb) * 4 + wl;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int ox = tx * TW + (lane >> 2) + 8 * i;
+      const bool ok = t != nullptr && oy < a.Ho && ox < a.Wo;
+      const __nv_bfloat16* row =
+          t + (((long long)b * a.Ho + oy) * a.Wo + ox) * ld + n0;
+#pragma unroll
+      for (int g = 0; g < BN / 32; ++g) {
+        const uint4 raw =
+            ok ? ld_v4(row + 8 * (4 * g + q)) : make_uint4(0u, 0u, 0u, 0u);
+        r[mb][i][4 * g] = raw.x;
+        r[mb][i][4 * g + 1] = raw.y;
+        r[mb][i][4 * g + 2] = raw.z;
+        r[mb][i][4 * g + 3] = raw.w;
+      }
+    }
+  }
+}
+
+// The dense conv's epilogue for one tile: y[pix * ld_y + n] =
+// bf16(epi(acc + bias, s1, s2)) with one rounding, 16-byte stores into
+// the slice.
+template <int BN, int MB>
+__device__ __forceinline__ void dense_epilogue(
+    const Args& a, const float (&acc)[MB][BN / 2], const float (&bv)[BN / 4],
+    const uint32_t (&k1)[MB][2][BN / 8], const uint32_t (&k2)[MB][2][BN / 8],
+    int b, int tx, int ty, int n0, int lane, int rwg, int wl) {
+  constexpr int TH = tile_h(MB);
+  const int q = lane & 3;
+#pragma unroll
+  for (int mb = 0; mb < MB; ++mb) {
+    const int oy = ty * TH + (rwg + mb) * 4 + wl;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int ox = tx * TW + (lane >> 2) + 8 * i;
+      const bool ok = oy < a.Ho && ox < a.Wo;
+      const long long pix = ((long long)b * a.Ho + oy) * a.Wo + ox;
+#pragma unroll
+      for (int g = 0; g < BN / 32; ++g) {
+        // this lane's channel pair of n8 blocks 4g..4g+3, back in the D
+        // layout by the transpose inside the quad
+        uint32_t w1[4] = {0u, 0u, 0u, 0u}, w2[4] = {0u, 0u, 0u, 0u};
+        if (a.s1 != nullptr) {
+          const uint32_t raw[4] = {k1[mb][i][4 * g], k1[mb][i][4 * g + 1],
+                                   k1[mb][i][4 * g + 2], k1[mb][i][4 * g + 3]};
+          const uint4 t = quad_transpose(raw, lane);
+          w1[0] = t.x;
+          w1[1] = t.y;
+          w1[2] = t.z;
+          w1[3] = t.w;
+        }
+        if (a.s2 != nullptr) {
+          const uint32_t raw[4] = {k2[mb][i][4 * g], k2[mb][i][4 * g + 1],
+                                   k2[mb][i][4 * g + 2], k2[mb][i][4 * g + 3]};
+          const uint4 t = quad_transpose(raw, lane);
+          w2[0] = t.x;
+          w2[1] = t.y;
+          w2[2] = t.z;
+          w2[3] = t.w;
+        }
+        uint32_t v[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 4 * g + jj;
+          const float2 s1 = unpack_bf16x2(w1[jj]);
+          const float2 s2 = unpack_bf16x2(w2[jj]);
+          v[jj] = pack_bf16x2(
+              dense_epi(acc[mb][4 * j + 2 * i] + bv[2 * j], s1.x, s2.x, a.epi),
+              dense_epi(acc[mb][4 * j + 2 * i + 1] + bv[2 * j + 1], s1.y, s2.y,
+                        a.epi));
+        }
+        const uint4 o = quad_transpose(v, lane);
+        const int nb = n0 + 8 * (4 * g + q);
+        if (ok && nb < a.Cout)
+          *reinterpret_cast<uint4*>(a.y + pix * a.ld_y + nb) = o;
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------------- the kernel
-template <int STRIDE, int BN, int MB, bool FUSED>
-__global__ void __launch_bounds__(kThreads, 1)
-conv_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
-                 const __grid_constant__ CUtensorMap smap, const Args a) {
+// The body every kernel of the core shares, inlined into each: FUSED is
+// K1's, DENSE the dense conv's; with both false it is conv3x3_bias's and
+// K2's. The maps and the arguments stay in the kernel's parameter space.
+template <int STRIDE, int BN, int MB, bool FUSED, bool DENSE>
+__device__ __forceinline__ void conv_core(const CUtensorMap& xmap,
+                                          const CUtensorMap& smap,
+                                          const Args& a) {
   constexpr int TH = tile_h(MB);
   constexpr int BW = win_w(STRIDE);
   constexpr int BOX = box_bytes(STRIDE, TH);
@@ -729,6 +863,8 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
   constexpr int NR = BN / 2;          // accumulator registers per m64 block
   constexpr int TAP_BYTES = BN * kRowBytes;
   static_assert(!FUSED || STRIDE == 1, "K1 is a stride-1 conv");
+  static_assert(!DENSE || (STRIDE == 1 && !FUSED),
+                "the dense conv is a bare stride-1 conv");
 
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -915,6 +1051,13 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
     uint32_t skr[MB][2][FUSED ? BN / 8 : 1];
     if constexpr (FUSED)
       load_skip<BN, MB>(a, skr, b, tx, ty, n0, lane, rwg, wl);
+    uint32_t dk1[MB][2][DENSE ? BN / 8 : 1], dk2[MB][2][DENSE ? BN / 8 : 1];
+    if constexpr (DENSE) {
+      load_dense_skip<BN, MB>(a, a.s1, a.ld_s1, dk1, b, tx, ty, n0, lane, rwg,
+                              wl);
+      load_dense_skip<BN, MB>(a, a.s2, a.ld_s2, dk2, b, tx, ty, n0, lane, rwg,
+                              wl);
+    }
     float acc[MB][NR];
     for (int cl = 0; cl < a.cps; ++cl) {
       mbar_wait(landed + 8 * stage, phase);
@@ -1024,11 +1167,34 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
       else   // a split's fp32 partials: dots_finish_kernel does the rest
         plain_epilogue<BN, MB>(a, acc, bv, b, tx, ty, n0, split, lane, rwg,
                                wl);
+    } else if constexpr (DENSE) {
+      if (a.ws == nullptr)
+        dense_epilogue<BN, MB>(a, acc, bv, dk1, dk2, b, tx, ty, n0, lane, rwg,
+                               wl);
+      else   // a split's fp32 partials: dense_finish_kernel does the rest
+        plain_epilogue<BN, MB>(a, acc, bv, b, tx, ty, n0, split, lane, rwg,
+                               wl);
     } else {
       plain_epilogue<BN, MB>(a, acc, bv, b, tx, ty, n0, split, lane, rwg,
                              wl);
     }
   }
+}
+
+template <int STRIDE, int BN, int MB, bool FUSED>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
+                 const __grid_constant__ CUtensorMap smap, const Args a) {
+  conv_core<STRIDE, BN, MB, FUSED, false>(xmap, smap, a);
+}
+
+// The dense conv (conv3x3_dense.cu): a kernel of its own name, so that
+// no trace reader takes it for K1, conv3x3_bias or K2.
+template <int BN, int MB>
+__global__ void __launch_bounds__(kThreads, 1)
+conv3x3_dense_kernel(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap smap, const Args a) {
+  conv_core<1, BN, MB, false, true>(xmap, smap, a);
 }
 
 // The second pass of a split: y = bf16(sum over splits in order + bias).
@@ -1129,14 +1295,16 @@ KernelFn<STRIDE, FUSED> variant(int bn, int mb) {
   return fn;
 }
 
-// Encode the tensor map of t (B, H, W, C) bf16 with a box of 64 channels,
-// bw columns and bh rows of one image.
+// Encode the tensor map of t (B, H, W, C) bf16, ld channels a pixel (the
+// first C of them read; ld = C for a packed tensor), with a box of 64
+// channels, bw columns and bh rows of one image.
 inline CUresult encode_box(CUtensorMap* map, const void* t, int B, int H,
-                           int W, int C, int bw, int bh) {
+                           int W, int C, int bw, int bh, int ld = 0) {
+  if (ld == 0) ld = C;
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
                               (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
-                                 (cuuint64_t)H * W * C * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)ld * 2, (cuuint64_t)W * ld * 2,
+                                 (cuuint64_t)H * W * ld * 2};
   const cuuint32_t box[4] = {(cuuint32_t)KC, (cuuint32_t)bw, (cuuint32_t)bh,
                              1};
   const cuuint32_t estride[4] = {1, 1, 1, 1};

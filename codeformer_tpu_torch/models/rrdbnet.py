@@ -8,9 +8,14 @@ NCHW; module names are the reference `.pth` names (`conv_first`,
 `body.{i}.rdb{1,2,3}.conv{1..5}`, `conv_body`, `conv_up1/2`, `conv_hr`,
 `conv_last`), so `RealESRGAN_x2plus.pth` and `flax_to_state_dict` of the
 JAX variables load strictly. The convs are cuDNN's, as JAX runs them on
-XLA's convs and not in a Pallas kernel. `conv_up1/2` compute the JAX
-package's fused nearest-x2 + 3x3 conv (`PhaseCollapsedUpConv`); its plain
-version, `up_conv_ref`, stays for the tests.
+XLA's convs and not in a Pallas kernel, except the trunk's in inference:
+for a CUDA bf16 input with autograd off, the 23 RRDBs and `conv_body`'s
+residual run on the Hopper conv core (`ops/conv3x3.py conv3x3_dense`)
+over three 192-channel workspaces, with no concatenation (`_dense_trunk`);
+everything else (the CPU, fp32, training) runs the modules below.
+`conv_up1/2` compute the JAX package's fused nearest-x2 + 3x3 conv
+(`PhaseCollapsedUpConv`); its plain version, `up_conv_ref`, stays for the
+tests.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from codeformer_tpu_torch.ops import conv3x3 as cv
 from codeformer_tpu_torch.utils.registry import ARCH_REGISTRY
 
 
@@ -124,6 +130,79 @@ class RRDBNet(nn.Module):
         self.conv_up2 = PhaseCollapsedUpConv(num_feat, num_feat)
         self.conv_hr = nn.Conv2d(num_feat, num_feat, 3, padding=1)
         self.conv_last = nn.Conv2d(num_feat, num_out_ch, 3, padding=1)
+        self.num_feat, self.num_grow_ch = num_feat, num_grow_ch
+        self.dense_calls = 0      # forwards whose trunk ran _dense_trunk
+        self._dense_ops = None    # (key, the trunk's kept ConvOperands)
+
+    def uses_dense_trunk(self, feat) -> bool:
+        """Whether the trunk runs on the Hopper conv core for `feat`, by
+        what it can observe: a CUDA bf16 map with autograd off
+        (inference_mode or no_grad), and widths the kernel takes."""
+        return (feat.device.type == 'cuda' and feat.dtype == torch.bfloat16
+                and not torch.is_grad_enabled()
+                and self.num_feat % cv.CHUNK == 0
+                and self.num_grow_ch % cv.CHUNK == 0)
+
+    def _trunk_convs(self) -> list:
+        """The trunk's convs in launch order: conv1-5 of each dense
+        block, then conv_body."""
+        return [getattr(rdb, f'conv{k}') for rrdb in self.body
+                for rdb in (rrdb.rdb1, rrdb.rdb2, rrdb.rdb3)
+                for k in range(1, 6)] + [self.conv_body]
+
+    def dense_operands(self) -> list:
+        """The trunk's convs in the core's layout (conv_operands), made
+        once and kept until a weight or bias is updated in place,
+        replaced, moved or cast."""
+        convs = self._trunk_convs()
+        key = tuple((t._version, t.data_ptr(), t.device, t.dtype)
+                    for c in convs for t in (c.weight, c.bias))
+        if self._dense_ops is None or self._dense_ops[0] != key:
+            self._dense_ops = (key, [cv.conv_operands(c.weight, c.bias)
+                                     for c in convs])
+        return self._dense_ops[1]
+
+    def _dense_trunk(self, feat: torch.Tensor) -> torch.Tensor:
+        """feat + conv_body(body(feat)) with conv3x3_dense over three
+        NHWC workspaces of num_feat + 4 * num_grow_ch channels, a, b and c.
+        An RRDB's input sits in a[..., :nf]; a dense block's conv_k reads
+        its buffer's first nf + g(k-1) channels and writes the next g
+        (LeakyReLU in its epilogue); its conv5 writes 0.2 y + x into the
+        first nf channels of the next buffer: rdb1's into b, rdb2's into
+        c, and rdb3's, which adds the RRDB's residual too, into a[..., :nf]
+        over the RRDB's input, each element after reading it. No conv
+        reads a channel it writes. feat (B, nf, H, W) -> the same shape,
+        channels-last."""
+        nf, g = self.num_feat, self.num_grow_ch
+        f = feat.permute(0, 2, 3, 1)
+        if not f.is_contiguous():
+            f = f.contiguous()
+        bsz, h, w, _ = f.shape
+        a, b, c = (f.new_empty((bsz, h, w, nf + 4 * g)) for _ in range(3))
+        a[..., :nf].copy_(f)
+        ops = iter(self.dense_operands())
+        convs = iter(self._trunk_convs())
+
+        def conv(src, cin, out, epi, s1=None, s2=None):
+            m = next(convs)
+            cv.conv3x3_dense(src[..., :cin], m.weight, m.bias, out, epi, s1,
+                             s2, prepared=next(ops))
+
+        for _ in self.body:
+            for src, dst, last in ((a, b, False), (b, c, False),
+                                   (c, a, True)):
+                for k in range(4):
+                    cin = nf + k * g
+                    conv(src, cin, src[..., cin:cin + g], 'lrelu')
+                if last:
+                    conv(src, nf + 4 * g, a[..., :nf], 'rrdb', src[..., :nf],
+                         a[..., :nf])
+                else:
+                    conv(src, nf + 4 * g, dst[..., :nf], 'res', src[..., :nf])
+        out = torch.empty_like(f)
+        conv(a, nf, out, 'add', f)
+        self.dense_calls += 1
+        return out.permute(0, 3, 1, 2)
 
     def forward(self, x):
         if self.scale == 2:
@@ -131,7 +210,10 @@ class RRDBNet(nn.Module):
         elif self.scale == 1:
             x = pixel_unshuffle(x, 4)
         feat = self.conv_first(x)
-        feat = feat + self.conv_body(self.body(feat))
+        if self.uses_dense_trunk(feat):
+            feat = self._dense_trunk(feat)
+        else:
+            feat = feat + self.conv_body(self.body(feat))
         feat = F.leaky_relu(self.conv_up1(feat), 0.2)
         feat = F.leaky_relu(self.conv_up2(feat), 0.2)
         return self.conv_last(F.leaky_relu(self.conv_hr(feat), 0.2))

@@ -11,13 +11,18 @@ packing (which only fills the TPU's 128-lane matrix unit):
                   TPU kernels conv3x3_colpack (K1'), conv3x3_pallas (K5)
                   and conv3x3_imgpair / conv3x3_pair (K6) compute in
                   three packings
+  conv3x3_dense   out = epi(conv3x3_SAME(x) + bias [, s1, s2]) with x a
+                  channel prefix and out a channel slice of wider NHWC
+                  buffers: RRDBNet's dense blocks without concatenation
+                  (no TPU kernel: the JAX package runs XLA's convs)
   channel_stats   the stats of a stage entry (colpack_stats)
   gn_affine       GroupNorm(32, eps 1e-6) folded into a per-channel a, b
 
 Dispatch: a tensor on the CPU goes to the plain PyTorch version
 (`*_ref`); a CUDA tensor launches the hand-written kernel or raises:
-K1 csrc/conv3x3_dots.cu, conv3x3_bias csrc/conv3x3_bias.cu and K2
-csrc/downsample_dots.cu, all three on the Hopper conv core
+K1 csrc/conv3x3_dots.cu, conv3x3_bias csrc/conv3x3_bias.cu, K2
+csrc/downsample_dots.cu and the dense conv csrc/conv3x3_dense.cu, all
+on the Hopper conv core
 csrc/conv_sm90.cuh (TMA, wgmma, persistent blocks), whose tiling
 `conv_plan` chooses here. There is no fallback from the kernel to
 the plain version. The kernels are forward-only, as the TPU kernels were
@@ -30,7 +35,8 @@ the second alone: preparing the operands (kernel-layout weight and bias,
 the plan, the output) -- `dots_operands` + `prepare_dots`,
 `conv_operands` + `prepare_conv` -- and the launch on them --
 `launch_dots`, `launch_conv`. The blocks keep their operands between
-calls in eval mode (nn/blocks.py `kept_operands`).
+calls in eval mode (nn/blocks.py `kept_operands`), RRDBNet its trunk's
+(models/rrdbnet.py).
 """
 from __future__ import annotations
 
@@ -43,7 +49,10 @@ import torch.nn.functional as F
 ACTS = ('silu', 'none')
 CHUNK = 32                 # the channel multiple every conv kernel takes
 
-_launches = {'conv3x3_dots': 0, 'downsample_dots': 0, 'conv3x3_bias': 0}
+_launches = {'conv3x3_dots': 0, 'downsample_dots': 0, 'conv3x3_bias': 0,
+             'conv3x3_dense': 0}
+# the dense conv's epilogues (csrc/conv_sm90.cuh EPI_*), on v = acc + bias
+EPIS = ('lrelu', 'res', 'rrdb', 'add')
 
 
 def launch_counts() -> dict:
@@ -150,6 +159,40 @@ def conv3x3_bias_ref(x, weight, bias, compute_dtype=torch.float32):
     return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
+def dense_epilogue(v: torch.Tensor, epi: str, s1=None,
+                   s2=None) -> torch.Tensor:
+    """The dense conv's epilogue on v = conv + bias, in v's dtype:
+    'lrelu' leaky_relu(v, 0.2) (conv1-4 of a dense block), 'res' 0.2 v +
+    s1 (its conv5), 'rrdb' 0.2 (0.2 v + s1) + s2 (conv5 of an RRDB's third
+    block: the block's residual and the RRDB's), 'add' v + s1
+    (conv_body)."""
+    if epi == 'lrelu':
+        return F.leaky_relu(v, 0.2)
+    if epi == 'res':
+        return 0.2 * v + s1.to(v.dtype)
+    if epi == 'rrdb':
+        return 0.2 * (0.2 * v + s1.to(v.dtype)) + s2.to(v.dtype)
+    if epi == 'add':
+        return v + s1.to(v.dtype)
+    raise ValueError(f'epi must be one of {EPIS}, got {epi!r}')
+
+
+def conv3x3_dense_ref(x, weight, bias, out, epi, s1=None, s2=None,
+                      compute_dtype=torch.float32):
+    """Plain dense conv: out = epi(conv3x3_SAME(x) + bias, s1, s2), the
+    conv in compute_dtype with the weights rounded to x.dtype, the
+    epilogue in fp32 (dense_epilogue), rounded once to out.dtype and
+    written into `out` in place. x, out, s1, s2: (B, H, W, C) views, e.g.
+    a channel prefix and a channel slice of one wider buffer. Returns
+    out."""
+    ct = compute_dtype
+    v = F.conv2d(x.to(ct).permute(0, 3, 1, 2), weight.to(x.dtype).to(ct),
+                 bias.to(ct), padding=1)
+    v = dense_epilogue(v.permute(0, 2, 3, 1).float(), epi, s1, s2)
+    out.copy_(v.to(out.dtype))
+    return out
+
+
 # ----------------------------------------------------- kernel operands
 def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
@@ -215,6 +258,10 @@ MAX_STAGES = 4
 # halo rows)
 VARIANTS = {1: ((1, 128), (2, 64), (1, 64), (1, 32), (1, 16), (2, 8)),
             2: ((1, 128), (1, 64), (1, 32), (1, 16))}
+# the dense conv's (csrc/conv3x3_dense.cu dense_variant), best first:
+# BN >= 32, as its slice is stored 16 bytes a lane; at BN = 32 a tile of
+# 16 rows re-stages fewer halo rows than one of 8
+DENSE_VARIANTS = ((1, 64), (2, 32), (1, 32))
 
 
 def tile_h(mb: int) -> int:
@@ -266,7 +313,7 @@ class ConvPlan(NamedTuple):
 @functools.lru_cache(maxsize=None)
 def conv_plan(bsz: int, h: int, w: int, cin: int, cout: int, stride: int,
               num_sms: int = 132, fused: bool = False,
-              cs: int = 0) -> ConvPlan:
+              cs: int = 0, dense: bool = False) -> ConvPlan:
     """The tiling of one conv on the Hopper core. Every (MB, BN, split)
     whose resident weights (its chunks x 9 taps x BN rows x 128 B) and at
     least two ring slots fit the shared memory is a candidate; the plan
@@ -283,16 +330,20 @@ def conv_plan(bsz: int, h: int, w: int, cin: int, cout: int, stride: int,
     and runs small products: K1 takes the smallest split that lets it
     reach BN = min(64, Cout) (the split's second pass,
     dots_finish_kernel, then adds the bias and the skip, rounds and
-    takes the statistics), and a narrow BN only where no split does."""
-    if fused and stride != 1:
-        raise ValueError('K1 is a stride-1 conv')
+    takes the statistics), and a narrow BN only where no split does.
+
+    `dense` plans the dense conv (stride 1) over DENSE_VARIANTS: its
+    shared memory is the bare conv's."""
+    if (fused or dense) and stride != 1:
+        raise ValueError('K1 and the dense conv are stride-1 convs')
     ho, wo = (h, w) if stride == 1 else (h // 2, w // 2)
     chunks = -(-cin // SM90_KC)
     s_chunks = -(-cs // SM90_KC) if fused else 0
     coutp = _round_up(cout, 8)
     cands = []
     for split in (s for s in range(1, chunks + 1) if chunks % s == 0):
-        for pref, (mb, bn) in enumerate(VARIANTS[stride]):
+        for pref, (mb, bn) in enumerate(DENSE_VARIANTS if dense
+                                        else VARIANTS[stride]):
             if coutp % bn:
                 continue
             th = tile_h(mb)
@@ -615,3 +666,119 @@ def conv3x3_bias(x: torch.Tensor, weight: torch.Tensor,
     if cout % CHUNK and cout != 3:
         raise ValueError(f'Cout={cout} must be a multiple of {CHUNK} or 3')
     return launch_conv(prepare_conv(x, conv_operands(weight, bias), 1))
+
+
+# ------------------------------------------------------ the dense conv
+def _strided_ld(name: str, t: torch.Tensor) -> int:
+    """The pixel stride, in channels, of a (B, H, W, C) bf16 view whose
+    channels are consecutive and whose pixels lie ld apart in one buffer
+    (a channel prefix or slice of a wider NHWC tensor); raises on any
+    other layout."""
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f'{name}: the kernel takes bfloat16, got {t.dtype}')
+    if t.dim() != 4:
+        raise ValueError(f'{name}: need a (B, H, W, C) view, got shape '
+                         f'{tuple(t.shape)}')
+    bsz, h, w, c = t.shape
+    ld = t.stride(2)
+    if t.stride(3) != 1 or ld < c or ld % 8 or c % CHUNK \
+            or (h > 1 and t.stride(1) != w * ld) \
+            or (bsz > 1 and t.stride(0) != h * w * ld) or t.data_ptr() % 16:
+        raise ValueError(f'{name}: need {CHUNK}k consecutive channels of '
+                         f'16-byte aligned pixels ld (a multiple of 8) '
+                         f'apart, got shape {tuple(t.shape)} strides '
+                         f'{t.stride()}')
+    return ld
+
+
+class DenseLaunch(NamedTuple):
+    """Everything one launch of the dense conv needs."""
+    x: torch.Tensor                # the channel prefix read
+    ops: ConvOperands
+    plan: ConvPlan
+    out: torch.Tensor              # the channel slice written
+    s1: Optional[torch.Tensor]
+    s2: Optional[torch.Tensor]
+    ws: Optional[torch.Tensor]     # fp32 partials of a split
+    lds: Tuple[int, int, int, int]     # pixel strides of x, out, s1, s2
+    epi: int                       # index into EPIS
+
+
+def prepare_dense(x: torch.Tensor, ops: ConvOperands, out: torch.Tensor,
+                  epi: str, s1: Optional[torch.Tensor] = None,
+                  s2: Optional[torch.Tensor] = None) -> DenseLaunch:
+    """The dense conv's checks against the operands, its plan and a
+    split's partials."""
+    if epi not in EPIS:
+        raise ValueError(f'epi must be one of {EPIS}, got {epi!r}')
+    bsz, h, w, cin = x.shape
+    if cin != ops.cin:
+        raise ValueError(f'x has {cin} channels, the weight {ops.cin}')
+    if out.shape != (bsz, h, w, ops.cout):
+        raise ValueError(f'out {tuple(out.shape)} is not '
+                         f'{(bsz, h, w, ops.cout)}')
+    if (s1 is None) != (epi == 'lrelu') or (s2 is None) != (epi != 'rrdb'):
+        raise ValueError(f'epi {epi!r} takes '
+                         f'{ {"lrelu": 0, "rrdb": 2}.get(epi, 1)} skip(s)')
+    lds = [_strided_ld('x', x), _strided_ld('out', out), 0, 0]
+    for i, (name, t) in enumerate((('s1', s1), ('s2', s2))):
+        if t is not None:
+            if t.shape != out.shape:
+                raise ValueError(f'{name} {tuple(t.shape)} is not '
+                                 f'{tuple(out.shape)}')
+            lds[2 + i] = _strided_ld(name, t)
+    _check_params(x, ops.weight, ops.bias, out, s1, s2)
+    plan = conv_plan(bsz, h, w, cin, ops.cout, 1,
+                     _num_sms(x.device.index or 0), dense=True)
+    ws = None
+    if plan.split > 1:
+        ws = torch.empty((plan.split, bsz * h * w, plan.coutp),
+                         dtype=torch.float32, device=x.device)
+    return DenseLaunch(x, ops, plan, out, s1, s2, ws, tuple(lds),
+                       EPIS.index(epi))
+
+
+def launch_dense(c: DenseLaunch) -> torch.Tensor:
+    """Launch the dense conv on prepared operands; returns c.out."""
+    from codeformer_tpu_torch.kernels.build import library
+    if c.out.numel() == 0:
+        return c.out
+    dev, stream = _device_and_stream(c.x)
+    p, (bsz, h, w, cin) = c.plan, c.x.shape
+    rc = library().cf_conv3x3_dense(
+        c.x.data_ptr(), c.ops.weight.data_ptr(), c.ops.bias.data_ptr(),
+        c.out.data_ptr(), c.s1.data_ptr() if c.s1 is not None else None,
+        c.s2.data_ptr() if c.s2 is not None else None,
+        c.ws.data_ptr() if c.ws is not None else None,
+        bsz, h, w, cin, c.lds[0], c.ops.cout, p.coutp, c.lds[1], c.lds[2],
+        c.lds[3], c.epi, p.bn, p.mb, p.split, p.stages, p.smem, p.grid_x,
+        dev, stream)
+    if rc < 0:
+        raise RuntimeError(f'conv3x3_dense: the tensor map of x could not '
+                           f'be encoded: CUresult {-rc}')
+    if rc != 0:
+        raise RuntimeError(f'conv3x3_dense kernel launch failed: cudaError '
+                           f'{rc}')
+    _launches['conv3x3_dense'] += 1
+    return c.out
+
+
+def conv3x3_dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                  out: torch.Tensor, epi: str,
+                  s1: Optional[torch.Tensor] = None,
+                  s2: Optional[torch.Tensor] = None,
+                  prepared: Optional[ConvOperands] = None) -> torch.Tensor:
+    """The dense conv, as conv3x3_dense_ref: writes out = epi(conv3x3(x) +
+    bias, s1, s2) in place and returns it. On CUDA: bf16 views whose
+    channels are consecutive, x a prefix of 32k channels, out a slice of
+    32k, s1 and s2 of out's shape; the sums and the epilogue in fp32, one
+    rounding. `prepared`: conv_operands(weight, bias) kept by the caller
+    (RRDBNet keeps its trunk's), else made here."""
+    if x.device.type == 'cpu':
+        return conv3x3_dense_ref(x, weight, bias, out, epi, s1, s2)
+    _refuse_autograd('conv3x3_dense', x, weight, bias, s1, s2)
+    _device_and_stream(x)
+    ops = prepared if prepared is not None else conv_operands(weight, bias)
+    if (ops.cout, ops.cin) != tuple(weight.shape[:2]):
+        raise ValueError('the prepared operands do not match the weights')
+    return launch_dense(prepare_dense(x, ops, out, epi, s1, s2))

@@ -75,7 +75,8 @@ class RealESRGANer:
         if self.device.type == 'cuda':   # cuDNN's bf16 convs are NHWC
             model = model.to(memory_format=torch.channels_last)
         self.model = model
-        self._tile_counts = {'calls': 0, 'tiles': 0, 'pad_tiles': 0}
+        self._tile_counts = {'calls': 0, 'tiles': 0, 'pad_tiles': 0,
+                             'fused_calls': 0}
 
     @torch.inference_mode()
     def _fwd(self, tiles: torch.Tensor) -> torch.Tensor:
@@ -84,14 +85,17 @@ class RealESRGANer:
         x = tiles.to(self.dtype)
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last)
+        before = self.model.dense_calls
         out = self.model(x).float().clamp(0.0, 1.0)
+        self._tile_counts['fused_calls'] += self.model.dense_calls - before
         return torch.round(out * 255.0).to(torch.uint8)
 
     def tile_counts(self) -> dict:
         """Model forwards since the last reset: `calls` (forwards),
         `tiles` (windows of an image run through them, a whole image
         counting as one), `pad_tiles` (zero windows that filled a last
-        batch)."""
+        batch), `fused_calls` (forwards whose trunk ran on the Hopper conv
+        core, models/rrdbnet.py `uses_dense_trunk`)."""
         return dict(self._tile_counts)
 
     def reset_tile_counts(self) -> None:

@@ -106,13 +106,15 @@ def test_upsample_bg_equals_upscale_device_and_counts_tiles(models):
     # 3 frames x 2 x 3 windows, BG_TILE_BATCH (16) a forward: 2
     # forwards, 14 zero windows
     assert pipe.BG_TILE_BATCH == 16
-    assert up.tile_counts() == {'calls': 2, 'tiles': 18, 'pad_tiles': 14}
+    assert up.tile_counts() == {'calls': 2, 'tiles': 18, 'pad_tiles': 14,
+                                'fused_calls': 0}
     for f in range(3):
         rgb = frames[f].flip(-1).permute(2, 0, 1).float() / 255.0
         want = up.upscale_device(rgb).permute(1, 2, 0).flip(-1)
         assert (got[f].int() - want.int()).abs().max() <= 1
     up.reset_tile_counts()
-    assert up.tile_counts() == {'calls': 0, 'tiles': 0, 'pad_tiles': 0}
+    assert up.tile_counts() == {'calls': 0, 'tiles': 0, 'pad_tiles': 0,
+                                'fused_calls': 0}
 
 
 def test_fused_with_upsampler_matches_the_classic_paste(models):

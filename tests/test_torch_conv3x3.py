@@ -78,7 +78,7 @@ def test_conv3x3_dots_matches_pallas(act, skip_mode, cin, cout, cs):
     cv.reset_launch_counts()
     y, st = cv.conv3x3_dots(xt, a, bb, act, weight, _t(bias), sk, w1)
     assert cv.launch_counts() == {'conv3x3_dots': 0, 'downsample_dots': 0,
-                                  'conv3x3_bias': 0}
+                                  'conv3x3_bias': 0, 'conv3x3_dense': 0}
     assert y.shape == (b, h, w, cout) and st.shape == (b, 1, 2, cout)
     np.testing.assert_allclose(y.numpy(), yj, **TOL)
 
