@@ -215,6 +215,8 @@ from unittest import mock
 import numpy as np
 import torch
 
+from codeformer_tpu_torch.kernels.build import launch_counts, reset_launch_counts
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T_START = time.perf_counter()
 
@@ -915,9 +917,11 @@ def phase_k4():
         go, ggx = (torch.randn(shape, generator=g, device='cuda')
                    for _ in range(2))
         ggb = torch.randn(shape[-1], generator=g, device='cuda')
-        before = fa.launch_counts()
+        before = launch_counts()
         got = k4_double_backward(fa, x, b, go, ggx, ggb)
-        n = {k: v - before[k] for k, v in fa.launch_counts().items()}
+        after = launch_counts()
+        n = {k: after[k] - before[k]
+             for k in ('fused_lrelu_fwd', 'fused_lrelu_bwd')}
         want = [t.to('cuda') for t in k4_double_backward(
             fa, *(t.cpu() for t in (x, b, go, ggx, ggb)))]
         same = [bool(torch.equal(got[i], want[i])) for i in (0, 1, 3)]
@@ -1215,12 +1219,12 @@ def phase_ops_path() -> dict:
         .requires_grad_()
     up = torch.randn(OPS_PATH_SHAPE, generator=g, device='cuda') \
         .to(torch.bfloat16)
-    reset_all_counts()
+    reset_launch_counts()
     y = conv3x3_bias(x, wt, b_conv).requires_grad_()
     out = fused_leaky_relu(y, b_act)
     out.backward(up)
     torch.cuda.synchronize()
-    counts = all_counts()
+    counts = launch_counts()
     # the plain versions on the same inputs
     yr = cv.conv3x3_bias_ref(x, wt, b_conv)
     out_r = fa.fused_leaky_relu_ref(y.detach(), b_act.detach())
@@ -1518,12 +1522,12 @@ def phase_slice():
     main_counts = {'conv3x3_dots': 0, 'downsample_dots': 0}
     for n, w, n_res in requests:
         faces = _faces(rng, n, size)
-        cv.reset_launch_counts()
+        reset_launch_counts()
         out = restorer.restore_batch(faces, w=w)
         torch.cuda.synchronize()
-        counts = cv.launch_counts()
-        want = {'conv3x3_dots': 2 * n_res + 1, 'downsample_dots': n_down,
-                'conv3x3_bias': 0, 'conv3x3_dense': 0}
+        counts = launch_counts()
+        want = dict(NO_LAUNCHES, conv3x3_dots=2 * n_res + 1,
+                    downsample_dots=n_down)
         print(f'  request: {n} face(s) w={w}: launches {counts} '
               f'(expected {want})', flush=True)
         if counts != want:
@@ -1773,7 +1777,7 @@ TRAIN_STEPS = 8
 ENCODE_LAUNCHES = {'conv3x3_dots': 28, 'downsample_dots': 5,
                    'nearest_code': 1,   # one frozen HQ encode, per microbatch
                    'conv3x3_bias': 0, 'conv3x3_dense': 0,
-                   'fused_lrelu_fwd': 0, 'fused_lrelu_bwd': 0}
+                   'fused_lrelu_fwd': 0, 'fused_lrelu_bwd': 0, 'int_mm': 0}
 # idx_gt of the kernel path against the same encode with K1/K2/K3 on
 # their plain versions (fp32 sums, TF32 off): random-init codebooks give
 # near-flat code scores, so bf16 rounding flips a share of the picks.
@@ -1827,22 +1831,6 @@ def stage2_batch(rng, n: int, size: int = 512) -> dict:
     lq = lq + 0.05 * torch.randn(lq.shape, generator=g, device='cuda')
     return {'in': lq.clamp(-1, 1).permute(0, 2, 3, 1).contiguous(),
             'gt': gt.contiguous()}
-
-
-def _op_modules():
-    from codeformer_tpu_torch.ops import conv3x3 as cv
-    from codeformer_tpu_torch.ops import fused_act as fa
-    from codeformer_tpu_torch.ops import vq
-    return cv, vq, fa
-
-
-def all_counts() -> dict:
-    return {k: v for m in _op_modules() for k, v in m.launch_counts().items()}
-
-
-def reset_all_counts() -> None:
-    for m in _op_modules():
-        m.reset_launch_counts()
 
 
 @contextlib.contextmanager
@@ -1926,20 +1914,20 @@ def phase_train():
     idx_gt = trainer._idx_gt
 
     def counted_idx_gt(mb):
-        before = all_counts()
+        before = launch_counts()
         out = idx_gt(mb)
-        after = all_counts()
+        after = launch_counts()
         encode_counts.append({k: after[k] - before[k] for k in after})
         return out
     trainer._idx_gt = counted_idx_gt
     torch.cuda.reset_peak_memory_stats()
-    reset_all_counts()
+    reset_launch_counts()
     totals, losses = {}, []
     for step in range(1, TRAIN_STEPS + 1):
-        before = all_counts()
+        before = launch_counts()
         trainer.optimize_parameters(step)
         torch.cuda.synchronize()
-        after = all_counts()
+        after = launch_counts()
         step_counts = {k: after[k] - before[k] for k in after}
         log = trainer.log_dict
         losses.append(log)
@@ -1954,7 +1942,7 @@ def phase_train():
                              f'all in the encode and none in net_g')
         if not all(np.isfinite(v) for v in log.values()):
             raise SystemExit(f'chip_smoke: non-finite loss at step {step}')
-    counts = all_counts()
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     trainer._idx_gt = idx_gt
     grad = net.encoder.blocks[1].conv1.weight.grad
@@ -2204,10 +2192,10 @@ def stage3_batch(rng, n: int) -> dict:
 def counted_step(trainer, it: int) -> dict:
     """optimize_parameters(it) to the end on the card; the launches it
     made."""
-    before = all_counts()
+    before = launch_counts()
     trainer.optimize_parameters(it)
     torch.cuda.synchronize()
-    after = all_counts()
+    after = launch_counts()
     return {k: after[k] - before[k] for k in after}
 
 
@@ -2259,7 +2247,7 @@ def phase_stage1():
         return idx
     want = dict(NO_LAUNCHES, nearest_code=1)
     torch.cuda.reset_peak_memory_stats()
-    reset_all_counts()
+    reset_launch_counts()
     with mock.patch.object(vq, 'nearest_code_indices', recorded):
         for it in STAGE1_ITERS:
             got = counted_step(trainer, it)
@@ -2280,7 +2268,7 @@ def phase_stage1():
                                     trainer.net_d.state_dict().items())):
                 raise SystemExit('chip_smoke: the discriminator moved before '
                                  'net_d_start_iter')
-    counts = all_counts()
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     bn_moved = not torch.equal(trainer.net_d.main[3].running_mean,
                                d0['main.3.running_mean'])
@@ -2409,7 +2397,7 @@ def phase_stage3():
     frozen = {k: v.clone() for k, v in net.state_dict().items()
               if k.split('.')[0] in ('quantize', 'generator')}
     torch.cuda.reset_peak_memory_stats()
-    reset_all_counts()
+    reset_launch_counts()
     for it, kind in zip(STAGE3_ITERS, STAGE3_KINDS):
         got = counted_step(trainer, it)
         want = NO_LAUNCHES if kind == 'd-only' else ENCODE_LAUNCHES
@@ -2422,7 +2410,7 @@ def phase_stage3():
                              f'{got}, expected {want}')
         if not log or not all(np.isfinite(v) for v in log.values()):
             raise SystemExit(f'chip_smoke: stage-III {kind} step log {log}')
-    counts = all_counts()
+    counts = launch_counts()
     moved = [k for k, v in frozen.items()
              if not torch.equal(v, net.state_dict()[k])]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2619,11 +2607,11 @@ def phase_latent_gt():
         def run_all():
             return torch.cat([glg.encode(model, x[i:i + LATENT_BATCH], dtype)
                               for i in range(0, len(x), LATENT_BATCH)])
-        reset_all_counts()
+        reset_launch_counts()
         with mock.patch.object(vq, 'nearest_code_indices', record):
             picks[name] = run_all()
         torch.cuda.synchronize()
-        got = all_counts()
+        got = launch_counts()
         n_calls = len(x) // LATENT_BATCH
         want = dict(NO_LAUNCHES, nearest_code=n_calls)
         if dtype == torch.bfloat16:
@@ -2935,7 +2923,7 @@ def phase_srmodel():
     lq = F.interpolate(gt.permute(0, 3, 1, 2), scale_factor=0.5,
                        mode='bilinear', antialias=True).permute(0, 2, 3, 1)
     trainer.feed_data({'lq': lq.contiguous(), 'gt': gt.contiguous()})
-    reset_all_counts()
+    reset_launch_counts()
     losses, times = [], []
     for it in range(1, SR_STEPS + 1):
         torch.cuda.synchronize()
@@ -2950,7 +2938,7 @@ def phase_srmodel():
           f'-> {2 * SR_LQ}^2): l_pix {[round(v, 5) for v in losses]}; '
           f'{ms:.2f} ms a step {ms.spread()} (first steps '
           f'{[round(v, 1) for v in times]} ms); kernels launched '
-          f'{sum(all_counts().values())}', flush=True)
+          f'{sum(launch_counts().values())}', flush=True)
     if not (losses[-1] < losses[0] and all(np.isfinite(losses))):
         raise SystemExit('chip_smoke: the SRModel loss did not fall')
     del trainer
@@ -3323,10 +3311,10 @@ def phase_whole_image(restorer, profile: bool = False) -> dict:
     counts = {}
     for n_faces in (1, 4):
         det.n_faces = n_faces
-        reset_all_counts()
+        reset_launch_counts()
         out = pipe.restore_frames_device(frames)
         torch.cuda.synchronize()
-        got = all_counts()
+        got = launch_counts()
         fwd = n_chunks * -(-n_faces * WI_CHUNK // top)
         want = {'conv3x3_dots': fwd * (2 * n_res + 1),
                 'downsample_dots': fwd * 5}
@@ -3545,10 +3533,10 @@ def phase_tasks() -> dict:
 
         # 1. the CLI's call: restore_batch, exact launches
         bgr = [f[..., ::-1].copy() for f in faces[:3].cpu().numpy()]
-        reset_all_counts()
+        reset_launch_counts()
         out = restorer.restore_batch(bgr, w=w, adain=adain)
         torch.cuda.synchronize()
-        got = all_counts()
+        got = launch_counts()
         want = {'conv3x3_dots': 2 * n_res + 1, 'downsample_dots': 5}
         print(f'  restore_batch, 3 faces: launches {got} (expected K1/K2 '
               f'{want})', flush=True)
@@ -3698,10 +3686,10 @@ def phase_classic(restorer) -> dict:
                                                 device='cuda'))
         crops = list(torch.round(crops).clamp(0, 255).to(torch.uint8)
                      .cpu().numpy())
-        reset_all_counts()
+        reset_launch_counts()
         restored = restorer.restore_batch(crops, w=0.5, adain=True)
         torch.cuda.synchronize()
-        got = all_counts()
+        got = launch_counts()
         want = {'conv3x3_dots': 2 * n_res + 1, 'downsample_dots': 5}
         print(f'  {n_faces} face(s): restore_batch launches {got} (expected '
               f'K1/K2 {want})', flush=True)
@@ -4022,11 +4010,11 @@ def phase_classic_upsample(restorer, up) -> dict:
             pids = helper._parse(rgb, res=512).cpu().numpy()
             return restored, faces, canvas, pids
 
-        reset_all_counts()
+        reset_launch_counts()
         up.reset_tile_counts()
         restored, faces, canvas, pids = run()
         torch.cuda.synchronize()
-        got = all_counts()
+        got = launch_counts()
         want = {'conv3x3_dots': 2 * n_res + 1, 'downsample_dots': 5,
                 'conv3x3_dense': dense_launches([up])}
         print(f'  {n_faces} face(s): launches {got} (expected K1/K2 from '
@@ -4228,11 +4216,11 @@ def phase_vqgan():
     x = torch.from_numpy(np.stack(_faces(np.random.default_rng(4), 2))) \
         .cuda()
     xn = (x.float() / 127.5 - 1.0).to(torch.bfloat16).permute(0, 3, 1, 2)
-    reset_all_counts()
+    reset_launch_counts()
     with torch.inference_mode():
         out_k, loss_k, stats_k = model(xn)
     torch.cuda.synchronize()
-    got = all_counts()
+    got = launch_counts()
     want = {'conv3x3_dots': 2 * n_res + 1, 'downsample_dots': 5,
             'nearest_code': 1}
     print(f'VQAutoEncoder.forward, full width, bf16, B=2: launches {got} '
@@ -4356,10 +4344,10 @@ def phase_fp32():
     prev = tf32_flags()
     set_tf32((True, True))
     try:
-        reset_all_counts()
+        reset_launch_counts()
         out = r.restore_batch(faces, w=0.5)
         torch.cuda.synchronize()
-        counts = all_counts()
+        counts = launch_counts()
         after = tf32_flags()
     finally:
         set_tf32(prev)
@@ -4496,11 +4484,10 @@ def phase_int8(bf16):
         raise SystemExit(f'chip_smoke: int8 products differ from the host '
                          f'at {bad}')
     x8 = torch.from_numpy(np.stack(_faces(rng, 8))).cuda()
-    reset_all_counts()
-    pq.reset_launch_counts()
+    reset_launch_counts()
     r.restore_device(x8)
     torch.cuda.synchronize()
-    counts = dict(all_counts(), **pq.launch_counts())
+    counts = launch_counts()
     want = int8_calls_at(calls, 8)
     print(f'  B=8 forward: launches {counts} (no kernel; int_mm expected '
           f'{want})', flush=True)
@@ -4587,14 +4574,14 @@ def phase_multi_device(bf16):
     tame_sft(r.model)
     faces = _faces(np.random.default_rng(23), 8)
     x8 = torch.from_numpy(np.stack(faces)).cuda()
-    reset_all_counts()
+    reset_launch_counts()
     got = r.restore_device(x8)
     torch.cuda.synchronize()
-    counts = all_counts()
-    reset_all_counts()
+    counts = launch_counts()
+    reset_launch_counts()
     want = bf16.restore_device(x8)
     torch.cuda.synchronize()
-    ref_counts = all_counts()
+    ref_counts = launch_counts()
     same_batch = all(np.array_equal(a, b) for a, b in zip(
         r.restore_batch(faces), bf16.restore_batch(faces)))
     equal = bool(torch.equal(got, want)) and same_batch
@@ -4635,11 +4622,11 @@ def phase_vqgan_cli():
         picks.append(search(z, e))
         return picks[-1]
 
-    reset_all_counts()
+    reset_launch_counts()
     with mock.patch.object(vq, 'nearest_code_indices', record):
         y = ivq.reconstruct(m16, x, torch.bfloat16)
     torch.cuda.synchronize()
-    counts = all_counts()
+    counts = launch_counts()
     want = dict(NO_LAUNCHES, conv3x3_dots=2 * n_res + 1, downsample_dots=5,
                 nearest_code=1)
     print(f'inference_vqgan core, full width, bf16, B={VQGAN_CLI_BATCH}: '
@@ -4711,11 +4698,11 @@ def run_cli(main_fn, argv) -> tuple:
     read just after: (counts, its stdout)."""
     import io
     out = io.StringIO()
-    reset_all_counts()
+    reset_launch_counts()
     with contextlib.redirect_stdout(out):
         main_fn(argv)
     torch.cuda.synchronize()
-    return all_counts(), out.getvalue()
+    return launch_counts(), out.getvalue()
 
 
 def add_counts(total: dict, counts: dict) -> None:
@@ -5496,9 +5483,9 @@ def counting_steps(cls, record: list, probe=None):
 
     def step(self, it):
         p0 = probe(self) if probe else None
-        before = all_counts()
+        before = launch_counts()
         real(self, it)
-        after = all_counts()
+        after = launch_counts()
         record.append((it, {k: after[k] - before[k] for k in after}, p0,
                        probe(self) if probe else None))
     with mock.patch.object(cls, 'optimize_parameters', step):
@@ -6181,12 +6168,12 @@ def tf_demos(tmp: str) -> dict:
                     cv2.imwrite(path, cv2.resize(
                         img, (0, 0), fx=f, fy=f,
                         interpolation=cv2.INTER_LINEAR))
-                reset_all_counts()
+                reset_launch_counts()
                 for u in ups:
                     u.reset_tile_counts()
                 got = hf.inference(path, on, on, 2, 0.5)
                 torch.cuda.synchronize()
-                counts = all_counts()
+                counts = launch_counts()
                 r, h = hf.get_restorer(), helpers[-1]
                 n_faces = len(h.cropped_faces)
                 faces_seen += n_faces
@@ -6222,9 +6209,9 @@ def tf_demos(tmp: str) -> dict:
                                      f'differs from the classic route')
                 if on and name == TF_DEMO_IMAGES[0]:
                     out = os.path.join(tmp, 'replicate.png')
-                    reset_all_counts()
+                    reset_launch_counts()
                     wrote = replicate.predict(path, 0.5, on, on, 2, out)
-                    add_counts(total, all_counts())
+                    add_counts(total, launch_counts())
                     if not np.array_equal(cv2.imread(wrote), got):
                         raise SystemExit('chip_smoke: replicate.predict wrote '
                                          'another image than inference')

@@ -1,4 +1,4 @@
-"""Build and load the hand-written Hopper kernels (csrc/*.cu).
+"""Build, load and launch the hand-written Hopper kernels (csrc/*.cu).
 
 Each source compiles with its own nvcc process, all started together,
 and the objects link into one shared library with a plain C interface,
@@ -6,6 +6,10 @@ loaded with ctypes. The library is built at first use into
 `build/kernels/<hash>/` at the repository root, keyed by a hash of the
 sources and flags, so an edited kernel rebuilds and an unchanged one is
 reused. Nothing here runs at import time.
+
+Every kernel launch goes through `launch`, which appends the device and
+its current stream, maps the return code to an error and counts the
+launch; `launch_counts()` reads the one counter of the process.
 """
 from __future__ import annotations
 
@@ -41,9 +45,16 @@ SIGNATURES = {
     'cf_fused_lrelu_bwd': [_P] * 4 + [_I, _L, _I, _I, _D, _D, _I, _P],
     'cf_fused_lrelu_bwd_rows': [_I, _L, _I, _I],
 }
+# entry points that answer a query and launch nothing
+QUERIES = ('cf_nearest_code_resident', 'cf_fused_lrelu_bwd_rows')
 
 _lib: Optional[ctypes.CDLL] = None
 build_info: dict = {}
+# launches since the last reset: every launch entry by its name without
+# `cf_`, and `int_mm`, the one launch the program makes through torch
+# (nn/quant.py)
+_launches = dict.fromkeys([name[3:] for name in SIGNATURES
+                           if name not in QUERIES] + ['int_mm'], 0)
 
 
 def _sources():
@@ -136,3 +147,53 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def _device_and_stream(t) -> tuple:
+    """The device index of tensor `t` and the handle of its device's
+    current stream, read at every call: inside `torch.cuda.graph` that
+    is the capture stream."""
+    import torch
+    if t.device.type != 'cuda':
+        raise RuntimeError(f'no kernel for device {t.device}')
+    return t.device.index or 0, torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(entry: str, *args, on) -> None:
+    """Launch `cf_<entry>` with `args`, then the device index and current
+    stream of the tensor `on`, and count it under `entry`. A negative
+    return is a CUresult from encoding a tensor map, a positive one a
+    cudaError; either raises, and the launch is not counted. A tensor
+    off the card is refused before the library is touched."""
+    dev, stream = _device_and_stream(on)
+    rc = getattr(library(), 'cf_' + entry)(*args, dev, stream)
+    if rc < 0:
+        raise RuntimeError(f'{entry}: a tensor map could not be encoded: '
+                           f'CUresult {-rc}')
+    if rc:
+        raise RuntimeError(f'{entry} kernel launch failed: cudaError {rc}')
+    _launches[entry] += 1
+
+
+def count(name: str, n: int = 1) -> None:
+    """Count `n` launches the program makes through torch (`int_mm`)."""
+    _launches[name] += n
+
+
+def launch_counts() -> dict:
+    """Launches since the last reset, by kernel: every key, 0 until
+    counted."""
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for k in _launches:
+        _launches[k] = 0
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Add `counts` (by kernel, negative allowed) to the counter: a CUDA
+    graph's capture records launches that do not run, and its replay
+    runs them (pipeline/restorer.py)."""
+    for k, v in counts.items():
+        _launches[k] += v

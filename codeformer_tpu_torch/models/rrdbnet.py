@@ -23,6 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from codeformer_tpu_torch.nn.blocks import kept_operands, phase_kernels
 from codeformer_tpu_torch.ops import conv3x3 as cv
 from codeformer_tpu_torch.utils.registry import ARCH_REGISTRY
 
@@ -31,27 +32,6 @@ def pixel_unshuffle(x: torch.Tensor, scale: int) -> torch.Tensor:
     """(B, C, H, W) -> (B, C*s*s, H/s, W/s), out channel c*s*s + sh*s +
     sw (basicsr/archs/arch_util.py:190-207)."""
     return F.pixel_unshuffle(x, scale)
-
-
-# tap index -> 2-tap window slot, per output phase (0: window {-1, 0},
-# 1: window {0, +1}) under nearest x2
-_MAP = {0: (0, 1, 1), 1: (0, 0, 1)}
-
-
-def phase_kernels(weight: torch.Tensor) -> list:
-    """A 3x3 conv weight (O, I, 3, 3) -> the four 2x2 kernels of the
-    output phases (p, q) in (0,0), (0,1), (1,0), (1,1) order: under
-    nearest x2 the nine taps of phase (p, q) fall on at most 2x2 source
-    pixels, and the taps on one pixel sum."""
-    out = []
-    for p in (0, 1):
-        for q in (0, 1):
-            k2 = weight.new_zeros(weight.shape[:2] + (2, 2))
-            for u in range(3):
-                for v in range(3):
-                    k2[:, :, _MAP[p][u], _MAP[q][v]] += weight[:, :, u, v]
-            out.append(k2)
-    return out
 
 
 class PhaseCollapsedUpConv(nn.Conv2d):
@@ -132,7 +112,7 @@ class RRDBNet(nn.Module):
         self.conv_last = nn.Conv2d(num_feat, num_out_ch, 3, padding=1)
         self.num_feat, self.num_grow_ch = num_feat, num_grow_ch
         self.dense_calls = 0      # forwards whose trunk ran _dense_trunk
-        self._dense_ops = None    # (key, the trunk's kept ConvOperands)
+        self._operands = None     # (key, the trunk's kept ConvOperands)
 
     def uses_dense_trunk(self, feat) -> bool:
         """Whether the trunk runs on the Hopper conv core for `feat`, by
@@ -151,16 +131,15 @@ class RRDBNet(nn.Module):
                 for k in range(1, 6)] + [self.conv_body]
 
     def dense_operands(self) -> list:
-        """The trunk's convs in the core's layout (conv_operands), made
-        once and kept until a weight or bias is updated in place,
-        replaced, moved or cast."""
+        """The trunk's convs in the core's layout (conv_operands), kept in
+        eval mode until a weight or bias is updated in place, replaced,
+        moved or cast (`kept_operands`); made anew in training mode."""
         convs = self._trunk_convs()
-        key = tuple((t._version, t.data_ptr(), t.device, t.dtype)
-                    for c in convs for t in (c.weight, c.bias))
-        if self._dense_ops is None or self._dense_ops[0] != key:
-            self._dense_ops = (key, [cv.conv_operands(c.weight, c.bias)
-                                     for c in convs])
-        return self._dense_ops[1]
+
+        def make():
+            return [cv.conv_operands(c.weight, c.bias) for c in convs]
+        params = [t for c in convs for t in (c.weight, c.bias)]
+        return kept_operands(self, params, make) or make()
 
     def _dense_trunk(self, feat: torch.Tensor) -> torch.Tensor:
         """feat + conv_body(body(feat)) with conv3x3_dense over three

@@ -135,8 +135,7 @@ def kept_operands(mod: nn.Module, params, make, extra=()):
     if mod.training:
         mod._operands = None
         return None
-    key = tuple((t._version, t.data_ptr(), t.device, t.dtype)
-                for t in params) + tuple(extra)
+    key = tuple(cv.operand_key(t) for t in params) + tuple(extra)
     if mod._operands is None or mod._operands[0] != key:
         with torch.no_grad():
             mod._operands = (key, make())
@@ -346,12 +345,13 @@ class Downsample(nn.Module):
 PHASE_MAP = {0: (0, 1, 1), 1: (0, 0, 1)}
 
 
-def phase_kernels(weight: torch.Tensor, dtype: torch.dtype):
+def phase_kernels(w: torch.Tensor) -> list:
     """The four 2x2 kernels (p, q order) that a 3x3 OIHW weight collapses
-    to under nearest x2, each summed tap by tap in `dtype` in the loop
-    order of codeformer_tpu/nn/blocks.py:500-507 (every sum rounded to
-    `dtype`, as JAX's)."""
-    w = weight.detach().to(dtype)
+    to under nearest x2: the nine taps of phase (p, q) fall on at most
+    2x2 source pixels, and the taps on one pixel sum, tap by tap in w's
+    dtype in the loop order of codeformer_tpu/nn/blocks.py:500-507 (every
+    sum rounded to that dtype, as JAX's). Autograd records through it
+    (RRDBNet's `PhaseCollapsedUpConv` trains on it)."""
     out = []
     for p in (0, 1):
         for q in (0, 1):
@@ -382,7 +382,8 @@ class Upsample(nn.Module):
         w = self.conv.weight
 
         def make():
-            return [quant.prepare_weight(k) for k in phase_kernels(w, dtype)]
+            return [quant.prepare_weight(k)
+                    for k in phase_kernels(w.detach().to(dtype))]
         return kept_operands(self, (w,), make, (dtype,)) or make()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -33,28 +33,11 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
+from codeformer_tpu_torch.kernels.build import count
+
 EPS = 1e-8
 MODES = ('int8', 'off')
 CHUNK_BYTES = 1 << 30      # patch-matrix bytes a _int_mm call, about
-
-_launches = {'int_mm': 0}
-
-
-def launch_counts() -> dict:
-    """`torch._int_mm` calls since the last reset."""
-    return dict(_launches)
-
-
-def reset_launch_counts() -> None:
-    for k in _launches:
-        _launches[k] = 0
-
-
-def add_launch_counts(counts: dict) -> None:
-    """Add `counts` (by kernel) to the counters: a CUDA graph's replay
-    runs the launches its capture recorded (pipeline/restorer.py)."""
-    for k, v in counts.items():
-        _launches[k] += v
 
 
 def _amax_scale(amax: torch.Tensor) -> torch.Tensor:
@@ -145,7 +128,7 @@ def int8_conv(xq: torch.Tensor, wt: Int8Weight, stride: int = 1,
         if m <= 16:
             a = torch.cat([a, a.new_zeros(17 - m, kp)])
         y = torch._int_mm(a, wt.mat.t())
-        _launches['int_mm'] += 1
+        count('int_mm')
         outs.append(y[:m, :wt.n].reshape(-1, ho, wo, wt.n))
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 

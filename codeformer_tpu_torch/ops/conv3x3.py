@@ -46,30 +46,13 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from codeformer_tpu_torch.kernels.build import launch
+
 ACTS = ('silu', 'none')
 CHUNK = 32                 # the channel multiple every conv kernel takes
 
-_launches = {'conv3x3_dots': 0, 'downsample_dots': 0, 'conv3x3_bias': 0,
-             'conv3x3_dense': 0}
 # the dense conv's epilogues (csrc/conv_sm90.cuh EPI_*), on v = acc + bias
 EPIS = ('lrelu', 'res', 'rrdb', 'add')
-
-
-def launch_counts() -> dict:
-    """Kernel launches since the last reset, by kernel."""
-    return dict(_launches)
-
-
-def reset_launch_counts() -> None:
-    for k in _launches:
-        _launches[k] = 0
-
-
-def add_launch_counts(counts: dict) -> None:
-    """Add `counts` (by kernel) to the counters: a CUDA graph's replay
-    runs the launches its capture recorded (pipeline/restorer.py)."""
-    for k, v in counts.items():
-        _launches[k] += v
 
 
 # ------------------------------------------------------- GroupNorm fold
@@ -198,6 +181,14 @@ def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
+def operand_key(t: torch.Tensor) -> tuple:
+    """What operands made from `t` and kept between calls depend on: an
+    in-place update (`_version`), new storage, another device or dtype
+    makes them stale (nn/blocks.py `kept_operands`, ops/vq.py
+    `codebook_key`)."""
+    return (t._version, t.data_ptr(), t.device, t.dtype)
+
+
 def kernel_bias(bias: torch.Tensor, cout_p: int) -> torch.Tensor:
     return F.pad(bias.float(), (0, cout_p - bias.shape[0])).contiguous()
 
@@ -236,10 +227,9 @@ def _refuse_autograd(name: str, *tensors) -> None:
             f'False))')
 
 
-def _device_and_stream(x: torch.Tensor):
+def _need_cuda(x: torch.Tensor) -> None:
     if x.device.type != 'cuda':
         raise RuntimeError(f'no kernel for device {x.device}')
-    return x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream
 
 
 # ------------------------------------------ the Hopper conv core's plan
@@ -457,27 +447,17 @@ def prepare_conv(x: torch.Tensor, ops: ConvOperands,
 def launch_conv(c: ConvLaunch) -> torch.Tensor:
     """Launch conv3x3_bias (stride 1) or K2 (stride 2) on prepared
     operands; returns the prepared output."""
-    from codeformer_tpu_torch.kernels.build import library
-    name = 'conv3x3_bias' if c.plan.stride == 1 else 'downsample_dots'
     if c.y.numel() == 0:
         return c.y
-    dev, stream = _device_and_stream(c.x)
     p, (bsz, h, w, cin) = c.plan, c.x.shape
     ptrs = (c.x.data_ptr(), c.ops.weight.data_ptr(), c.ops.bias.data_ptr(),
             c.y.data_ptr(), c.ws.data_ptr() if c.ws is not None else None)
-    tail = (p.coutp, p.bn, p.mb, p.split, p.stages, p.smem, p.grid_x, dev,
-            stream)
+    tail = (p.coutp, p.bn, p.mb, p.split, p.stages, p.smem, p.grid_x)
     if p.stride == 1:
-        rc = library().cf_conv3x3_bias(*ptrs, bsz, h, w, cin, c.ops.cout,
-                                       *tail)
+        launch('conv3x3_bias', *ptrs, bsz, h, w, cin, c.ops.cout, *tail,
+               on=c.x)
     else:
-        rc = library().cf_downsample_dots(*ptrs, bsz, h, w, cin, *tail)
-    if rc < 0:
-        raise RuntimeError(f'{name}: the tensor map of x could not be '
-                           f'encoded: CUresult {-rc}')
-    if rc != 0:
-        raise RuntimeError(f'{name} kernel launch failed: cudaError {rc}')
-    _launches[name] += 1
+        launch('downsample_dots', *ptrs, bsz, h, w, cin, *tail, on=c.x)
     return c.y
 
 
@@ -578,26 +558,18 @@ def prepare_dots(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
 def launch_dots(c: DotsLaunch):
     """Launch K1 on prepared operands; returns the prepared (y, stats)."""
-    from codeformer_tpu_torch.kernels.build import library
     if c.y.numel() == 0:
         return c.y, c.stats
-    dev, stream = _device_and_stream(c.x)
     p, (bsz, h, w, cin) = c.plan, c.x.shape
-    rc = library().cf_conv3x3_dots(
-        c.x.data_ptr(), c.a.data_ptr(), c.b.data_ptr(),
-        c.ops.conv.weight.data_ptr(), c.ops.conv.bias.data_ptr(),
-        c.skip.data_ptr() if c.skip is not None else None,
-        c.ops.w1.data_ptr() if c.skip_mode == 2 else None, c.y.data_ptr(),
-        c.stats.data_ptr(), c.ws.data_ptr() if c.ws is not None else None,
-        bsz, h, w, cin, c.ops.conv.cout, p.coutp, c.ops.cs, c.act,
-        c.skip_mode, p.bn, p.mb, p.split, p.stages, p.smem, p.grid_x, dev,
-        stream)
-    if rc < 0:
-        raise RuntimeError(f'conv3x3_dots: a tensor map could not be '
-                           f'encoded: CUresult {-rc}')
-    if rc != 0:
-        raise RuntimeError(f'conv3x3_dots kernel launch failed: cudaError {rc}')
-    _launches['conv3x3_dots'] += 1
+    launch('conv3x3_dots',
+           c.x.data_ptr(), c.a.data_ptr(), c.b.data_ptr(),
+           c.ops.conv.weight.data_ptr(), c.ops.conv.bias.data_ptr(),
+           c.skip.data_ptr() if c.skip is not None else None,
+           c.ops.w1.data_ptr() if c.skip_mode == 2 else None, c.y.data_ptr(),
+           c.stats.data_ptr(), c.ws.data_ptr() if c.ws is not None else None,
+           bsz, h, w, cin, c.ops.conv.cout, p.coutp, c.ops.cs, c.act,
+           c.skip_mode, p.bn, p.mb, p.split, p.stages, p.smem, p.grid_x,
+           on=c.x)
     return c.y, c.stats
 
 
@@ -613,7 +585,7 @@ def conv3x3_dots(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     if x.device.type == 'cpu':
         return conv3x3_dots_ref(x, a, b, act, weight, bias, skip, w1x1)
     _refuse_autograd('conv3x3_dots', x, a, b, weight, bias, skip, w1x1)
-    _device_and_stream(x)
+    _need_cuda(x)
     cout, cin = weight.shape[:2]
     if weight.shape != (cout, x.shape[-1], 3, 3) or bias.shape != (cout,):
         raise ValueError(f'weight {tuple(weight.shape)} / bias '
@@ -636,7 +608,7 @@ def downsample_dots(x: torch.Tensor, weight: torch.Tensor,
     if x.device.type == 'cpu':
         return downsample_dots_ref(x, weight, bias)
     _refuse_autograd('downsample_dots', x, weight, bias)
-    _device_and_stream(x)
+    _need_cuda(x)
     c = x.shape[-1]
     if weight.shape != (c, c, 3, 3):
         raise ValueError(f'weight {tuple(weight.shape)} is not ({c}, {c}, '
@@ -657,7 +629,7 @@ def conv3x3_bias(x: torch.Tensor, weight: torch.Tensor,
     if x.device.type == 'cpu':
         return conv3x3_bias_ref(x, weight, bias)
     _refuse_autograd('conv3x3_bias', x, weight, bias)
-    _device_and_stream(x)
+    _need_cuda(x)
     cin = x.shape[-1]
     cout = weight.shape[0]
     if weight.shape != (cout, cin, 3, 3) or bias.shape != (cout,):
@@ -740,26 +712,17 @@ def prepare_dense(x: torch.Tensor, ops: ConvOperands, out: torch.Tensor,
 
 def launch_dense(c: DenseLaunch) -> torch.Tensor:
     """Launch the dense conv on prepared operands; returns c.out."""
-    from codeformer_tpu_torch.kernels.build import library
     if c.out.numel() == 0:
         return c.out
-    dev, stream = _device_and_stream(c.x)
     p, (bsz, h, w, cin) = c.plan, c.x.shape
-    rc = library().cf_conv3x3_dense(
-        c.x.data_ptr(), c.ops.weight.data_ptr(), c.ops.bias.data_ptr(),
-        c.out.data_ptr(), c.s1.data_ptr() if c.s1 is not None else None,
-        c.s2.data_ptr() if c.s2 is not None else None,
-        c.ws.data_ptr() if c.ws is not None else None,
-        bsz, h, w, cin, c.lds[0], c.ops.cout, p.coutp, c.lds[1], c.lds[2],
-        c.lds[3], c.epi, p.bn, p.mb, p.split, p.stages, p.smem, p.grid_x,
-        dev, stream)
-    if rc < 0:
-        raise RuntimeError(f'conv3x3_dense: the tensor map of x could not '
-                           f'be encoded: CUresult {-rc}')
-    if rc != 0:
-        raise RuntimeError(f'conv3x3_dense kernel launch failed: cudaError '
-                           f'{rc}')
-    _launches['conv3x3_dense'] += 1
+    launch('conv3x3_dense',
+           c.x.data_ptr(), c.ops.weight.data_ptr(), c.ops.bias.data_ptr(),
+           c.out.data_ptr(), c.s1.data_ptr() if c.s1 is not None else None,
+           c.s2.data_ptr() if c.s2 is not None else None,
+           c.ws.data_ptr() if c.ws is not None else None,
+           bsz, h, w, cin, c.lds[0], c.ops.cout, p.coutp, c.lds[1], c.lds[2],
+           c.lds[3], c.epi, p.bn, p.mb, p.split, p.stages, p.smem, p.grid_x,
+           on=c.x)
     return c.out
 
 
@@ -777,7 +740,7 @@ def conv3x3_dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if x.device.type == 'cpu':
         return conv3x3_dense_ref(x, weight, bias, out, epi, s1, s2)
     _refuse_autograd('conv3x3_dense', x, weight, bias, s1, s2)
-    _device_and_stream(x)
+    _need_cuda(x)
     ops = prepared if prepared is not None else conv_operands(weight, bias)
     if (ops.cout, ops.cin) != tuple(weight.shape[:2]):
         raise ValueError('the prepared operands do not match the weights')

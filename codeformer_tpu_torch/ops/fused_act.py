@@ -29,19 +29,10 @@ from typing import Tuple
 
 import torch
 
-_launches = {'fused_lrelu_fwd': 0, 'fused_lrelu_bwd': 0}
+from codeformer_tpu_torch.kernels.build import launch, library
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHANNELS = 12288     # the forward kernel keeps the bias in shared memory
-
-
-def launch_counts() -> dict:
-    """Kernel launches since the last reset, by kernel."""
-    return dict(_launches)
-
-
-def reset_launch_counts() -> None:
-    for k in _launches:
-        _launches[k] = 0
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:
@@ -104,20 +95,13 @@ def fused_lrelu_fwd(x: torch.Tensor, bias: torch.Tensor,
     _check(x, c)
     if bias.shape != (c,):
         raise ValueError(f'bias {tuple(bias.shape)} does not match C={c}')
-    from codeformer_tpu_torch.kernels.build import library
     xk = _kernel_operand('x', x, x.dtype, x.device)
     bk = _kernel_operand('bias', bias.to(x.dtype), torch.float32, x.device)
     out = torch.empty_like(xk)
     if xk.numel():
-        rc = library().cf_fused_lrelu_fwd(
-            xk.data_ptr(), bk.data_ptr(), out.data_ptr(), _DTYPES[x.dtype],
-            xk.numel(), c, float(negative_slope), float(scale),
-            x.device.index or 0,
-            torch.cuda.current_stream(x.device).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f'fused_lrelu_fwd kernel launch failed: '
-                               f'cudaError {rc}')
-        _launches['fused_lrelu_fwd'] += 1
+        launch('fused_lrelu_fwd', xk.data_ptr(), bk.data_ptr(),
+               out.data_ptr(), _DTYPES[x.dtype], xk.numel(), c,
+               float(negative_slope), float(scale), on=x)
     return out
 
 
@@ -134,25 +118,19 @@ def fused_lrelu_bwd(g: torch.Tensor, out: torch.Tensor,
     if g.shape != out.shape:
         raise ValueError(f'gradient {tuple(g.shape)} does not match the '
                          f'output {tuple(out.shape)}')
-    from codeformer_tpu_torch.kernels.build import library
     ok = _kernel_operand('out', out, out.dtype, out.device)
     gk = _kernel_operand('gradient', g, out.dtype, out.device)
     dx = torch.empty_like(ok)
     if not ok.numel():
         return dx, torch.zeros(c, dtype=torch.float32, device=out.device)
-    lib, dtype, dev = library(), _DTYPES[out.dtype], out.device.index or 0
-    rows = lib.cf_fused_lrelu_bwd_rows(dtype, ok.numel(), c, dev)
+    dtype, dev = _DTYPES[out.dtype], out.device.index or 0
+    rows = library().cf_fused_lrelu_bwd_rows(dtype, ok.numel(), c, dev)
     if rows < 1:
         raise RuntimeError(f'fused_lrelu_bwd: no grid for C={c} on {dev}')
     partial = torch.empty((rows, c), dtype=torch.float32, device=out.device)
-    rc = lib.cf_fused_lrelu_bwd(
-        gk.data_ptr(), ok.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-        dtype, ok.numel(), c, rows, float(negative_slope),
-        float(scale), dev, torch.cuda.current_stream(out.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f'fused_lrelu_bwd kernel launch failed: '
-                           f'cudaError {rc}')
-    _launches['fused_lrelu_bwd'] += 1
+    launch('fused_lrelu_bwd', gk.data_ptr(), ok.data_ptr(), dx.data_ptr(),
+           partial.data_ptr(), dtype, ok.numel(), c, rows,
+           float(negative_slope), float(scale), on=out)
     return dx, partial.sum(0)
 
 

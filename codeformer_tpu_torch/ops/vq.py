@@ -26,17 +26,8 @@ from typing import NamedTuple
 
 import torch
 
-_launches = {'nearest_code': 0}
-
-
-def launch_counts() -> dict:
-    """Kernel launches since the last reset, by kernel."""
-    return dict(_launches)
-
-
-def reset_launch_counts() -> None:
-    for k in _launches:
-        _launches[k] = 0
+from codeformer_tpu_torch.kernels.build import launch, library
+from codeformer_tpu_torch.ops.conv3x3 import operand_key
 
 
 @contextlib.contextmanager
@@ -117,7 +108,6 @@ def resident_clusters(device: int, z_bf16: bool, dp: int) -> tuple:
     """How many clusters of each size in CLUSTER_SIZES the card `device`
     holds at once for the kernel of this z type and padded D (0 where
     none fits)."""
-    from codeformer_tpu_torch.kernels.build import library
     got = []
     for cs in CLUSTER_SIZES:
         n = library().cf_nearest_code_resident(cs, int(z_bf16), dp, device)
@@ -135,8 +125,7 @@ _operands: dict = {}
 def codebook_key(codebook: torch.Tensor) -> tuple:
     """What the kept operands of `codebook` depend on: an in-place update
     (`_version`), new storage, device, dtype or shape makes them again."""
-    return (codebook._version, codebook.data_ptr(), codebook.device,
-            codebook.dtype, tuple(codebook.shape))
+    return operand_key(codebook) + (tuple(codebook.shape),)
 
 
 def _forget(key: int, ref) -> None:
@@ -214,19 +203,12 @@ def prepare_nearest_code(z: torch.Tensor, codebook: torch.Tensor) -> K3Launch:
 
 def launch_nearest_code(c: K3Launch) -> torch.Tensor:
     """Launch K3 on a prepared call; returns its output."""
-    from codeformer_tpu_torch.kernels.build import library
     n_tok, dim = c.z.shape
     if n_tok == 0:
         return c.out
-    rc = library().cf_nearest_code(
-        c.z.data_ptr(), int(c.z.dtype == torch.bfloat16), c.et.data_ptr(),
-        c.e_sq.data_ptr(), c.out.data_ptr(), n_tok, c.n_codes, dim,
-        c.plan.kp, c.plan.dp, c.plan.cluster, c.z.device.index or 0,
-        torch.cuda.current_stream(c.z.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f'nearest_code kernel launch failed: cudaError '
-                           f'{rc}')
-    _launches['nearest_code'] += 1
+    launch('nearest_code', c.z.data_ptr(), int(c.z.dtype == torch.bfloat16),
+           c.et.data_ptr(), c.e_sq.data_ptr(), c.out.data_ptr(), n_tok,
+           c.n_codes, dim, c.plan.kp, c.plan.dp, c.plan.cluster, on=c.z)
     return c.out
 
 

@@ -5,9 +5,9 @@ Faces go through the model in bucketed batches: uint8 RGB in,
 normalize -> CodeFormer -> denormalize on the device, uint8 out, so one
 byte per pixel crosses between host and device. In bf16 on a CUDA
 device every ResBlock conv, every Downsample and the decoder's tail conv
-run the hand-written kernels of ops/conv3x3.py; fp32 serves the plain
-path in IEEE fp32 (TF32 off for the call), as JAX's fp32 runs on XLA's
-convs; `quant='int8'` serves JAX's int8 path (nn/quant.py). With several
+run the hand-written kernels K1 and K2; fp32 serves the plain path in
+IEEE fp32 (TF32 off for the call), as JAX's fp32 runs on XLA's convs;
+`quant='int8'` serves JAX's int8 path (`set_quant`). With several
 devices each holds a replica of the model and takes an equal shard of
 every batch, as JAX's `mesh=` shards the batch over its 'data' axis.
 
@@ -15,7 +15,9 @@ On one CUDA device a forward is two CUDA graphs, captured once a key
 (batch, face size, w, adain, enable_fuse) and replayed after: about
 1,900 launches a forward from one Python thread cost more host time
 than the card spends on a face at B=1. The graphs split at the codebook
-lookup, which runs eagerly between them (`ForwardGraphs`).
+lookup, which runs eagerly between them (`ForwardGraphs`). A replay
+adds the launches its capture recorded to the launch counter
+(kernels/build.py `launch_counts`), so the counter reads what ran.
 """
 from __future__ import annotations
 
@@ -28,10 +30,9 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from codeformer_tpu_torch.kernels.build import add_launch_counts, launch_counts
 from codeformer_tpu_torch.models import CodeFormer
-from codeformer_tpu_torch.nn import quant as nn_quant
 from codeformer_tpu_torch.nn.blocks import set_kernels, set_quant
-from codeformer_tpu_torch.ops import conv3x3 as cv
 from codeformer_tpu_torch.utils.checkpoint import init_params_fast
 from codeformer_tpu_torch.utils.convert import load_pth
 from codeformer_tpu_torch.utils.profiler import span
@@ -77,9 +78,6 @@ def _on(device: torch.device):
 # each holds its static tensors in the restorer's pool, and the web
 # demo's fidelity slider sends a new w with every move
 GRAPH_KEYS = 8
-# the launch counters a forward feeds; a replay adds what its capture
-# launched, so they count the kernels that ran
-_COUNTERS = (cv, nn_quant)
 _eager_only = False
 
 
@@ -95,11 +93,6 @@ def eager_forwards():
         yield
     finally:
         _eager_only = prev
-
-
-def _add_launch_counts(counts, sign: int = 1) -> None:
-    for m, c in zip(_COUNTERS, counts):
-        m.add_launch_counts({k: sign * v for k, v in c.items()})
 
 
 class ForwardGraphs:
@@ -127,7 +120,7 @@ class ForwardGraphs:
         model = restorer.model
         self.x = torch.empty_like(x)
         self.quant = torch.empty_like(quant_feat)
-        before = [m.launch_counts() for m in _COUNTERS]
+        before = launch_counts()
         self.a = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.a, pool=pool):
             _, self.top_idx, self.lq_feat, self.enc = model.predict_codes(
@@ -137,10 +130,10 @@ class ForwardGraphs:
             self.out = restorer.denormalize(model.decode_codes(
                 self.quant, self.lq_feat, self.enc, w, adain=adain,
                 enable_fuse=enable_fuse))
-        # the capture recorded these launches; none of them ran
-        self.launches = [{k: v - b[k] for k, v in m.launch_counts().items()}
-                         for m, b in zip(_COUNTERS, before)]
-        _add_launch_counts(self.launches, -1)
+        # the capture recorded these launches and ran none of them; a
+        # replay runs them, so the counter reads what ran
+        self.launches = {k: v - before[k] for k, v in launch_counts().items()}
+        add_launch_counts({k: -v for k, v in self.launches.items()})
 
     def run(self, model, x: torch.Tensor) -> torch.Tensor:
         self.x.copy_(x)
@@ -148,7 +141,7 @@ class ForwardGraphs:
         self.quant.copy_(model.lookup_codes(self.top_idx.clone(),
                                             self.lq_feat))
         self.b.replay()
-        _add_launch_counts(self.launches)
+        add_launch_counts(self.launches)
         return self.out.clone()
 
 

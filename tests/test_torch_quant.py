@@ -37,6 +37,7 @@ from jax import lax  # noqa: E402
 
 from codeformer_tpu.nn import quant as jq  # noqa: E402
 from codeformer_tpu.nn.blocks import colpack_mode, set_colpack_mode  # noqa: E402
+from codeformer_tpu_torch.kernels.build import launch_counts, reset_launch_counts  # noqa: E402
 from codeformer_tpu_torch.models import CodeFormer  # noqa: E402
 from codeformer_tpu_torch.models.vqgan import VQAutoEncoder  # noqa: E402
 from codeformer_tpu_torch.nn import blocks as nb  # noqa: E402
@@ -209,7 +210,7 @@ def test_phase_kernels_collapse_the_3x3():
     rng = np.random.default_rng(4)
     w = torch.from_numpy(rng.normal(0, 0.1, (6, 5, 3, 3)))
     x = torch.from_numpy(rng.normal(0, 1, (1, 5, 7, 7)))
-    ks = nb.phase_kernels(w, torch.float64)
+    ks = nb.phase_kernels(w)
     ref = torch.nn.functional.conv2d(
         torch.nn.functional.interpolate(x, scale_factor=2.0), w, padding=1)
     for p in (0, 1):
@@ -270,13 +271,13 @@ def test_rows_go_in_chunks_of_whole_images(monkeypatch):
     g = torch.Generator().manual_seed(7)
     x = torch.randn(5, 8, 8, 16, generator=g)
     w = torch.randn(8, 16, 3, 3, generator=g)
-    pq.reset_launch_counts()
+    reset_launch_counts()
     whole = pq.conv_int8(x, w)
-    assert pq.launch_counts() == {'int_mm': 1}
+    assert launch_counts()['int_mm'] == 1
     monkeypatch.setattr(pq, 'CHUNK_BYTES', 2 * 64 * 144)
-    pq.reset_launch_counts()
+    reset_launch_counts()
     chunked = pq.conv_int8(x, w)
-    assert pq.launch_counts() == {'int_mm': 3}
+    assert launch_counts()['int_mm'] == 3
     assert torch.equal(whole, chunked)
 
 
@@ -479,8 +480,8 @@ def test_cli_quant_int8_builds_an_int8_restorer(tmp_path):
     assert r.quant == 'int8' and r.dtype == torch.bfloat16
     mods = [m for m in r.model.modules() if hasattr(m, 'quant')]
     assert mods and all(m.quant == 'int8' for m in mods)
-    pq.reset_launch_counts()
+    reset_launch_counts()
     out = r.restore_device(np.random.default_rng(8).integers(
         0, 256, (1, 64, 64, 3), dtype=np.uint8))
     assert out.shape == (1, 64, 64, 3)
-    assert pq.launch_counts()['int_mm'] == 46       # one a weight
+    assert launch_counts()['int_mm'] == 46          # one a weight

@@ -22,6 +22,7 @@ from codeformer_tpu.models.rrdbnet import \
 from codeformer_tpu.pipeline import realesrgan as jesr  # noqa: E402
 from codeformer_tpu.utils.checkpoint import init_params_fast  # noqa: E402
 from codeformer_tpu_torch.models import rrdbnet  # noqa: E402
+from codeformer_tpu_torch.nn.blocks import phase_kernels  # noqa: E402
 from codeformer_tpu_torch.pipeline import realesrgan as pesr  # noqa: E402
 from codeformer_tpu_torch.utils.convert import flax_to_state_dict  # noqa: E402
 from codeformer_tpu_torch.utils.registry import ARCH_REGISTRY  # noqa: E402
@@ -111,7 +112,7 @@ def test_phase_collapsed_up_conv_matches_nearest_conv(hw):
     assert got.shape == want.shape == (2, 6, 2 * hw[0], 2 * hw[1])
     torch.testing.assert_close(got, want, rtol=0, atol=UPCONV_ATOL)
     # a swapped phase pad is caught
-    k2 = rrdbnet.phase_kernels(conv.weight)[0]
+    k2 = phase_kernels(conv.weight)[0]
     wrong = F.conv2d(F.pad(x, (0, 1, 0, 1)), k2) + conv.bias.view(1, -1, 1,
                                                                   1)
     assert (wrong - want[:, :, ::2, ::2]).abs().max() > 100 * UPCONV_ATOL

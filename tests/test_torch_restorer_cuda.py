@@ -1,7 +1,8 @@
 """The restorer's CUDA-graph forward on the card: every replay equals
 the eager forward of the same restorer bit for bit, at B=1 and B=16, in
-bf16 (the kernels) and fp32 (the plain path), and each forward hands the
-codebook lookup one index tensor of its own.
+bf16 (the kernels) and fp32 (the plain path), each forward hands the
+codebook lookup one index tensor of its own, and the launch counter
+reads the same after a capture or a replay as after an eager forward.
 
 Marked `card`: skipped without a CUDA device. This file imports no JAX,
 so the card's machine runs it without the repository's conftest:
@@ -14,6 +15,7 @@ import pytest
 
 torch = pytest.importorskip('torch')
 
+from codeformer_tpu_torch.kernels.build import launch_counts, reset_launch_counts  # noqa: E402
 from codeformer_tpu_torch.models import CodeFormer  # noqa: E402
 from codeformer_tpu_torch.pipeline import restorer as restorer_mod  # noqa: E402
 from codeformer_tpu_torch.pipeline.restorer import CodeFormerRestorer  # noqa: E402
@@ -31,11 +33,11 @@ def card():
         pytest.skip('needs a CUDA card: CUDA graphs capture only there')
 
 
-def _restorer(dtype):
+def _restorer(dtype, quant=None):
     torch.manual_seed(0)
     return CodeFormerRestorer(device='cuda', dtype=dtype,
                               model=CodeFormer(**TINY), face_size=64,
-                              batch_buckets=(1, 16))
+                              batch_buckets=(1, 16), quant=quant)
 
 
 def _batches(bsz, n, seed=0):
@@ -131,3 +133,23 @@ def test_keys_interleave_in_one_pool(card):
     assert len({g.a.pool() for g in r._graphs.values()}) == 1
     for k, y in got:
         assert torch.equal(y, want[k]), k
+
+
+@pytest.mark.parametrize('quant', [None, 'int8'])
+def test_replays_count_what_they_launch(card, quant):
+    """A capture records launches without running them and a replay runs
+    them: after the capture and after each replay the counter reads
+    what the eager forward launched (K1/K2, or the int8 path's
+    _int_mm calls)."""
+    r = _restorer(torch.bfloat16, quant)
+    (x,) = _batches(16, 1, seed=5)
+    reset_launch_counts()
+    with restorer_mod.eager_forwards():
+        r.restore_device(x)
+    eager = launch_counts()
+    assert eager['int_mm' if quant else 'conv3x3_dots'] > 0
+    for _ in range(3):                  # the capture, then two replays
+        reset_launch_counts()
+        r.restore_device(x)
+        assert launch_counts() == eager
+    assert r.graph_counts() == {'captures': 1, 'replays': 2, 'eager': 1}

@@ -16,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip('torch')
 
+from codeformer_tpu_torch.kernels.build import launch_counts, reset_launch_counts  # noqa: E402
 from codeformer_tpu_torch.models.rrdbnet import RRDBNet  # noqa: E402
 from codeformer_tpu_torch.ops import conv3x3 as cv  # noqa: E402
 from codeformer_tpu_torch.pipeline.realesrgan import RealESRGANer  # noqa: E402
@@ -79,11 +80,11 @@ def test_kernel_matches_the_plain_version(card, cin, cout, off, epi, shape):
         before[..., :cin], weight, bias, out_of(before, nxt0).clone(), epi,
         s1, out_of(before, nxt0) if epi == 'rrdb' else None)
     out = out_of(buf, nxt)
-    cv.reset_launch_counts()
+    reset_launch_counts()
     got = cv.conv3x3_dense(buf[..., :cin], weight, bias, out, epi, s1,
                            out if epi == 'rrdb' else None)
     torch.cuda.synchronize()
-    assert cv.launch_counts()['conv3x3_dense'] == 1
+    assert launch_counts()['conv3x3_dense'] == 1
     assert got.data_ptr() == out.data_ptr()
     # the same bf16 products summed in fp32 in another order, one rounding
     assert _bf16_ulps(out, want) <= 2.0
@@ -124,15 +125,15 @@ def test_whole_rrdbnet_fused_against_eager_and_fp32(card, monkeypatch):
     tiles = torch.rand((4, 3, 480, 480), generator=g, device='cuda')
     with torch.inference_mode():
         ref = model32(tiles).clamp(0, 1)
-    cv.reset_launch_counts()
+    reset_launch_counts()
     up.reset_tile_counts()
     fused = up._fwd(tiles)
     torch.cuda.synchronize()
-    assert cv.launch_counts()['conv3x3_dense'] == DENSE_PER_FORWARD
+    assert launch_counts()['conv3x3_dense'] == DENSE_PER_FORWARD
     assert up.tile_counts()['fused_calls'] == 1
     monkeypatch.setattr(up.model, 'uses_dense_trunk', lambda feat: False)
     eager = up._fwd(tiles)
-    assert cv.launch_counts()['conv3x3_dense'] == DENSE_PER_FORWARD
+    assert launch_counts()['conv3x3_dense'] == DENSE_PER_FORWARD
     assert up.tile_counts()['fused_calls'] == 1
     ref255 = torch.round(ref.float() * 255.0)
     err_fused = (fused.float() - ref255).abs().mean().item()
@@ -150,11 +151,11 @@ def test_every_forward_of_the_walk_counted(card):
                       tile_pad=40, dtype=torch.bfloat16, device='cuda')
     frames = torch.randint(0, 256, (2, 512, 683, 3), dtype=torch.uint8,
                            device='cuda')
-    cv.reset_launch_counts()
+    reset_launch_counts()
     out = up.upscale_frames_device(frames)
     torch.cuda.synchronize()
     counts = up.tile_counts()
     assert out.shape == (2, 1024, 1366, 3)
     assert counts['calls'] == 2 and counts['fused_calls'] == counts['calls']
-    assert cv.launch_counts()['conv3x3_dense'] == \
+    assert launch_counts()['conv3x3_dense'] == \
         DENSE_PER_FORWARD * counts['fused_calls']
