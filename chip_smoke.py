@@ -18,6 +18,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      (the launch on prepared operands), whole-call, plain and library
      times (for K1 the library call is a cuDNN conv of the same shape,
      the conv alone);
+  3b. the stage-entry statistics (entry_stats: [sum, sumsq] a channel
+     in one read of the map, in slots) at every entry map of a forward at
+     B=16, the timed maps at B=1 and a ragged map: every slot against the
+     exact sums, planted faults that must fail (a slot left unwritten, a
+     thread's last pixels dropped, channels shifted by 8), kernel,
+     whole-call and torch channel_stats times against the bytes bound,
+     and a forward's statistics per face;
   4. K3 (nearest code) against its plain version at the token counts of
      stage II and latent-GT generation, on four codebooks (K = 1024 and
      512; exact lowest index on duplicated rows), z in fp32 and bf16, a
@@ -235,6 +242,13 @@ REL_RMS_BOUND = 1e-3
 # signs) are off by several times the bound in the worst slot of every
 # call (PERF.md, Findings)
 STATS_BOUND = 1e-4
+# the stage-entry statistics (entry_stats) are held slot by slot to the
+# same bound: their grouped fp32 sums of up to 7,944 pixels a slot read
+# 1.1e-7 to 2.1e-7 on an H100 (PERF.md, Findings); a slot left
+# unwritten, a thread's last pixels dropped and channels shifted by 8 read
+# 4e-3 and up
+CALL_BOUNDS = {'conv3x3_dots': REL_RMS_BOUND, 'downsample_dots':
+               REL_RMS_BOUND, 'channel_stats': STATS_BOUND}
 # whole model, kernel path vs plain-op reference forward: lq_feat and
 # logits rel RMS read 0.0089 and 0.011 (rounding flips compound over 60
 # convs), code-index agreement 0.9746 (random weights give 1024 close
@@ -295,6 +309,24 @@ K2_CASES = [  # (B, H=W, C): the forward's five at B=2, a map ragged
     # against the tile, and the serving batch
     (BATCH, 512, 64), (BATCH, 256, 128), (BATCH, 128, 128), (BATCH, 64, 256),
     (BATCH, 32, 256), (BATCH, 72, 128), (8, 512, 64)]
+# the stage-entry statistics (ops/conv3x3.py entry_stats,
+# csrc/channel_stats.cu): every entry map of a serving forward, (H=W, C,
+# entries a forward; 33 in all), from 16^2 x 512 to 512^2 x 128
+STATS_ENTRY_SHAPES = (
+    (512, 64, 4), (512, 128, 1), (256, 64, 1), (256, 128, 3), (256, 256, 1),
+    (128, 128, 3), (128, 256, 2), (64, 128, 1), (64, 256, 3), (64, 512, 1),
+    (32, 256, 3), (32, 512, 2), (16, 256, 1), (16, 512, 7))
+# (B, H, W, C): the timed maps at B = 16 and 1, the 512^2 x 128 first (the
+# kernels line's row), every other entry map at B = 16, and one ragged
+# against the slots whose threads have pixels left after their groups of
+# four (the kernel's ragged tail)
+STATS_TIMED = ((16, 512, 512, 128), (1, 512, 512, 128), (16, 512, 512, 64),
+               (1, 512, 512, 64), (16, 256, 256, 256), (1, 256, 256, 256))
+STATS_CASES = STATS_TIMED + tuple(
+    (16, h, h, c) for h, c, _ in STATS_ENTRY_SHAPES
+    if (16, h, h, c) not in STATS_TIMED) + ((3, 37, 53, 96),)
+STATS_FAULTS = ('skipped slot', 'ragged tail dropped',
+                'channels shifted by 8')
 
 
 def card_line() -> str:
@@ -423,6 +455,82 @@ def k1_stats_err(st: torch.Tensor, y: torch.Tensor, th: int) -> float:
     exact, scale = k1_slot_sums(y, th)
     return float(((st.double() - exact).abs()
                   / scale.clamp_min(1e-30)).max())
+
+
+def stats_errors(st: torch.Tensor, x: torch.Tensor) -> tuple:
+    """(relative, absolute) error of the worst slot and channel of
+    statistics `st` (B, slots, 2, C) of the map x against the exact
+    (fp64) sums over each slot: |st - exact| relative to sum |x| (for the
+    sum) or sum x^2 (for the sum of squares), and its largest absolute
+    value. One slot is the whole map (channel_stats); more are
+    stats_slot_plan's. Another layout reads (inf, inf)."""
+    from codeformer_tpu_torch.ops import conv3x3 as cv
+    bsz, h, w, c = x.shape
+    n = h * w if st.shape[1] == 1 else cv.stats_slot_plan(
+        bsz, h * w, c, cv._num_sms(x.device.index or 0))[1]
+    exact, scale = stats_slot_sums(x, n)
+    if exact.shape != st.shape:
+        return math.inf, math.inf
+    d = (st.double() - exact).abs()
+    return float((d / scale.clamp_min(1e-30)).max()), float(d.max())
+
+
+def stats_slot_sums(x: torch.Tensor, n: int):
+    """([sum x, sum x^2], [sum |x|, sum x^2]) in fp64 over each slot of n
+    pixels of each image of x (B, H, W, C), the last slot ragged: (B,
+    ceil(H W / n), 2, C) each."""
+    import torch.nn.functional as F
+    bsz, h, w, c = x.shape
+    hw = h * w
+    slots = -(-hw // n)
+    sums, scales = [], []
+    for img in x.reshape(bsz, hw, c):      # an image at a time: fp64 copies
+        v = F.pad(img.double(), (0, 0, 0, slots * n - hw)) \
+            .reshape(slots, n, c)
+        sq = v.square().sum(1)
+        sums.append(torch.stack([v.sum(1), sq], 1))
+        scales.append(torch.stack([v.abs().sum(1), sq], 1))
+    return torch.stack(sums), torch.stack(scales)
+
+
+def stats_planted(kind: str):
+    """A deliberately wrong entry_stats, as a control the bounds must
+    catch: what the kernel would write with the fault.
+      'skipped slot'           the middle slot of each image never
+                               written (left zero);
+      'ragged tail dropped'    the pixels each thread has left after its
+                               groups of four (csrc/channel_stats.cu) not
+                               read;
+      'channels shifted by 8'  every thread's sums written 8 channels on
+                               (the last 8 wrapped round to the first).
+    None where the fault has nothing to act on (no thread has a tail)."""
+    from codeformer_tpu_torch.ops import conv3x3 as cv
+    kernel = cv.entry_stats      # the kernel, not a stand-in patched later
+
+    def run(x):
+        if kind == 'skipped slot':
+            st = kernel(x).clone()
+            st[:, st.shape[1] // 2] = 0
+            return st
+        if kind == 'channels shifted by 8':
+            return kernel(x).roll(8, -1)
+        if kind != 'ragged tail dropped':
+            raise ValueError(kind)
+        bsz, h, w, c = x.shape
+        hw = h * w
+        n = cv.stats_slot_plan(bsz, hw, c,
+                               cv._num_sms(x.device.index or 0))[1]
+        rows = cv.STATS_THREADS // (c // 8)      # pixels a block step
+        p = torch.arange(hw, device=x.device)
+        i = p % n                                # its place in its slot
+        length = (hw - (p - i)).clamp(max=n)     # its slot's pixels
+        r = i % rows                             # the thread row reading it
+        mine = (length - r + rows - 1) // rows   # that row's pixels
+        keep = i // rows < mine // 4 * 4
+        if bool(keep.all()):
+            return None
+        return kernel(x * keep.view(1, h, w, 1).to(x.dtype))
+    return run
 
 
 def k2_fault(x, weight, bias):
@@ -1466,6 +1574,82 @@ def phase_kernels():
     return results
 
 
+def phase_stats():
+    """The stage-entry statistics kernel (entry_stats,
+    csrc/channel_stats.cu) at STATS_CASES: every slot within STATS_BOUND
+    of the exact (fp64) sums of its pixels, planted faults that must fail;
+    at the B=16 maps and STATS_TIMED the kernel (the launch on a prepared
+    launch), the whole call and torch's channel_stats (the plain version,
+    five launches, as the library yardstick) against the bytes bound; the
+    statistics of a B=16 forward's 33 entries, per face."""
+    from codeformer_tpu_torch.ops import conv3x3 as cv
+    g = torch.Generator(device='cuda').manual_seed(2)
+    per_face = {'kernel': 0.0, 'torch': 0.0, 'bound': 0.0}
+    entries = {(16, h, h, c): k for h, c, k in STATS_ENTRY_SHAPES}
+    rows = []
+    print(f'stage-entry statistics ({card_line()}): bf16 NHWC in, fp32 '
+          f'(B, slots, 2, C) out; every slot within {STATS_BOUND} of the '
+          f'fp64 sums of its pixels (relative to sum |x|, sum x^2); kernel = '
+          f'the launch on a prepared launch, call = entry_stats, torch = '
+          f'channel_stats (the plain version, five launches); ms per launch, '
+          f'median of 5 runs of 20 [min, max]', flush=True)
+    for bsz, h, w, c in STATS_CASES:
+        x = (torch.randn(bsz, h, w, c, generator=g, device='cuda') * 2
+             + 0.5).to(torch.bfloat16)
+        st = cv.entry_stats(x)
+        torch.cuda.synchronize()
+        launch = cv.prepare_stats(x)
+        slots = launch.out.shape[1]
+        err, abs_err = stats_errors(st, x)
+        ok = st.shape == (bsz, slots, 2, c) and err <= STATS_BOUND
+        faults = {}
+        for kind in STATS_FAULTS:
+            got = stats_planted(kind)(x)
+            if got is not None:
+                faults[kind] = stats_errors(got, x)[0]
+        caught = all(v > STATS_BOUND for v in faults.values())
+        name = f'stats B={bsz} {h}x{w}x{c}'
+        line = (f'  {name:30s} slots {slots} x {launch.slot_pixels} px  err '
+                f'{err:.3g} (<= {STATS_BOUND})')
+        timed = (bsz, h, w, c) in STATS_TIMED or (bsz, h, w, c) in entries
+        if timed:
+            ms = time_ms(lambda: cv.launch_stats(launch))
+            cms = time_ms(lambda: cv.entry_stats(x))
+            lms = time_ms(lambda: cv.channel_stats(x))
+            elems = bsz * h * w * c
+            lim = bound(2 * elems, 2 * elems + 8 * bsz * slots * c,
+                        FP32_FLOPS)
+            line += (f'  kernel {ms:.4f} {ms.spread()} ms  call {cms:.4f} ms'
+                     f'  torch {lms:.4f} {lms.spread()} ms  bound '
+                     f'{lim["bound_ms"]:.4f} ms ({lim["bound_by"]}, '
+                     f'{lim["bound_ms"] / ms:.1%} of it)')
+            k = entries.get((bsz, h, w, c), 0)
+            for key, t in (('kernel', ms), ('torch', lms),
+                           ('bound', lim['bound_ms'])):
+                per_face[key] += k * t / bsz
+            rows.append(dict(shape=name, max_abs_err=abs_err, stats_err=err,
+                             ms=ms, call_ms=cms, plain_ms=lms,
+                             library_ms=lms, **lim))
+        print(line + f'  {"ok" if ok else "FAIL"}; planted faults: '
+              + ', '.join(f'{k} {v:.3g}' for k, v in faults.items())
+              + f' {"FAIL as they must" if caught else "PASS (bound too loose)"}',
+              flush=True)
+        if not ok:
+            raise SystemExit(f'chip_smoke: {name} disagrees with the exact '
+                             f'sums')
+        if not caught or 'ragged tail dropped' not in faults and \
+                (bsz, h, w, c) == STATS_CASES[-1]:
+            raise SystemExit(f'chip_smoke: {name}: a planted fault passes '
+                             f'the bound, or the ragged map has no tail')
+        del x, st, launch
+    print(f'  a B=16 forward\'s {sum(entries.values())} entries, per face: '
+          f'kernel {per_face["kernel"]:.4f} ms, torch channel_stats '
+          f'{per_face["torch"]:.4f} ms, bound {per_face["bound"]:.4f} ms',
+          flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
 def _faces(rng, n, size=512):
     """Seeded smooth uint8 BGR images (low-frequency noise, upsampled)."""
     lo = rng.uniform(0, 255, (n, 16, 16, 3))
@@ -1483,6 +1667,17 @@ def count_resblocks(model, enable_fuse: bool) -> int:
         n -= sum(isinstance(m, ResBlock)
                  for m in model.fuse_convs_dict.modules())
     return n
+
+
+def forward_launches(n_res: int, forwards: int = 1, n_down: int = 5,
+                     tail: int = 1) -> dict:
+    """K1, K2 and stage-entry statistics launches of `forwards` forwards
+    through n_res ResBlocks (two K1 and one entry_stats each) and n_down
+    Downsamples, plus the decoder tail's K1 and entry_stats (tail 1; 0
+    for an encoder alone)."""
+    return {'conv3x3_dots': forwards * (2 * n_res + tail),
+            'downsample_dots': forwards * n_down,
+            'channel_stats': forwards * (n_res + tail)}
 
 
 @torch.no_grad()
@@ -1519,15 +1714,14 @@ def phase_slice():
     rng = np.random.default_rng(0)
     requests = [(3, 0.5, n_res_fused), (1, 0.0, n_res_plain),
                 (1, 1.0, n_res_fused)]
-    main_counts = {'conv3x3_dots': 0, 'downsample_dots': 0}
+    main_counts = dict.fromkeys(forward_launches(0), 0)
     for n, w, n_res in requests:
         faces = _faces(rng, n, size)
         reset_launch_counts()
         out = restorer.restore_batch(faces, w=w)
         torch.cuda.synchronize()
         counts = launch_counts()
-        want = dict(NO_LAUNCHES, conv3x3_dots=2 * n_res + 1,
-                    downsample_dots=n_down)
+        want = dict(NO_LAUNCHES, **forward_launches(n_res, n_down=n_down))
         print(f'  request: {n} face(s) w={w}: launches {counts} '
               f'(expected {want})', flush=True)
         if counts != want:
@@ -1557,7 +1751,8 @@ def phase_slice():
     def against(label, k1, k2):
         with torch.inference_mode(), mock.patch.multiple(
                 cv, conv3x3_dots=takes_prepared(k1),
-                downsample_dots=takes_prepared(k2)):
+                downsample_dots=takes_prepared(k2),
+                entry_stats=cv.channel_stats):
             out_r, logits_r, lq_r = model(xn, 0.5, adain=True)
         diff = (img_k - restorer.denormalize(out_r).float()).abs()
         r = dict(lq=rel_rms(lq_k, lq_r), logits=rel_rms(logits_k, logits_r),
@@ -1598,9 +1793,15 @@ def phase_slice():
                          'fault K2 symmetric pad pass')
     worst = per_call(model, xn, 'kernels', cv.conv3x3_dots,
                      cv.downsample_dots)
-    if max(worst.values()) > REL_RMS_BOUND:
+    if not calls_within(worst):
         raise SystemExit('chip_smoke: a kernel call of the forward '
                          'disagrees with its plain version')
+    worst = per_call(model, xn, 'planted fault: statistics channels '
+                     'shifted by 8', cv.conv3x3_dots, cv.downsample_dots,
+                     stats=stats_planted('channels shifted by 8'))
+    if worst['channel_stats'] <= STATS_BOUND:
+        raise SystemExit('chip_smoke: the per-call bound lets the planted '
+                         'fault statistics channels shifted by 8 pass')
     for fault in K1_MODEL_FAULTS:
         worst = per_call(model, xn, f'planted fault: K1 {fault}',
                          k1_fault(fault), cv.downsample_dots_ref)
@@ -1614,14 +1815,18 @@ def phase_slice():
 
 
 def per_call(model, xn, label, k1, k2, w=0.5, adain=True,
-             enable_fuse=True) -> dict:
-    """Run one forward (w, adain, enable_fuse) with K1/K2 served by (k1,
-    k2) and hold every call against the plain version on that call's own
-    inputs: the main path's real activations, where the whole-forward
-    comparison sees only compounded rounding noise. Returns the worst rel
-    RMS by op."""
+             enable_fuse=True, stats=None) -> dict:
+    """Run one eager forward (w, adain, enable_fuse) with K1/K2 served by
+    (k1, k2) and the stage-entry statistics by `stats` (None: the
+    kernel), and hold every call against the plain version on that
+    call's own inputs: the main path's real activations, where the
+    whole-forward comparison sees only compounded rounding noise. Returns
+    the worst error by op: rel RMS for K1/K2, stats_errors' relative
+    error for the statistics (`calls_within` holds each to its bound)."""
     from codeformer_tpu_torch.ops import conv3x3 as cv
-    errs = {'conv3x3_dots': [], 'downsample_dots': []}
+    from codeformer_tpu_torch.pipeline.restorer import eager_forwards
+    errs = {'conv3x3_dots': [], 'downsample_dots': [], 'channel_stats': []}
+    stats = stats or cv.entry_stats
     # the kernels take the modules' kept operands; a plain stand-in
     # ignores them
     k1 = k1 if k1 is cv.conv3x3_dots else takes_prepared(k1)
@@ -1639,15 +1844,26 @@ def per_call(model, xn, label, k1, k2, w=0.5, adain=True,
             rel_rms(y, cv.downsample_dots_ref(x, weight, bias)))
         return y
 
-    with torch.inference_mode(), mock.patch.multiple(
-            cv, conv3x3_dots=shadow1, downsample_dots=shadow2):
+    def shadow3(x):
+        st = stats(x)
+        errs['channel_stats'].append(stats_errors(st, x)[0])
+        return st
+
+    with torch.inference_mode(), eager_forwards(), mock.patch.multiple(
+            cv, conv3x3_dots=shadow1, downsample_dots=shadow2,
+            entry_stats=shadow3):
         model(xn, w, adain=adain, enable_fuse=enable_fuse)
     worst = {k: max(v) for k, v in errs.items()}
     print(f'  per call, {label} vs plain on the same inputs: ' + '; '.join(
-        f'{k} {len(v)} calls, rel_rms {min(v):.3g}..{max(v):.3g}, '
-        f'{sum(e > REL_RMS_BOUND for e in v)} above {REL_RMS_BOUND}'
-        for k, v in errs.items()), flush=True)
+        f'{k} {len(v)} calls, {"stats" if k == "channel_stats" else "rel_rms"}'
+        f' {min(v):.3g}..{max(v):.3g}, {sum(e > CALL_BOUNDS[k] for e in v)} '
+        f'above {CALL_BOUNDS[k]}' for k, v in errs.items()), flush=True)
     return worst
+
+
+def calls_within(worst: dict) -> bool:
+    """Whether every op's worst call of per_call is within its bound."""
+    return all(v <= CALL_BOUNDS[k] for k, v in worst.items())
 
 
 def _rate(restorer, xb, w=0.5, adain=True) -> float:
@@ -1668,8 +1884,9 @@ def _rate(restorer, xb, w=0.5, adain=True) -> float:
 
 
 def plain_ops():
-    """Patch K1/K2 to their plain versions in bf16 (cuDNN conv): the
-    port's forward as plain PyTorch, for timing."""
+    """Patch K1/K2 to their plain versions in bf16 (cuDNN conv) and the
+    stage-entry statistics to channel_stats: the port's forward as plain
+    PyTorch, for timing."""
     from codeformer_tpu_torch.ops import conv3x3 as cv
     from codeformer_tpu_torch.pipeline.restorer import eager_forwards
     stack = contextlib.ExitStack()
@@ -1678,7 +1895,8 @@ def plain_ops():
         cv, conv3x3_dots=takes_prepared(functools.partial(
             cv.conv3x3_dots_ref, compute_dtype=torch.bfloat16)),
         downsample_dots=takes_prepared(functools.partial(
-            cv.downsample_dots_ref, compute_dtype=torch.bfloat16))))
+            cv.downsample_dots_ref, compute_dtype=torch.bfloat16)),
+        entry_stats=cv.channel_stats))
     return stack
 
 
@@ -1775,6 +1993,7 @@ def phase_train_profile(trainer, iters: int = 3):
 TRAIN_BATCH = 4           # batch_size_per_gpu of the config
 TRAIN_STEPS = 8
 ENCODE_LAUNCHES = {'conv3x3_dots': 28, 'downsample_dots': 5,
+                   'channel_stats': 14,
                    'nearest_code': 1,   # one frozen HQ encode, per microbatch
                    'conv3x3_bias': 0, 'conv3x3_dense': 0,
                    'fused_lrelu_fwd': 0, 'fused_lrelu_bwd': 0, 'int_mm': 0}
@@ -2615,8 +2834,7 @@ def phase_latent_gt():
         n_calls = len(x) // LATENT_BATCH
         want = dict(NO_LAUNCHES, nearest_code=n_calls)
         if dtype == torch.bfloat16:
-            want.update(conv3x3_dots=28 * n_calls,
-                        downsample_dots=5 * n_calls)
+            want.update(forward_launches(14, n_calls, tail=0))
         if got != want:
             raise SystemExit(f'chip_smoke: generate_latent_gt {name} '
                              f'launched {got}, expected {want}')
@@ -3224,7 +3442,7 @@ def wi_pipeline_check(pipe, chunk, n_faces: int):
         worst = per_call(restorer.model, xn,
                          f'whole-image crops (m={plan.m}), {label}', k1, k2)
         return (same_out and float(win.mean()) <= WI_FRAME_DIFF_BOUND,
-                max(worst.values()) <= REL_RMS_BOUND)
+                calls_within(worst))
 
     if not (same_restore and all(check('kernels', out_k, cv.conv3x3_dots,
                                        cv.downsample_dots))):
@@ -3316,11 +3534,10 @@ def phase_whole_image(restorer, profile: bool = False) -> dict:
         torch.cuda.synchronize()
         got = launch_counts()
         fwd = n_chunks * -(-n_faces * WI_CHUNK // top)
-        want = {'conv3x3_dots': fwd * (2 * n_res + 1),
-                'downsample_dots': fwd * 5}
+        want = forward_launches(n_res, fwd)
         print(f'  main path, {n_faces} face(s) a frame: m={pipe.last_plan.m} '
               f'faces a chunk, {fwd // n_chunks} restorer forward(s) of '
-              f'<= {top} a chunk; launches {got} (expected K1/K2 {want})',
+              f'<= {top} a chunk; launches {got} (expected {want})',
               flush=True)
         if {k: got[k] for k in want} != want or any(
                 v for k, v in got.items() if k not in want):
@@ -3537,9 +3754,9 @@ def phase_tasks() -> dict:
         out = restorer.restore_batch(bgr, w=w, adain=adain)
         torch.cuda.synchronize()
         got = launch_counts()
-        want = {'conv3x3_dots': 2 * n_res + 1, 'downsample_dots': 5}
-        print(f'  restore_batch, 3 faces: launches {got} (expected K1/K2 '
-              f'{want})', flush=True)
+        want = forward_launches(n_res)
+        print(f'  restore_batch, 3 faces: launches {got} (expected {want})',
+              flush=True)
         if {k: got[k] for k in want} != want or any(
                 v for k, v in got.items() if k not in want):
             raise SystemExit(f'chip_smoke: {task} launch counts differ (a '
@@ -3582,7 +3799,7 @@ def phase_tasks() -> dict:
         worst = per_call(model, xn, f'{task} B=2, kernels', cv.conv3x3_dots,
                          cv.downsample_dots, **fwd)
         if not task_forward_check(restorer, 'kernels', kern, plain) \
-                or max(worst.values()) > REL_RMS_BOUND:
+                or not calls_within(worst):
             raise SystemExit(f'chip_smoke: the {task} forward disagrees with '
                              f'its plain version')
         halo = k1_fault('halo act(b)')
@@ -3690,9 +3907,9 @@ def phase_classic(restorer) -> dict:
         restored = restorer.restore_batch(crops, w=0.5, adain=True)
         torch.cuda.synchronize()
         got = launch_counts()
-        want = {'conv3x3_dots': 2 * n_res + 1, 'downsample_dots': 5}
+        want = forward_launches(n_res)
         print(f'  {n_faces} face(s): restore_batch launches {got} (expected '
-              f'K1/K2 {want})', flush=True)
+              f'{want})', flush=True)
         if {k: got[k] for k in want} != want or any(
                 v for k, v in got.items() if k not in want) or any(
                 np.array_equal(r, c) for r, c in zip(restored, crops)):
@@ -4015,8 +4232,8 @@ def phase_classic_upsample(restorer, up) -> dict:
         restored, faces, canvas, pids = run()
         torch.cuda.synchronize()
         got = launch_counts()
-        want = {'conv3x3_dots': 2 * n_res + 1, 'downsample_dots': 5,
-                'conv3x3_dense': dense_launches([up])}
+        want = dict(forward_launches(n_res),
+                    conv3x3_dense=dense_launches([up]))
         print(f'  {n_faces} face(s): launches {got} (expected K1/K2 from '
               f'restore_batch and the upsampler\'s dense trunk, '
               f'{up.tile_counts()["fused_calls"]} forwards: {want}); faces '
@@ -4221,8 +4438,7 @@ def phase_vqgan():
         out_k, loss_k, stats_k = model(xn)
     torch.cuda.synchronize()
     got = launch_counts()
-    want = {'conv3x3_dots': 2 * n_res + 1, 'downsample_dots': 5,
-            'nearest_code': 1}
+    want = dict(forward_launches(n_res), nearest_code=1)
     print(f'VQAutoEncoder.forward, full width, bf16, B=2: launches {got} '
           f'(expected {want}); codebook loss {float(loss_k):.5g}, '
           f'perplexity {float(stats_k["perplexity"]):.4g}', flush=True)
@@ -4627,8 +4843,7 @@ def phase_vqgan_cli():
         y = ivq.reconstruct(m16, x, torch.bfloat16)
     torch.cuda.synchronize()
     counts = launch_counts()
-    want = dict(NO_LAUNCHES, conv3x3_dots=2 * n_res + 1, downsample_dots=5,
-                nearest_code=1)
+    want = dict(NO_LAUNCHES, **forward_launches(n_res), nearest_code=1)
     print(f'inference_vqgan core, full width, bf16, B={VQGAN_CLI_BATCH}: '
           f'launches {counts} (expected {want}); output '
           f'{tuple(y.shape)} {y.dtype}', flush=True)
@@ -4717,8 +4932,7 @@ def restorer_launches(restorer, n_faces: int, fuse: bool) -> dict:
     chunks = -(-n_faces // restorer.batch_buckets[-1])
     n_res = count_resblocks(restorer.model, enable_fuse=fuse)
     n_down = sum(isinstance(m, Downsample) for m in restorer.model.modules())
-    return dict(NO_LAUNCHES, conv3x3_dots=chunks * (2 * n_res + 1),
-                downsample_dots=chunks * n_down)
+    return dict(NO_LAUNCHES, **forward_launches(n_res, chunks, n_down))
 
 
 def shared_restorer(made: list):
@@ -4995,8 +5209,8 @@ def phase_cli_files() -> dict:
         m = models.pop()
         n_res = sum(isinstance(x, ResBlock) for x in m.modules())
         calls = -(-len(paths) // 4)
-        want = dict(NO_LAUNCHES, conv3x3_dots=calls * (2 * n_res + 1),
-                    downsample_dots=calls * 5, nearest_code=calls)
+        want = dict(NO_LAUNCHES, **forward_launches(n_res, calls),
+                    nearest_code=calls)
         x = torch.from_numpy(np.stack([cv2.imread(p)[..., ::-1]
                                        for p in paths[:4]])).cuda()
         ref = ivq.reconstruct(m, x, torch.bfloat16).cpu().numpy()
@@ -6310,6 +6524,9 @@ def phase_train_files(numpy_rate: float) -> dict:
 KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
     'conv3x3_dense': ('codeformer_tpu_torch/csrc/conv3x3_dense.cu',
                       'none: the JAX package runs RRDBNet on XLA convs'),
+    'channel_stats': ('codeformer_tpu_torch/csrc/channel_stats.cu',
+                      'none: the JAX package leaves colpack_stats '
+                      '(codeformer_tpu/ops/colpack_conv.py:197) to XLA'),
     'conv3x3_dots': ('codeformer_tpu_torch/csrc/conv3x3_dots.cu',
                      'codeformer_tpu/ops/colpack_conv.py:376'),
     'downsample_dots': ('codeformer_tpu_torch/csrc/downsample_dots.cu',
@@ -6332,6 +6549,7 @@ def main():
     sys.path.insert(0, ROOT)
     phase_build()
     results = phase_kernels()
+    results['channel_stats'] = phase_stats()
     k3_rows, k3_calls = phase_k3()
     k4_rows, conv_rows, ops_counts = phase_ops()
     dense_rows = phase_rrdb_dense()
@@ -6436,7 +6654,8 @@ def main():
                                           multi_counts, vqcli_counts,
                                           cli_counts, files_counts,
                                           train_files_counts)
-                       for k in ('conv3x3_dots', 'downsample_dots')) \
+                       for k in ('conv3x3_dots', 'downsample_dots',
+                                 'channel_stats')) \
             or not all(ops_counts[k] > 0 for k in (
                 'conv3x3_bias', 'fused_lrelu_fwd', 'fused_lrelu_bwd')):
         raise SystemExit('chip_smoke: a kernel never launched on its path')

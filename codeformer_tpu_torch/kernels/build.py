@@ -38,6 +38,7 @@ SIGNATURES = {
     'cf_conv3x3_dots': [_P] * 10 + [_I] * 16 + [_P],
     'cf_conv3x3_bias': [_P] * 5 + [_I] * 13 + [_P],
     'cf_conv3x3_dense': [_P] * 7 + [_I] * 18 + [_P],
+    'cf_channel_stats': [_P] * 2 + [_I] * 6 + [_P],
     'cf_downsample_dots': [_P] * 5 + [_I] * 12 + [_P],
     'cf_nearest_code': [_P, _I, _P, _P, _P] + [_I] * 7 + [_P],
     'cf_nearest_code_resident': [_I] * 4,

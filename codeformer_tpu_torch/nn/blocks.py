@@ -188,7 +188,8 @@ class ResBlock(nn.Module):
     """GroupNorm -> SiLU -> 3x3 conv, twice, plus the (projected) skip
     (vqgan_arch.py:141-164). With `use_kernels`, two K1 calls:
 
-      1. entry stats (fp32 sums) -> gn_affine -> K1(silu) = y1 + its stats
+      1. entry stats (cv.entry_stats: fp32 sums in one read of x) ->
+         gn_affine -> K1(silu) = y1 + its stats
       2. gn_affine(y1 stats) -> K1(silu, skip = x_in or x_in @ conv_out)
 
     The projected skip multiplies the RAW block input; conv_out's bias is
@@ -258,7 +259,7 @@ class ResBlock(nn.Module):
         hw = x.shape[1] * x.shape[2]
         kept = self.kernel_operands() if on_card(x) else None
         ops1, ops2, bias2 = kept or (None, None, self._conv2_bias())
-        a1, b1 = cv.gn_affine(cv.channel_stats(x), self.norm1.weight,
+        a1, b1 = cv.gn_affine(cv.entry_stats(x), self.norm1.weight,
                               self.norm1.bias, hw)
         y1, st1 = cv.conv3x3_dots(x, a1, b1, 'silu', self.conv1.weight,
                                   self.conv1.bias, prepared=ops1)
@@ -279,7 +280,7 @@ def decoder_tail(norm: GroupNorm32, conv: Conv2d, x: torch.Tensor,
     if not use_kernels:
         return conv(norm(x))
     xh = nhwc(x)
-    a, b = cv.gn_affine(cv.channel_stats(xh), norm.weight, norm.bias,
+    a, b = cv.gn_affine(cv.entry_stats(xh), norm.weight, norm.bias,
                         xh.shape[1] * xh.shape[2])
     y, _ = cv.conv3x3_dots(xh, a, b, 'none', conv.weight, conv.bias,
                            prepared=prepared)

@@ -15,16 +15,19 @@ packing (which only fills the TPU's 128-lane matrix unit):
                   channel prefix and out a channel slice of wider NHWC
                   buffers: RRDBNet's dense blocks without concatenation
                   (no TPU kernel: the JAX package runs XLA's convs)
-  channel_stats   the stats of a stage entry (colpack_stats)
+  entry_stats     the [sum, sumsq] of a stage entry in one read of the
+                  map, in slots (no TPU kernel: the JAX package leaves
+                  colpack_stats to XLA); plain version `channel_stats`
   gn_affine       GroupNorm(32, eps 1e-6) folded into a per-channel a, b
 
 Dispatch: a tensor on the CPU goes to the plain PyTorch version
-(`*_ref`); a CUDA tensor launches the hand-written kernel or raises:
-K1 csrc/conv3x3_dots.cu, conv3x3_bias csrc/conv3x3_bias.cu, K2
-csrc/downsample_dots.cu and the dense conv csrc/conv3x3_dense.cu, all
-on the Hopper conv core
+(`*_ref`, `channel_stats`); a CUDA tensor launches the hand-written
+kernel or raises: K1 csrc/conv3x3_dots.cu, conv3x3_bias
+csrc/conv3x3_bias.cu, K2 csrc/downsample_dots.cu and the dense conv
+csrc/conv3x3_dense.cu, all on the Hopper conv core
 csrc/conv_sm90.cuh (TMA, wgmma, persistent blocks), whose tiling
-`conv_plan` chooses here. There is no fallback from the kernel to
+`conv_plan` chooses here, and entry_stats csrc/channel_stats.cu, whose
+slots `stats_slot_plan` chooses. There is no fallback from the kernel to
 the plain version. The kernels are forward-only, as the TPU kernels were
 (no VJP): their outputs carry no autograd history, so the CUDA branch
 refuses to run where autograd would record through it. Training runs
@@ -64,19 +67,45 @@ def channel_stats(x: torch.Tensor) -> torch.Tensor:
                        dim=1)[:, None]
 
 
+# Mirrors of csrc/channel_stats.cu's constants: the slots are chosen here
+# and only checked there.
+STATS_THREADS = 256            # a block's threads, C / 8 of them a pixel
+STATS_BLOCKS_PER_SM = 4        # blocks resident on an SM (launch bounds)
+STATS_MIN_SLOT_BYTES = 32768   # the least a block reads, enough to stream
+
+
+@functools.lru_cache(maxsize=None)
+def stats_slot_plan(bsz: int, hw: int, c: int,
+                    num_sms: int = 132) -> Tuple[int, int]:
+    """(slots, n) of entry_stats on B maps of hw pixels and c channels:
+    slot s of an image sums its pixels [s n, min(hw, (s + 1) n)), so the
+    slots cover every pixel once and none is empty. As many slots as give
+    the kernel's grid (slots, B) STATS_BLOCKS_PER_SM blocks an SM, one
+    wave that fills the card at any B, but none that reads less than
+    STATS_MIN_SLOT_BYTES."""
+    if bsz < 1 or hw < 1:
+        raise ValueError(f'no slots for B={bsz}, {hw} pixels')
+    want = max(1, STATS_BLOCKS_PER_SM * num_sms // bsz)
+    cap = max(1, hw * c * 2 // STATS_MIN_SLOT_BYTES)
+    n = -(-hw // min(want, cap, hw))
+    return -(-hw // n), n
+
+
 def gn_affine(stats: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
               n_pixels: int, num_groups: int = 32,
               eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fold GroupNorm into gn(x) = a*x + b per (sample, channel).
 
-    stats: (B, slots, 2, C) partial [sum, sumsq] (channel_stats, or
-    K1's one slot a tile: stats_slots); n_pixels: H*W.
+    stats: (B, slots, 2, C) partial [sum, sumsq] (entry_stats, or K1's
+    one slot a tile: stats_slots); n_pixels: H*W.
     var = E[x^2] - mean^2 in fp32, as colpack_conv.gn_affine, clamped at
     0 as flax's GroupNorm clamps it: on a near-constant bf16 map rounding
-    takes it below -eps, where rsqrt would give NaN. Returns (a, b), each
-    (B, C) fp32 contiguous.
+    takes it below -eps, where rsqrt would give NaN. The slots are summed
+    in fp64 and rounded once to fp32, so that the sums do not lose
+    precision with the number of slots (a single slot passes unchanged).
+    Returns (a, b), each (B, C) fp32 contiguous.
     """
-    s = stats.float().sum(1)                         # (B, 2, C)
+    s = stats.sum(1, dtype=torch.float64).float()    # (B, 2, C)
     bsz, _, c = s.shape
     per = c // num_groups
     g = s.reshape(bsz, 2, num_groups, per).sum(-1)   # (B, 2, G)
@@ -84,9 +113,10 @@ def gn_affine(stats: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     mean = g[:, 0] / cnt
     var = (g[:, 1] / cnt - mean * mean).clamp_min(0)
     rstd = torch.rsqrt(var + eps)
-    a = rstd.repeat_interleave(per, 1) * gamma.float()[None]
-    b = beta.float()[None] - mean.repeat_interleave(per, 1) * a
-    return a.contiguous(), b.contiguous()
+    # a group's values broadcast over its channels: no repeated copies
+    a = rstd[..., None] * gamma.float().view(num_groups, per)
+    b = beta.float().view(num_groups, per) - mean[..., None] * a
+    return a.reshape(bsz, c), b.reshape(bsz, c)
 
 
 # ------------------------------------------------------ plain versions
@@ -638,6 +668,54 @@ def conv3x3_bias(x: torch.Tensor, weight: torch.Tensor,
     if cout % CHUNK and cout != 3:
         raise ValueError(f'Cout={cout} must be a multiple of {CHUNK} or 3')
     return launch_conv(prepare_conv(x, conv_operands(weight, bias), 1))
+
+
+# ------------------------------------------- the stage entry's statistics
+class StatsLaunch(NamedTuple):
+    """Everything one launch of the statistics kernel needs."""
+    x: torch.Tensor
+    out: torch.Tensor              # (B, slots, 2, C) fp32
+    slot_pixels: int               # n of stats_slot_plan
+
+
+def prepare_stats(x: torch.Tensor) -> StatsLaunch:
+    """The statistics kernel's checks, its slots and its output."""
+    bsz, h, w, c = x.shape
+    _check_act_map('x', x, c)
+    if c > STATS_THREADS * 8:
+        raise ValueError(f'x: {c} channels, the kernel takes at most '
+                         f'{STATS_THREADS * 8}')
+    if x.numel() == 0:
+        return StatsLaunch(x, torch.zeros((bsz, 1, 2, c), dtype=torch.float32,
+                                          device=x.device), 0)
+    slots, n = stats_slot_plan(bsz, h * w, c, _num_sms(x.device.index or 0))
+    return StatsLaunch(x, torch.empty((bsz, slots, 2, c),
+                                      dtype=torch.float32, device=x.device),
+                       n)
+
+
+def launch_stats(c: StatsLaunch) -> torch.Tensor:
+    """Launch the statistics kernel on a prepared launch; returns its
+    output."""
+    if c.x.numel() == 0:
+        return c.out
+    bsz, h, w, ch = c.x.shape
+    launch('channel_stats', c.x.data_ptr(), c.out.data_ptr(), bsz, h * w, ch,
+           c.out.shape[1], c.slot_pixels, on=c.x)
+    return c.out
+
+
+def entry_stats(x: torch.Tensor) -> torch.Tensor:
+    """The statistics of a GroupNorm stage's entry: (B, H, W, C) -> (B,
+    slots, 2, C) fp32 partial [sum, sumsq] over H, W, which gn_affine
+    sums. On the CPU `channel_stats` (one slot); on CUDA one read of the
+    map by csrc/channel_stats.cu, with stats_slot_plan's slots: bf16 x,
+    contiguous, C a multiple of 32 up to 2048."""
+    if x.device.type == 'cpu':
+        return channel_stats(x)
+    _refuse_autograd('channel_stats', x)
+    _need_cuda(x)
+    return launch_stats(prepare_stats(x))
 
 
 # ------------------------------------------------------ the dense conv

@@ -112,9 +112,11 @@ def test_kernel_sources_and_signatures():
     names = {p.name for p in build._sources()}
     assert names == {'conv3x3_dots.cu', 'downsample_dots.cu',
                      'nearest_code.cu', 'fused_act.cu', 'conv_sm90.cuh',
-                     'conv3x3_bias.cu', 'conv3x3_dense.cu'}
+                     'conv3x3_bias.cu', 'conv3x3_dense.cu',
+                     'channel_stats.cu'}
     assert {'cf_conv3x3_bias', 'cf_downsample_dots', 'cf_fused_lrelu_fwd',
-            'cf_fused_lrelu_bwd', 'cf_conv3x3_dense'} <= set(build.SIGNATURES)
+            'cf_fused_lrelu_bwd', 'cf_conv3x3_dense',
+            'cf_channel_stats'} <= set(build.SIGNATURES)
     src = '\n'.join(p.read_text() for p in build._sources())
     scalars = {'int': ctypes.c_int, 'long long': ctypes.c_longlong,
                'double': ctypes.c_double}
